@@ -1,0 +1,71 @@
+"""MRI classifier: Med3D ResNet backbone + configurable head (Anat_CNN).
+
+Port of ``multimodal_alzheimer_tpu/models/mri_models/anat_cnn.py``
+(reference: pkg/models/mri_models/anat_cnn.py:13-136). Consumes batch key
+'mri' of shape (B, D, H, W), the JAX package's public layout, and returns
+``{'logits', 'embeddings': {'backbone_gap'}}``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from multimodal_alzheimer_tpu_torch.models.heads import ClassifierHead3D
+from multimodal_alzheimer_tpu_torch.models.layers import reset_parameters
+from multimodal_alzheimer_tpu_torch.models.resnet3d import (
+    FEATURE_WIDTH,
+    MedicalNetResNet3D,
+)
+
+
+class AnatCNN(nn.Module):
+    def __init__(self, n_classes: int, resnet_depth: int = 18,
+                 conv_out: Sequence[int] = (),
+                 filter_size: Sequence[int] = (),
+                 linear_out: Sequence[int] = (),
+                 batchnorm_begin: bool = False,
+                 batchnorm_conv: bool = False,
+                 batchnorm_dense: bool = False,
+                 trailing_relu: bool = True,
+                 freeze_backbone: bool = False,
+                 dilated: bool = True,
+                 input_key: str = "mri",
+                 device=None,
+                 generator: torch.Generator | None = None):
+        """``generator`` draws the initial weights (torch's global RNG when
+        None); it must live on ``device``. ``freeze_backbone`` is kept for
+        training code and has no effect at eval."""
+        super().__init__()
+        if resnet_depth not in FEATURE_WIDTH:
+            raise ValueError(
+                "hparams['resnet_depth'] is not in [10, 18, 34, 50]")
+        self.n_classes = n_classes
+        self.freeze_backbone = freeze_backbone
+        self.input_key = input_key
+        self.backbone = MedicalNetResNet3D(resnet_depth, dilated,
+                                           device=device)
+        self.head = ClassifierHead3D(
+            FEATURE_WIDTH[resnet_depth], n_classes, conv_out, filter_size,
+            linear_out, batchnorm_begin, batchnorm_conv, batchnorm_dense,
+            trailing_relu, device=device)
+        reset_parameters(self, generator)
+
+    @classmethod
+    def from_hparams(cls, hparams: dict, **overrides) -> "AnatCNN":
+        kwargs = ClassifierHead3D.kwargs_from_hparams(hparams)
+        kwargs["resnet_depth"] = hparams.get("resnet_depth", 18)
+        # The reference freezes the backbone when ``lr_pretrained`` is None
+        # (anat_cnn.py:111-126); derived only when the key is present.
+        if "lr_pretrained" in hparams:
+            kwargs["freeze_backbone"] = not hparams["lr_pretrained"]
+        kwargs.update(overrides)
+        return cls(**kwargs)
+
+    def forward(self, batch: dict) -> dict:
+        x = batch[self.input_key]
+        if x.ndim == 4:
+            x = x.unsqueeze(1)  # (B, D, H, W) -> NCDHW
+        return self.head(self.backbone(x.to(torch.float32)))
