@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multimodal_alzheimer_tpu_torch.utils.device import resolve_device
+
 
 class StagedSample:
     """A sample copied to the device at submit time: ``.arrays`` maps key ->
@@ -32,8 +34,9 @@ def _to_numpy(tree, n: int):
 
 class Predictor:
     def __init__(self, model: torch.nn.Module, batch_size: int = 32,
-                 preprocess=None, device="cpu", ladder=None):
-        """Serve ``model`` (moved to ``device`` and set to eval) on batches.
+                 preprocess=None, device="cuda", ladder=None):
+        """Serve ``model`` (moved to ``device``, the card unless the caller
+        asks for the CPU, and set to eval) on batches.
 
         ``preprocess`` maps a raw batch dict of tensors on the device to the
         model's inputs (``data.preprocess.make_device_preprocess``).
@@ -41,10 +44,7 @@ class Predictor:
         batch pads to the smallest rung that fits it. Results are the same
         per-sample computation at every rung.
         """
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} asked for, but CUDA "
-                               f"is not available")
+        self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
         rungs = sorted({int(r) for r in (ladder or ())} | {int(batch_size)})

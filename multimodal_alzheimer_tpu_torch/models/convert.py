@@ -10,7 +10,11 @@ follow the flax tree (``models/resnet3d.py``, ``models/heads.py``):
 
 The conversion is strict: a flax leaf with no counterpart, a model entry with
 no flax leaf, or a shape mismatch raises. Flax keeps no batch counter, so
-``num_batches_tracked`` is set to 0.
+``num_batches_tracked`` is set to 0 where a module has one.
+
+``flax_from_state_dict`` is the inverse: a port ``state_dict`` back to the
+flax tree, so updated parameters and running statistics can be held to the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -67,4 +71,46 @@ def state_dict_from_flax(variables, model: nn.Module) -> dict:
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"model entries with no flax leaf: {missing}")
+    return out
+
+
+def _kernel_to_flax(arr: np.ndarray) -> np.ndarray:
+    """Inverse of ``_to_torch_layout`` for a conv or Dense weight."""
+    if arr.ndim == 5:
+        return arr.transpose(2, 3, 4, 1, 0)
+    if arr.ndim == 2:
+        return arr.T
+    return arr
+
+
+def flax_from_state_dict(state_dict: dict) -> dict:
+    """Port ``state_dict`` -> flax ``{'params', 'batch_stats'}`` (numpy).
+
+    A module with ``running_mean`` is a BatchNorm: its ``weight`` becomes
+    ``scale`` and its statistics go to ``batch_stats``; any other ``weight``
+    is a conv or Dense ``kernel``.
+    """
+    modules = {key.rpartition(".")[0] for key in state_dict
+               if key.endswith(".running_mean")}
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        module, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = value.detach().cpu().numpy()
+        if module in modules:
+            collection = ("batch_stats" if leaf.startswith("running_")
+                          else "params")
+            name = {"weight": "scale", "bias": "bias",
+                    "running_mean": "mean", "running_var": "var"}[leaf]
+        elif leaf == "weight":
+            collection, name, arr = "params", "kernel", _kernel_to_flax(arr)
+        elif leaf == "bias":
+            collection, name = "params", "bias"
+        else:
+            raise KeyError(f"no flax counterpart for {key}")
+        node = out[collection]
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
     return out

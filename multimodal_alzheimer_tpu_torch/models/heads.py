@@ -7,6 +7,8 @@ Port of ``multimodal_alzheimer_tpu/models/heads.py``:
 ``trailing_relu`` (default on) reproduces the reference's ReLU on the logits
 (anat_cnn.py:77). ``embeddings['backbone_gap']`` is the (optionally BN'd)
 GAP feature taken before the conv ladder, the fusion stages' input.
+The head's BatchNorms are flax's, or torch's running statistics with
+``bn_torch_stats``; never the fused kernels, as in JAX.
 """
 
 from __future__ import annotations
@@ -18,8 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_alzheimer_tpu_torch.models.layers import (
-    batch_norm1d,
-    batch_norm3d,
+    batch_norm,
     global_avg_pool,
     max_pool3d,
 )
@@ -40,10 +41,12 @@ class ClassifierHead3D(nn.Module):
                  batchnorm_conv: bool = False,
                  batchnorm_dense: bool = False,
                  trailing_relu: bool = True,
+                 bn_torch_stats: bool = False,
                  device=None):
         super().__init__()
         self.trailing_relu = trailing_relu
-        self.bn_begin = (batch_norm3d(in_features, device)
+        bn_kind = "torch_stats" if bn_torch_stats else False
+        self.bn_begin = (batch_norm(in_features, bn_kind, device)
                          if batchnorm_begin else None)
         self.convs = []  # (conv name, bn name or None, kernel)
         width = in_features
@@ -53,7 +56,7 @@ class ClassifierHead3D(nn.Module):
             bn = None
             if batchnorm_conv:
                 bn = f"bn_conv_{i}"
-                self.add_module(bn, batch_norm3d(features, device))
+                self.add_module(bn, batch_norm(features, bn_kind, device))
             self.convs.append((f"conv_{i}", bn, kernel))
             width = features
         self.denses = []  # (dense name, bn name or None)
@@ -63,7 +66,7 @@ class ClassifierHead3D(nn.Module):
             bn = None
             if batchnorm_dense:
                 bn = f"bn_dense_{i}"
-                self.add_module(bn, batch_norm1d(features, device))
+                self.add_module(bn, batch_norm(features, bn_kind, device))
             self.denses.append((f"dense_{i}", bn))
             width = features
         self.cls = nn.Linear(width, n_classes, device=device)
@@ -100,4 +103,5 @@ class ClassifierHead3D(nn.Module):
             batchnorm_begin=bool(hparams.get("batchnorm_begin", False)),
             batchnorm_conv=bool(hparams.get("batchnorm_conv", False)),
             batchnorm_dense=bool(hparams.get("batchnorm_dense", False)),
+            bn_torch_stats=bool(hparams.get("bn_torch_stats", False)),
         )

@@ -32,12 +32,18 @@ class AnatCNN(nn.Module):
                  trailing_relu: bool = True,
                  freeze_backbone: bool = False,
                  dilated: bool = True,
+                 fused_bn=False,
+                 bn_torch_stats: bool = False,
                  input_key: str = "mri",
                  device=None,
                  generator: torch.Generator | None = None):
         """``generator`` draws the initial weights (torch's global RNG when
-        None); it must live on ``device``. ``freeze_backbone`` is kept for
-        training code and has no effect at eval."""
+        None); it must live on ``device``. ``fused_bn`` picks the backbone's
+        BatchNorm (``models.layers.batch_norm``); ``bn_torch_stats`` gives
+        backbone and head torch's running statistics and overrides it.
+        ``freeze_backbone`` cuts the gradient below the head, so a frozen
+        backbone runs no backward; its BatchNorm statistics still update in
+        train mode."""
         super().__init__()
         if resnet_depth not in FEATURE_WIDTH:
             raise ValueError(
@@ -45,12 +51,13 @@ class AnatCNN(nn.Module):
         self.n_classes = n_classes
         self.freeze_backbone = freeze_backbone
         self.input_key = input_key
-        self.backbone = MedicalNetResNet3D(resnet_depth, dilated,
-                                           device=device)
+        self.backbone = MedicalNetResNet3D(
+            resnet_depth, dilated, device=device,
+            fused_bn="torch_stats" if bn_torch_stats else fused_bn)
         self.head = ClassifierHead3D(
             FEATURE_WIDTH[resnet_depth], n_classes, conv_out, filter_size,
             linear_out, batchnorm_begin, batchnorm_conv, batchnorm_dense,
-            trailing_relu, device=device)
+            trailing_relu, bn_torch_stats, device=device)
         reset_parameters(self, generator)
 
     @classmethod
@@ -68,4 +75,9 @@ class AnatCNN(nn.Module):
         x = batch[self.input_key]
         if x.ndim == 4:
             x = x.unsqueeze(1)  # (B, D, H, W) -> NCDHW
-        return self.head(self.backbone(x.to(torch.float32)))
+        fmap = self.backbone(x.to(torch.float32))
+        if self.freeze_backbone:
+            # torch's requires_grad=False in the reference; JAX's
+            # stop_gradient: no backbone dgrad or wgrad work is done.
+            fmap = fmap.detach()
+        return self.head(fmap)

@@ -14,6 +14,11 @@ Module names follow the flax tree (``conv1``, ``bn1``,
 ``layer{L}_block{B}/{conv1,bn1,...,downsample_conv,downsample_bn}``), so
 ``models/convert.py`` maps weights by name. Layout is NCDHW; padding is
 torch-symmetric ``dilation*(k-1)//2``, as in the JAX package.
+
+``fused_bn`` picks every backbone BatchNorm (20 in ResNet-18) through
+``models.layers.batch_norm``: False (flax), ``"full"``/True (the Hopper
+kernels), ``"hybrid"`` or ``"torch_stats"``. Train mode follows
+``module.train()``.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_alzheimer_tpu_torch.models.layers import batch_norm3d
+from multimodal_alzheimer_tpu_torch.models.layers import batch_norm
 
 BLOCK_CONFIGS = {
     10: ("basic", (1, 1, 1, 1)),
@@ -45,17 +50,17 @@ class BasicBlock3D(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, device=None):
+                 dilation: int = 1, device=None, fused_bn=False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride, dilation, device)
-        self.bn1 = batch_norm3d(planes, device)
+        self.bn1 = batch_norm(planes, fused_bn, device)
         self.conv2 = _conv(planes, planes, 3, 1, dilation, device)
-        self.bn2 = batch_norm3d(planes, device)
+        self.bn2 = batch_norm(planes, fused_bn, device)
         self.downsample_conv = self.downsample_bn = None
         if stride != 1 or inplanes != planes:
             self.downsample_conv = _conv(inplanes, planes, 1, stride,
                                          device=device)
-            self.downsample_bn = batch_norm3d(planes, device)
+            self.downsample_bn = batch_norm(planes, fused_bn, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -70,20 +75,20 @@ class Bottleneck3D(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, device=None):
+                 dilation: int = 1, device=None, fused_bn=False):
         super().__init__()
         out_ch = planes * self.expansion
         self.conv1 = _conv(inplanes, planes, 1, device=device)
-        self.bn1 = batch_norm3d(planes, device)
+        self.bn1 = batch_norm(planes, fused_bn, device)
         self.conv2 = _conv(planes, planes, 3, stride, dilation, device)
-        self.bn2 = batch_norm3d(planes, device)
+        self.bn2 = batch_norm(planes, fused_bn, device)
         self.conv3 = _conv(planes, out_ch, 1, device=device)
-        self.bn3 = batch_norm3d(out_ch, device)
+        self.bn3 = batch_norm(out_ch, fused_bn, device)
         self.downsample_conv = self.downsample_bn = None
         if stride != 1 or inplanes != out_ch:
             self.downsample_conv = _conv(inplanes, out_ch, 1, stride,
                                          device=device)
-            self.downsample_bn = batch_norm3d(out_ch, device)
+            self.downsample_bn = batch_norm(out_ch, fused_bn, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -103,12 +108,13 @@ class MedicalNetResNet3D(nn.Module):
     shapes.
     """
 
-    def __init__(self, depth: int = 18, dilated: bool = True, device=None):
+    def __init__(self, depth: int = 18, dilated: bool = True, device=None,
+                 fused_bn=False):
         super().__init__()
         block_kind, layout = BLOCK_CONFIGS[depth]
         block = BasicBlock3D if block_kind == "basic" else Bottleneck3D
         self.conv1 = _conv(1, 64, 7, stride=2, device=device)
-        self.bn1 = batch_norm3d(64, device)
+        self.bn1 = batch_norm(64, fused_bn, device)
         if dilated:  # (planes, stride, dilation) per Med3D resnet.py
             specs = [(64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4)]
         else:
@@ -120,7 +126,7 @@ class MedicalNetResNet3D(nn.Module):
                 name = f"layer{li}_block{bi}"
                 self.add_module(name, block(inplanes, planes,
                                             stride if bi == 0 else 1,
-                                            dilation, device))
+                                            dilation, device, fused_bn))
                 self.block_names.append(name)
                 inplanes = planes * block.expansion
 

@@ -35,15 +35,6 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _on_cuda(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain version for device {x.device}")
-
-
 def _rows(volume: torch.Tensor, mask: torch.Tensor):
     """(B, N) contiguous float32 views of a (B, ...) volume and mask."""
     if volume.shape != mask.shape:
@@ -77,7 +68,7 @@ def _order_stats_kernel(vol: torch.Tensor, mask: torch.Tensor,
     code = lib.minmax_select(
         vol.data_ptr(), mask.data_ptr(), qs.data_ptr(), b, n, n_qs,
         work.data_ptr(), out.data_ptr(), device.index,
-        torch.cuda.current_stream(device).cuda_stream)
+        _native.stream(device))
     _native.check(code, "minmax_select")
     LAUNCHES["minmax_select"] += 1
     return (out[:, 0].to(torch.int64), _decode_keys(out[:, 1::2]),
@@ -100,7 +91,7 @@ def order_stats(volume: torch.Tensor, mask: torch.Tensor,
     """
     vol, msk = _rows(volume, mask)
     qs_t = torch.tensor(qs, dtype=torch.float32, device=vol.device)
-    if _on_cuda(vol):
+    if _native.on_cuda(vol):
         return _order_stats_kernel(vol, msk, qs_t)
     return order_stats_plain(vol, msk, qs_t)
 
@@ -139,7 +130,7 @@ def _minmax_apply_kernel(vol: torch.Tensor, mask: torch.Tensor,
     code = lib.minmax_apply(
         vol.data_ptr(), mask.data_ptr(), q.data_ptr(),
         out.data_ptr(), b, n, device.index,
-        torch.cuda.current_stream(device).cuda_stream)
+        _native.stream(device))
     _native.check(code, "minmax_apply")
     LAUNCHES["minmax_apply"] += 1
     return out
@@ -150,7 +141,7 @@ def minmax_apply(volume: torch.Tensor, mask: torch.Tensor,
     """``clamp((x - qmin) / (qmax - qmin), 0, 1) * mask`` with (B,) per-scan
     bounds, as float32 of the volume's shape."""
     vol, msk = _rows(volume, mask)
-    if _on_cuda(vol):
+    if _native.on_cuda(vol):
         return _minmax_apply_kernel(vol, msk, qmin, qmax).reshape(
             volume.shape)
     return minmax_apply_plain(vol, msk, qmin.to(torch.float32),

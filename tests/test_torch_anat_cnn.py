@@ -121,3 +121,45 @@ def test_seeded_init_is_reproducible():
     wa, wb, wc = (m.backbone.conv1.weight for m in (a, b, c))
     assert torch.equal(wa, wb) and not torch.equal(wa, wc)
 
+
+
+def _kurtosis(w):
+    w = w - w.mean()
+    return float((w ** 4).mean() / (w ** 2).mean() ** 2)
+
+
+def test_init_is_flaxs_truncated_lecun_normal():
+    """800,000 draws for a Dense of fan-in 1000 against flax's
+    ``lecun_normal``: cut at 2 standard deviations of the underlying normal
+    (|w| <= 2 * sqrt(1/fan_in) / 0.8796), variance 1/fan_in, and the cut
+    normal's kurtosis (about 2.37; an uncut normal has 3). The standard
+    error of the standard deviation is 0.08% here, of the kurtosis about
+    0.003; the bounds are five of each."""
+    from multimodal_alzheimer_tpu_torch.models.layers import reset_parameters
+    from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
+
+    fan_in = 1000
+    layer = torch.nn.Linear(fan_in, 800)
+    reset_parameters(layer, make_generator(0))
+    w = layer.weight.detach().numpy().astype(np.float64).ravel()
+    flax_w = np.asarray(jax.nn.initializers.lecun_normal()(
+        jax.random.PRNGKey(0), (fan_in, 800)), np.float64).ravel()
+    bound = 2.0 * np.sqrt(1.0 / fan_in) / 0.87962566103423978
+    for sample in (w, flax_w):
+        assert np.abs(sample).max() <= bound * (1 + 1e-6)
+        assert np.abs(sample).max() >= 0.999 * bound
+        assert abs(sample.std() * np.sqrt(fan_in) - 1.0) < 0.004
+    assert abs(_kurtosis(w) - _kurtosis(flax_w)) < 0.015
+    assert abs(_kurtosis(w) - 2.37) < 0.02
+    assert not layer.bias.detach().any()
+
+
+def test_model_weights_are_cut_at_two_deviations():
+    from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
+
+    model = AnatCNN(3, 10, linear_out=(16,), generator=make_generator(5))
+    for name, p in model.named_parameters():
+        if name.endswith("weight") and p.ndim > 1:
+            fan_in = p[0].numel()
+            bound = 2.0 * np.sqrt(1.0 / fan_in) / 0.87962566103423978
+            assert float(p.detach().abs().max()) <= bound * (1 + 1e-6), name

@@ -212,3 +212,12 @@ def test_close_without_drain_answers_every_future():
             assert "closed" in str(exc)
         else:
             assert f.result()["logits"].shape == (3,)
+
+
+def test_predictor_runs_on_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        assert Predictor(_Tiny()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Predictor(_Tiny())
+    assert Predictor(_Tiny(), device="cpu").device.type == "cpu"
