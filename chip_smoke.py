@@ -1,11 +1,13 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: MRI serving and training.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: MRI serving, training and
+the entry points from NIfTI files on disk.
 
     python3 chip_smoke.py
 
 Phases, each printing its lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: compiles csrc/minmax_norm.cu and csrc/batch_norm.cu with nvcc for
-     sm_90a, one process per source, into one library;
+  2. build: compiles csrc/minmax_norm.cu, csrc/batch_norm.cu and
+     csrc/zscore_norm.cu with nvcc for sm_90a, one process per source, all
+     started together, into one library; prints ptxas register counts;
   3. min-max kernels against their plain PyTorch versions at the real
      91x109x91 grid, batch 8: order statistics equal, apply within 1e-6;
   4. min-max times: at each serving rung (batch 8 and 32) the kernels are
@@ -30,16 +32,34 @@ Phases, each printing its lines:
      both steps are timed;
   9. training: Trainer.fit, one epoch over 16 training and 8 validation
      scans at batch 8 with fused_bn="full", from a DataLoader on the card,
-     with its launch counts; a top-k checkpoint is loaded back.
+     with its launch counts; a top-k checkpoint is loaded back;
+ 10. the z-score kernel (K3) against its plain version at batch 8 and 32,
+     on N(900, 400) and N(900, 40) scans, with a scan that has no valid
+     voxel and one with a single valid voxel: within 1e-5 * (1 + |plain|),
+     NaN where the plain version has NaN; then kernel and plain times at
+     both batches (median of 20 after 3 warm-ups);
+ 11. the flagship z-score train step (bench.py's configuration in f32):
+     ResNet-18, 3 classes, batch 8 of raw scans z-scored in the step, one
+     K3 launch per step, finite loss, step ms;
+ 12. the entry points from disk: a synthetic split at 91x109x91 written by
+     the port into a temporary directory (MMALZ_DATA_DIR, and the CWD),
+     then train_anat for one epoch (memoised min-max: K2 alone in the
+     step), run_training with the z-score (K3 in every train and
+     validation step) for one epoch, and test_anat_cnn.main() on the best
+     train_anat checkpoint over the paired three-modality test split, each
+     with its launch counts, finite metrics and the checkpoint loaded back.
 Any failed check raises, so the script exits non-zero without printing its
 last line, {"ok": true, "device": {...}}. It needs one card and imports the
-port only.
+port only, and neither pandas, yaml nor the plotting packages: no confusion
+image is rendered.
 """
 
 from __future__ import annotations
 
 import copy
+import glob
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -58,21 +78,30 @@ from multimodal_alzheimer_tpu_torch.data.preprocess import (
 from multimodal_alzheimer_tpu_torch.data.synthetic import (
     ArrayDataset,
     make_labeled_volumes,
+    write_synthetic_split,
 )
+from multimodal_alzheimer_tpu_torch.inference import harness, test_anat_cnn
 from multimodal_alzheimer_tpu_torch.inference.predictor import Predictor
 from multimodal_alzheimer_tpu_torch.inference.server import BatchingServer
 from multimodal_alzheimer_tpu_torch.losses.classification import (
     make_criterion,
 )
+from multimodal_alzheimer_tpu_torch.models.mri_models import train_anat_cnn
 from multimodal_alzheimer_tpu_torch.models.mri_models.anat_cnn import AnatCNN
 from multimodal_alzheimer_tpu_torch.ops import _native, hopper_bn, hopper_norm
 from multimodal_alzheimer_tpu_torch.ops.quantile import interpolate
 from multimodal_alzheimer_tpu_torch.train.checkpoint import load_checkpoint
+from multimodal_alzheimer_tpu_torch.train.driver import (
+    attach_class_weights,
+    build_datasets,
+    run_training,
+)
 from multimodal_alzheimer_tpu_torch.train.logging import ExperimentLogger
 from multimodal_alzheimer_tpu_torch.train.loop import Trainer
 from multimodal_alzheimer_tpu_torch.train.optim import (
     build_optimizer,
     head_pretrained_label_fn,
+    single_lr_optimizer,
 )
 from multimodal_alzheimer_tpu_torch.train.state import (
     TrainState,
@@ -84,19 +113,28 @@ GRID = (91, 109, 91)
 SEED = 0
 QUANTILE = 0.99
 MINMAX = {"per_scan_norm": "min_max"}
+ZSCORE = {"per_scan_norm": "normalize"}
 CSRC = "multimodal_alzheimer_tpu_torch/csrc/"
 SOURCE = {"minmax_select": CSRC + "minmax_norm.cu",
           "minmax_apply": CSRC + "minmax_norm.cu",
+          "zscore": CSRC + "zscore_norm.cu",
           "bn_stats": CSRC + "batch_norm.cu", "bn_apply": CSRC + "batch_norm.cu",
           "bn_grad_sum": CSRC + "batch_norm.cu", "bn_dx": CSRC + "batch_norm.cu"}
 REPLACES = {"minmax_select": "multimodal_alzheimer_tpu/ops/pallas_norm.py:263",
             "minmax_apply": "multimodal_alzheimer_tpu/ops/pallas_norm.py:354",
+            "zscore": "multimodal_alzheimer_tpu/ops/pallas_norm.py:63",
             "bn_stats": "multimodal_alzheimer_tpu/ops/pallas_bn.py:62",
             "bn_apply": "multimodal_alzheimer_tpu/ops/pallas_bn.py:75",
             "bn_grad_sum": "multimodal_alzheimer_tpu/ops/pallas_bn.py:82",
             "bn_dx": "multimodal_alzheimer_tpu/ops/pallas_bn.py:96"}
 BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_sum", "bn_dx")
+NORM_KERNELS = ("minmax_select", "minmax_apply", "zscore")
 APPLY_TOL = 1e-6
+# The z-score kernel against its plain version: |kernel - plain| <= ZSCORE_TOL
+# * (1 + |plain|), NaN where the plain version has NaN. The kernel sums the
+# statistics in double in another order, so the mean and std it rounds to
+# f32 may differ from the plain version's by an ulp or two.
+ZSCORE_TOL = 1e-5
 # BatchNorm shapes of ResNet-18 (dilated) at 91x109x91, batch 8.
 BN_SHAPES = {"stem": (8, 64, 46, 55, 46), "layer4": (8, 512, 12, 14, 12)}
 BN_EPS = 1e-5
@@ -130,6 +168,21 @@ STEP_GRAD_TOL = dict(rtol=2e-3, atol=1e-6)
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 N_REQUESTS, N_CLIENTS = 40, 4
+# The flagship z-score train step (bench.py build_step, in f32).
+ZSCORE_HPARAMS = {"n_classes": 3, "resnet_depth": 18, "linear_out": (),
+                  "batchnorm_begin": False, "lr": 1e-3,
+                  "loss_class_weights": [0.4, 0.3, 0.3]}
+# The split the entry points read: n_subjects (8, 4, 4) from seed 10 at
+# 91x109x91 holds 15 training and 6 validation T1w rows of both binary
+# classes and 5 paired three-modality test rows. (A training split of one
+# class gives that class the weight 1 - 1 = 0, and the weighted loss of a
+# batch of it is 0/0, as in the reference.)
+SPLIT = {"n_subjects": (8, 4, 4), "seed": 10}
+# A fixed trial for train_anat_cnn.sample_hparams: ResNet-18, batch 8.
+TRIAL = {"lr": 1e-3, "freeze": False, "lr_pretrained": 1e-5,
+         "batchnorm_begin": False, "batchnorm_dense": False, "batch_size": 8,
+         "l2_reg": 1e-2, "norm_percentile": 0.99, "fl_gamma": None,
+         "resnet_depth": 18, "linear_out": "()"}
 
 
 def log(msg: str) -> None:
@@ -565,8 +618,8 @@ def phase_serve(model, preprocess, device, grid=GRID) -> dict:
         f"{N_REQUESTS / wall:.2f} requests/s, p50 latency "
         f"{statistics.median(latency) * 1e3:.1f} ms, launches {launches}")
     check(server.samples_served == N_REQUESTS, "every request served")
-    for name, count in launches.items():
-        check(count > 0, f"{name} launched during serving")
+    for name in ("minmax_select", "minmax_apply"):
+        check(launches[name] > 0, f"{name} launched during serving")
     for i, result in enumerate(results):
         single = predictor.predict_batch(_stack([requests[i]]))
         for key, got, want in (
@@ -684,7 +737,7 @@ def phase_train_step(device, grid=GRID, timed_steps: int = 3) -> dict:
     backbone = sum(v * v for k, v in norms.items()
                    if k.startswith("backbone.")) ** 0.5
     check(backbone > 0, "the backbone gradient is nonzero")
-    want = {"minmax_select": 1, "minmax_apply": 1,
+    want = {"minmax_select": 1, "minmax_apply": 1, "zscore": 0,
             **dict.fromkeys(BN_KERNELS, BN_LAYERS)}
     check(launches == want, f"fused step launches {launches} == {want}")
     check(launches_ref == {**want, **dict.fromkeys(BN_KERNELS, 0)},
@@ -740,6 +793,7 @@ def phase_fit(device, grid=GRID, n_train: int = 16, n_val: int = 8) -> dict:
         check(record["val_loss_epoch"] == last, "val loss returned")
         want = {"minmax_select": steps + n_val // hp["batch_size"],
                 "minmax_apply": steps + n_val // hp["batch_size"],
+                "zscore": 0,
                 **dict.fromkeys(BN_KERNELS, BN_LAYERS * steps)}
         check(launches == want, f"fit launches {launches} == {want}")
         names = sorted(os.listdir(checkpoints))
@@ -762,6 +816,280 @@ def phase_fit(device, grid=GRID, n_train: int = 16, n_val: int = 8) -> dict:
     return launches
 
 
+def _zscore_err(got, want, what: str) -> float:
+    """Max |got - want| over finite entries; raises unless NaN and inf sit
+    where the plain version has them and every finite entry is within
+    ZSCORE_TOL * (1 + |want|)."""
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), f"{what}: NaN positions equal")
+    inf = torch.isinf(want)
+    check(torch.equal(torch.isinf(got), inf) and torch.equal(got[inf],
+                                                            want[inf]),
+          f"{what}: inf positions and signs equal")
+    fin = ~(nan | inf)
+    err = (got[fin] - want[fin]).abs()
+    bad = err > ZSCORE_TOL * (1 + want[fin].abs())
+    check(not bool(bad.any()), f"{what}: z-score error "
+          f"{err.max().item()} beyond {ZSCORE_TOL} * (1 + |plain|)")
+    return err.max().item()
+
+
+def zscore_scans(batch: int, std: float, grid, generator, device):
+    """N(900, std) scans and masks > 0.35 as make_labeled_volumes draws
+    them, on the device."""
+    shape = (batch,) + tuple(grid)
+    vol = torch.randn(shape, generator=generator, device=device) * std + 900
+    mask = torch.rand(shape, generator=generator, device=device) > 0.35
+    return vol, mask.to(torch.float32)
+
+
+def phase_zscore(device, batches=(8, 32), grid=GRID) -> tuple:
+    """K3 against its plain version at each batch, on both intensity
+    regimes, also with degenerate scans; then kernel and plain times.
+    Returns (max abs error, {batch: (kernel ms, plain ms)})."""
+    gen = make_generator(SEED + 8, device)
+    err, times = 0.0, {}
+    for batch in batches:
+        for std in (400.0, 40.0):
+            vol, mask = zscore_scans(batch, std, grid, gen, device)
+            rows = _rows(vol, mask)
+            e = _zscore_err(hopper_norm.per_scan_zscore(vol, mask),
+                            hopper_norm.zscore_plain(*rows).reshape(vol.shape),
+                            f"B={batch} N(900, {std:g})")
+            if std == 400.0:
+                times[batch] = (
+                    time_ms(lambda: hopper_norm.per_scan_zscore(vol, mask)),
+                    time_ms(lambda: hopper_norm.zscore_plain(*rows)))
+            mask[1] = 0.0  # no valid voxel: NaN throughout
+            mask[2] = 0.0
+            mask[2].view(-1)[mask.shape[1] // 2] = 1.0  # one: std 0
+            got = hopper_norm.per_scan_zscore(vol, mask)
+            e_deg = _zscore_err(got, hopper_norm.zscore_plain(
+                *_rows(vol, mask)).reshape(vol.shape),
+                f"B={batch} N(900, {std:g}) degenerate")
+            torch.cuda.synchronize()
+            others = [0] + list(range(3, batch))
+            check(bool(torch.isnan(got[1]).all())
+                  and not bool(torch.isfinite(got[2]).any())
+                  and bool(torch.isfinite(got[others]).all()),
+                  "degenerate scans NaN or inf, the others finite")
+            err = max(err, e, e_deg)
+            log(f"[zscore] B={batch} N(900, {std:g}): max abs err {e} "
+                f"(tolerance {ZSCORE_TOL} * (1 + |plain|)); with an empty and "
+                f"a one-voxel scan {e_deg}, NaN and inf positions equal")
+            del vol, mask, rows, got
+        k, p = times[batch]
+        n = batch * int(np.prod(grid))
+        log(f"[zscore times] B={batch} at {grid}: kernel {k:.4f} ms, plain "
+            f"{p:.4f} ms, bound {bound(12 * n, 5 * n)[0]:.4f} ms (function "
+            f"bytes), {bound(20 * n, 5 * n)[0]:.4f} ms (this design's two "
+            f"reads)")
+    return err, times
+
+
+def phase_zscore_step(device, grid=GRID, timed_steps: int = 3) -> float:
+    """bench.py's flagship train step in f32: ResNet-18, 3 classes, batch 8
+    of raw scans z-scored in the step (K3), single-lr Adam; returns the
+    median step ms."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = ZSCORE_HPARAMS
+    rng = np.random.default_rng(0)
+    shape = (8,) + tuple(grid)
+    batch = {"mri": rng.normal(900, 400, shape).astype(np.float32),
+             "mri_mask": (rng.random(shape) > 0.35).astype(np.float32),
+             "label": rng.integers(0, 3, 8).astype(np.int32)}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    model = AnatCNN.from_hparams(hp, generator=make_generator(SEED)).to(
+        device)
+    optimizer = single_lr_optimizer(model, hp["lr"])
+    step = make_train_step(model, make_criterion(hp), optimizer,
+                           make_device_preprocess(normalize_mri=ZSCORE))
+    state = TrainState(model, optimizer)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start = time.perf_counter()
+    state, aux = step(state, batch)
+    loss = aux["loss"].item()
+    first_s = time.perf_counter() - start
+    check(launch_counts() == {**dict.fromkeys(launch_counts(), 0),
+                              "zscore": 1},
+          f"one K3 launch and no other in the z-score step: "
+          f"{launch_counts()}")
+    check(np.isfinite(loss), f"finite z-score step loss {loss}")
+    step_s = []
+    for _ in range(timed_steps):
+        start = time.perf_counter()
+        state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - start)
+    check(hopper_norm.LAUNCHES["zscore"] == 1 + timed_steps,
+          "one K3 launch per step")
+    ms = statistics.median(step_s) * 1e3
+    log(f"[zscore step] ResNet-18, 3 classes, batch 8 at {grid}, f32, "
+        f"z-score in the step: loss {loss}, first step {first_s:.3f} s, "
+        f"then median {ms:.2f} ms over {timed_steps} steps, K3 launches "
+        f"{hopper_norm.LAUNCHES['zscore']}")
+    return ms
+
+
+class FixedTrial:
+    """An optuna-like trial that answers every suggestion from TRIAL."""
+
+    def suggest_float(self, name, low, high, log=False):
+        return TRIAL[name]
+
+    def suggest_categorical(self, name, choices):
+        check(TRIAL[name] in choices, f"{name}={TRIAL[name]} in {choices}")
+        return TRIAL[name]
+
+
+def _epoch_record(log_dir: str) -> dict:
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        record = json.loads(f.readline())
+    check(all(np.isfinite(record[k]) for k in (
+        "train_loss_epoch", "val_loss_epoch", "train_f1_epoch",
+        "val_f1_epoch")), f"finite epoch metrics {record}")
+    return record
+
+
+def _load_back(checkpoint: str, model=None) -> None:
+    """The checkpoint rebuilds its model from its hparams and loads; equal
+    to ``model``'s weights where given."""
+    state_dict, hparams, metrics = load_checkpoint(checkpoint)
+    restored = AnatCNN.from_hparams(hparams)
+    restored.load_state_dict(state_dict)
+    check(metrics is not None and np.isfinite(metrics["val_loss_epoch"]),
+          f"{checkpoint}: finite val loss")
+    if model is not None:
+        check(all(torch.equal(v.cpu(), restored.state_dict()[k])
+                  for k, v in model.state_dict().items()),
+              f"{checkpoint} equals the trained model")
+
+
+def _batches(n: int, batch: int) -> int:
+    return math.ceil(n / batch)
+
+
+def phase_entry_points(device, grid=GRID) -> dict:
+    """train_anat, a z-score run_training and test_anat_cnn.main() on a
+    split written to disk; returns each path's launch counts."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cwd = os.getcwd()
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        start = time.perf_counter()
+        write_synthetic_split(os.path.join(root, "data"),
+                              volume_shape=tuple(grid), **SPLIT)
+        n_files = len(os.listdir(os.path.join(root, "data", "images")))
+        log(f"[entry] wrote the split {SPLIT} at {grid}: {n_files} NIfTI "
+            f"files in {time.perf_counter() - start:.2f} s")
+        os.environ["MMALZ_DATA_DIR"] = os.path.join(root, "data")
+        os.chdir(root)
+        try:
+            hp = train_anat_cnn.sample_hparams(FixedTrial())
+            hp["max_epochs"] = 1
+            trainset, valset = build_datasets(hp, ["t1w"])
+            n_train, n_val = len(trainset), len(valset)
+            check(not np.isnan(trainset.get_label_distribution()[0]).any(),
+                  "every class in the training split")
+            steps = _batches(n_train, hp["batch_size"])
+            val_batches = _batches(n_val, hp["batch_size"])
+
+            reset_launch_counts()
+            start = time.perf_counter()
+            last = train_anat_cnn.train_anat(
+                hp, "chip_smoke_anat", log_confusion_images=False,
+                device=device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches["train_anat"] = launch_counts()
+            run_dir = os.path.join(root, train_anat_cnn.LOG_DIRECTORY,
+                                   "chip_smoke_anat", "version_0")
+            record = _epoch_record(run_dir)
+            check(record["val_loss_epoch"] == last, "val loss returned")
+            want = {**dict.fromkeys(launch_counts(), 0),
+                    "minmax_apply": steps + val_batches}
+            check(launches["train_anat"] == want,
+                  f"train_anat launches {launches['train_anat']} == {want}")
+            best = sorted(glob.glob(os.path.join(run_dir, "checkpoints",
+                                                 "*val_loss=*")))
+            check(len(best) == 1, f"one val-loss checkpoint: {best}")
+            _load_back(best[0])
+            log(f"[entry] train_anat: 1 epoch of {n_train} train + {n_val} "
+                f"val scans from disk at batch {hp['batch_size']} "
+                f"(ResNet-18, memoised min-max): {seconds:.2f} s in all, "
+                f"epoch {record['epoch_time_s']:.2f} s, "
+                f"{record['train_volumes_per_s']:.2f} train volumes/s, val "
+                f"loss {last:.6f}, launches {launches['train_anat']}")
+
+            hp_z = dict(hp)
+            trainset, valset = build_datasets(hp_z, ["t1w"],
+                                              normalize_mri=ZSCORE)
+            attach_class_weights(hp_z, trainset)
+            model = AnatCNN.from_hparams(hp_z,
+                                         generator=make_generator(SEED))
+            optimizer = train_anat_cnn.backbone_head_optimizer(hp_z, model)
+            reset_launch_counts()
+            start = time.perf_counter()
+            trainer, state, last = run_training(
+                model, hp_z, trainset, valset, "chip_smoke_zscore",
+                optimizer=optimizer, log_confusion_images=False,
+                device=device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches["zscore"] = launch_counts()
+            record = _epoch_record(str(trainer.logger.log_dir))
+            trainer.logger.close()
+            want = {**dict.fromkeys(launch_counts(), 0),
+                    "zscore": steps + val_batches}
+            check(state.step == steps, f"{steps} z-score train steps")
+            check(launches["zscore"] == want,
+                  f"z-score run launches {launches['zscore']} == {want}")
+            _load_back(trainer.ckpt_managers[0].best_path, model)
+            log(f"[entry] run_training with the z-score: 1 epoch, "
+                f"{seconds:.2f} s in all, epoch "
+                f"{record['epoch_time_s']:.2f} s, "
+                f"{record['train_volumes_per_s']:.2f} train volumes/s, val "
+                f"loss {last:.6f}, launches {launches['zscore']}")
+
+            with open("path_config.yaml", "w") as f:
+                f.write("relative:\n"
+                        "  test_set_csv: 'data/test_path_data_labels.csv'\n"
+                        f"mri_cnn_2_class: '{best[0]}'\n")
+            n_test = len(harness.build_testset(hp))
+            check(n_test > 0, "the paired three-modality test set has rows")
+            reset_launch_counts()
+            start = time.perf_counter()
+            metrics = test_anat_cnn.main(confusion_pngs=False,
+                                         device=device)["mri_cnn_2_class"]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches["test"] = launch_counts()
+            check(all(np.isfinite(v) for v in metrics.values()),
+                  f"finite test metrics {metrics}")
+            want = {**dict.fromkeys(launch_counts(), 0),
+                    "minmax_apply": _batches(n_test, hp["batch_size"])}
+            check(launches["test"] == want,
+                  f"test launches {launches['test']} == {want}")
+            with open(os.path.join("lightning_logs", "test_set_mri_2_class",
+                                   "version_0", "confusion_matrix.json")) as f:
+                counts = json.load(f)["counts"]
+            check(sum(map(sum, counts)) == n_test,
+                  f"confusion counts {counts} over {n_test} test rows")
+            log(f"[entry] test_anat_cnn.main(): {n_test} paired test rows in "
+                f"{seconds:.2f} s, test loss {metrics['test_loss_epoch']:.6f}"
+                f", F1 {metrics['test_f1_epoch']:.4f} (bootstrap "
+                f"{metrics['test_f1_epoch_boot']:.4f} +- "
+                f"{metrics['test_f1_epoch_ci']:.4f}), confusion counts "
+                f"{counts}, launches {launches['test']}")
+        finally:
+            os.chdir(cwd)
+            os.environ.pop("MMALZ_DATA_DIR", None)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -780,18 +1108,25 @@ def main() -> int:
     del model
     phase_train_step(device)
     fit_launches = phase_fit(device)
+    err["zscore"], zscore_times = phase_zscore(device)
+    phase_zscore_step(device)
+    entry_launches = phase_entry_points(device)
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
     kernels = []
-    for name, nbytes in (("minmax_select", 4 * 2 * n),
-                         ("minmax_apply", 4 * 3 * n)):
-        bound_ms, bound_by = bound(nbytes, 0.0)
+    for name, nbytes, flops, launches, (ms, plain_ms) in (
+            ("minmax_select", 4 * 2 * n, 0.0, serve_launches,
+             times[8]["minmax_select"]),
+            ("minmax_apply", 4 * 3 * n, 0.0, serve_launches,
+             times[8]["minmax_apply"]),
+            ("zscore", 4 * 3 * n, 5.0 * n, entry_launches["zscore"],
+             zscore_times[8])):
+        bound_ms, bound_by = bound(nbytes, flops)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": serve_launches[name],
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], "batch": 8,
-            "shape": [8, int(np.prod(GRID))],
-            "ms": times[8][name][0], "plain_ms": times[8][name][1],
+            "shape": [8, int(np.prod(GRID))], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     stem = BN_SHAPES["stem"]
     bounds = bn_bounds(stem)

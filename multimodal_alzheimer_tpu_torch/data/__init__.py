@@ -1,1 +1,2 @@
-"""Batch preprocessing on the device."""
+"""Host data: manifests, NIfTI I/O, pairing, the dataset, the loader, and
+the batch preprocessing on the device."""

@@ -20,7 +20,8 @@ from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 SOURCES = (_PACKAGE / "csrc" / "minmax_norm.cu",
-           _PACKAGE / "csrc" / "batch_norm.cu")
+           _PACKAGE / "csrc" / "batch_norm.cu",
+           _PACKAGE / "csrc" / "zscore_norm.cu")
 BUILD_DIR = _PACKAGE / "_build"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -118,6 +119,10 @@ def library() -> ctypes.CDLL:
     lib.bn_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
                           i64, ptr]
     lib.bn_dx.restype = ctypes.c_int
+    lib.zscore_workspace_bytes.argtypes = [i64, i64]
+    lib.zscore_workspace_bytes.restype = i64
+    lib.zscore_norm.argtypes = [ptr, ptr, ptr, i64, i64, ptr, i64, ptr]
+    lib.zscore_norm.restype = ctypes.c_int
     return lib
 
 

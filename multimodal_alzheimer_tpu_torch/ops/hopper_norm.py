@@ -1,13 +1,17 @@
-"""Per-scan quantile min-max normalisation: Hopper kernels and plain versions.
+"""Per-scan MRI normalisation: Hopper kernels and plain versions.
 
 Counterpart of ``multimodal_alzheimer_tpu/ops/pallas_norm.py``'s
-``batched_masked_quantiles``, ``per_scan_minmax`` and ``minmax_apply``. Two
-kernels in ``csrc/minmax_norm.cu`` do the work on the card:
+``batched_masked_quantiles``, ``per_scan_minmax``, ``minmax_apply`` and
+``per_scan_zscore``. Three kernels do the work on the card:
 
-* ``minmax_select``: exact per-scan order statistics by an 8-bit digit radix
-  select (the TPU's ``_minmax_select_kernel``);
-* ``minmax_apply``: ``clamp((x - qmin) / (qmax - qmin), 0, 1) * mask`` (the
-  TPU's ``_minmax_apply_kernel``).
+* ``minmax_select`` (``csrc/minmax_norm.cu``): exact per-scan order
+  statistics by an 8-bit digit radix select (the TPU's
+  ``_minmax_select_kernel``);
+* ``minmax_apply`` (same file): ``clamp((x - qmin) / (qmax - qmin), 0, 1) *
+  mask`` (the TPU's ``_minmax_apply_kernel``);
+* ``zscore`` (``csrc/zscore_norm.cu``): ``(x - mean) / std * mask`` with the
+  mean and Bessel-corrected std of each scan's ``{x*mask != 0}`` (the TPU's
+  ``_zscore_stream_kernel``).
 
 Each wrapper takes the plain PyTorch version for CPU tensors only. For a CUDA
 tensor it launches the kernel or raises; no other device is accepted. Every
@@ -25,7 +29,7 @@ from multimodal_alzheimer_tpu_torch.ops.quantile import (
     order_stats_rows,
 )
 
-LAUNCHES = {"minmax_select": 0, "minmax_apply": 0}
+LAUNCHES = {"minmax_select": 0, "minmax_apply": 0, "zscore": 0}
 
 _MAX_QS = 8  # kMaxTargets in csrc/minmax_norm.cu
 
@@ -157,3 +161,43 @@ def per_scan_minmax(volume: torch.Tensor, mask: torch.Tensor,
     """
     quants = batched_masked_quantiles(volume, mask, (quantile, 1.0 - quantile))
     return minmax_apply(volume, mask, quants[:, 1], quants[:, 0])
+
+
+def zscore_plain(vol: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``zscore`` kernel on (B, N) rows: the two-pass
+    mean and std of ``ops/quantile.masked_nonzero_mean_std`` for every scan
+    at once, then ``(x - mean) / std * mask``."""
+    vals = vol * mask
+    valid = vals != 0
+    n = valid.sum(dim=1).to(vol.dtype)
+    mean = torch.where(valid, vals, 0).sum(dim=1) / n
+    sq = torch.where(valid, (vals - mean[:, None]) ** 2, 0)
+    std = torch.sqrt(sq.sum(dim=1) / torch.clamp(n - 1, min=1))
+    return (vol - mean[:, None]) / std[:, None] * mask
+
+
+def _zscore_kernel(vol: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    lib = _native.library()
+    b, n = vol.shape
+    device = vol.device
+    work = torch.empty(lib.zscore_workspace_bytes(b, n), dtype=torch.uint8,
+                       device=device)
+    out = torch.empty_like(vol)
+    code = lib.zscore_norm(vol.data_ptr(), mask.data_ptr(), out.data_ptr(), b,
+                           n, work.data_ptr(), device.index,
+                           _native.stream(device))
+    _native.check(code, "zscore_norm")
+    LAUNCHES["zscore"] += 1
+    return out
+
+
+def per_scan_zscore(volume: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-scan z-score of a (B, ...) batch over each scan's nonzero masked
+    voxels, re-masked (reference: dataloader.py:252-260), as float32 of the
+    volume's shape. Operands of another dtype are cast to float32 first, on
+    both paths. A scan with no valid voxel gives NaN throughout; one with a
+    single valid voxel has std 0."""
+    vol, msk = _rows(volume, mask)
+    if _native.on_cuda(vol):
+        return _zscore_kernel(vol, msk).reshape(volume.shape)
+    return zscore_plain(vol, msk).reshape(volume.shape)

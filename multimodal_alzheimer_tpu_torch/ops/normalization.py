@@ -9,8 +9,9 @@ Supported modes (reference dataloader.py parity):
   * MRI 'all_scan_norm': z-score with precomputed split stats
     (dataloader.py:274-278).
 
-The batched min-max goes through the Hopper kernels of ``ops/hopper_norm``
-on CUDA tensors and through their plain versions on CPU tensors.
+The batched per-scan modes (min-max and z-score) go through the Hopper
+kernels of ``ops/hopper_norm`` on CUDA tensors and through their plain
+versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -113,7 +114,8 @@ def batched_normalize_mri(volume: torch.Tensor, mask: torch.Tensor | None,
                           qminmax: torch.Tensor | None = None) -> torch.Tensor:
     """Batch-level ``normalize_mri`` dispatch over a (B, ...) volume batch.
 
-    min_max takes the kernels' path, or, when ``qminmax`` (B, 2)
+    normalize takes the z-score kernel for the whole batch; min_max takes
+    the min-max kernels' path, or, when ``qminmax`` (B, 2)
     [Q(1-q), Q(q)] memoised per-scan quantiles are supplied, skips the
     selection entirely.
     """
@@ -126,8 +128,7 @@ def batched_normalize_mri(volume: torch.Tensor, mask: torch.Tensor | None,
     if "per_scan_norm" in normalize_mri_cfg:
         mode = normalize_mri_cfg["per_scan_norm"]
         if mode == "normalize":
-            return torch.stack([mri_per_scan_zscore(v, m)
-                                for v, m in zip(volume, mask)])
+            return hopper_norm.per_scan_zscore(volume, mask)
         if mode == "min_max":
             _check_quantile(quantile)
             if qminmax is not None:

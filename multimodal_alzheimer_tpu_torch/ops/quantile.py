@@ -15,6 +15,7 @@ statistics give bit-equal quantiles.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -69,6 +70,37 @@ def masked_nonzero_quantile(volume: torch.Tensor, mask: torch.Tensor | None,
     qs_t = torch.tensor(qs, dtype=torch.float32, device=vals.device)
     n, v_lo, v_hi = order_stats_rows(vals, qs_t)
     return interpolate(n, v_lo, v_hi, qs_t)[0], v_lo[0], v_hi[0]
+
+
+def host_masked_nonzero_quantile(volume: np.ndarray,
+                                 mask: np.ndarray | None,
+                                 qs) -> np.ndarray:
+    """numpy twin of :func:`masked_nonzero_quantile` for host-side memoing.
+
+    Port of JAX ``ops/quantile.py:host_masked_nonzero_quantile``: exact
+    selection by one shared ``np.partition`` over every requested order
+    statistic, with the same f32 rank arithmetic as the device paths, so
+    the memoised bounds equal the radix-select kernel's order statistics
+    bit for bit and its interpolated quantiles to about 1 ulp. The dataset
+    (``data/dataset.py``) computes each sample's min-max bounds once with
+    it.
+    """
+    vals = volume.astype(np.float32, copy=False).ravel()
+    if mask is not None:
+        vals = vals * mask.astype(np.float32, copy=False).ravel()
+    vals = vals[vals != 0.0]
+    n = vals.size
+    if n < 2:
+        raise ValueError(f"need >= 2 valid voxels, got {n}")
+    ranks = [np.float32(q) * np.float32(n - 1) for q in qs]
+    los = [int(np.floor(r)) for r in ranks]
+    his = [min(lo + 1, n - 1) for lo in los]
+    part = np.partition(vals, sorted(set(los + his)))
+    out = np.empty(len(qs), np.float32)
+    for i, (rank, lo, hi) in enumerate(zip(ranks, los, his)):
+        frac = np.float32(rank) - np.float32(lo)
+        out[i] = part[lo] + frac * (part[hi] - part[lo])
+    return out
 
 
 def masked_nonzero_mean_std(volume: torch.Tensor, mask: torch.Tensor | None):

@@ -7,12 +7,21 @@ TensorBoard logging with confusion-matrix images, EarlyStopping on
 ``val_loss_epoch``, two top-k checkpoint managers (val_loss min, val_f1
 max), ReduceLROnPlateau on ``val_loss_epoch``, and a ``val_loss`` history
 whose last entry is the HPO objective (ValidationLossTracker,
-train_pet_cnn.py:17-29). ``test`` adds bootstrap F1 and MCC with CIs and
-saves the three confusion-matrix PNGs (base_model.py:135-217).
+train_pet_cnn.py:17-29). ``test`` adds bootstrap F1 and MCC with CIs,
+writes the confusion counts to ``confusion_matrix.json`` and, when the
+caller asks for them, the three confusion-matrix PNGs (base_model.py:135-217).
+
+Rendering images needs matplotlib, seaborn, pandas and PIL, which a machine
+that only trains may not have: the PNGs of ``test`` (``confusion_pngs``) and
+the per-epoch TensorBoard images (``log_confusion_images``) are each the
+caller's explicit choice, on by default as in the JAX package. Neither
+is skipped quietly when the packages are missing: the import fails.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Callable, Optional
 
@@ -219,9 +228,11 @@ class Trainer:
         return scalars
 
     def test(self, test_loader, out_dir: Optional[str] = None,
-             n_bootstrap: int = 1000) -> dict:
-        """Full test protocol: epoch metrics + bootstrap F1/MCC CIs + the
-        three confusion-matrix PNGs (base_model.py:135-217)."""
+             n_bootstrap: int = 1000, confusion_pngs: bool = True) -> dict:
+        """Full test protocol: epoch metrics, bootstrap F1/MCC CIs, and in
+        ``out_dir`` (the logger's directory by default) the confusion counts
+        as ``confusion_matrix.json`` and, with ``confusion_pngs``, the three
+        confusion-matrix PNGs (base_model.py:135-217)."""
         scalars = self._run_eval_epoch(test_loader, prefix="test")
         logits = self._last_eval["logits"]
         labels = self._last_eval["labels"]
@@ -240,12 +251,19 @@ class Trainer:
         if out_dir is None and self.logger is not None:
             out_dir = str(self.logger.log_dir)
         if out_dir is not None:
-            from multimodal_alzheimer_tpu_torch.metrics.confusion_plot import (
-                save_confusion_matrix_pngs,
-            )
+            cm = self._confusion(logits, labels)
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "confusion_matrix.json"),
+                      "w") as f:
+                json.dump({"labels": self.label_ind_by_names,
+                           "counts": cm.astype(np.int64).tolist()}, f,
+                          indent=2)
+            if confusion_pngs:
+                from multimodal_alzheimer_tpu_torch.metrics.confusion_plot \
+                    import save_confusion_matrix_pngs
 
-            save_confusion_matrix_pngs(self._confusion(logits, labels),
-                                       self.label_ind_by_names, out_dir)
+                save_confusion_matrix_pngs(cm, self.label_ind_by_names,
+                                           out_dir)
         if self.logger is not None:
             self.logger.log_scalars(scalars, 0)
         return scalars

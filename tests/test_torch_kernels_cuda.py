@@ -7,7 +7,9 @@ False. Run them on a machine with an H100 and the CUDA toolkit; there
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
 
 Order statistics must be equal; the min-max apply within 1e-6 absolute
-(both are exact by construction, so any difference is a fault). The
+(both are exact by construction, so any difference is a fault). The z-score
+within 1e-5 * (1 + |plain|) with NaN where the plain version has NaN (the
+kernel's statistics are summed in double in another order). The
 BatchNorm kernels: the elementwise ones (apply, dx) equal to their plain
 versions given the same inputs; the per-channel sums within 1e-6 of the sum
 of the magnitudes of what is added (the order of summation differs).
@@ -117,7 +119,8 @@ def test_memoised_bounds_launch_the_apply_kernel_alone(device):
     torch.cuda.synchronize()
     assert hopper_norm.LAUNCHES == {
         "minmax_select": before["minmax_select"],
-        "minmax_apply": before["minmax_apply"] + 1}
+        "minmax_apply": before["minmax_apply"] + 1,
+        "zscore": before["zscore"]}
     want = hopper_norm.minmax_apply_plain(vol, mask, qminmax[:, 0],
                                           qminmax[:, 1])
     assert (got - want).abs().max().item() <= 1e-6
@@ -127,6 +130,105 @@ def test_select_rejects_too_many_levels(device):
     vol, mask = _scans("normal", 1, (8, 8, 8), seed=5, device=device)
     with pytest.raises(ValueError, match="quantile levels"):
         hopper_norm.order_stats(vol, mask, tuple(np.linspace(0, 1, 9)))
+
+
+# ------------------------------------------------------------ z-score --
+
+ZSCORE_TOL = 1e-5
+
+
+def _check_zscore(got, want):
+    """|got - want| <= 1e-5 * (1 + |want|), NaN exactly where want is."""
+    assert got.shape == want.shape and got.dtype == torch.float32
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    ok = ~nan
+    assert torch.equal(torch.isinf(got[ok]), torch.isinf(want[ok]))
+    fin = ok & torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs()
+    assert bool((err <= ZSCORE_TOL * (1 + want[fin].abs())).all()), \
+        float(err.max())
+
+
+def _zscore_plain(vol, mask):
+    b = vol.shape[0]
+    return hopper_norm.zscore_plain(vol.reshape(b, -1).float(),
+                                    mask.reshape(b, -1).float()
+                                    ).reshape(vol.shape)
+
+
+@pytest.mark.parametrize("shape", [GRID, (19, 23, 17), (7, 5, 3)],
+                         ids=["flagship", "odd", "tiny"])
+@pytest.mark.parametrize("batch", [1, 5])
+@pytest.mark.parametrize("std", [400.0, 40.0])
+def test_zscore_matches_plain(device, shape, batch, std):
+    """N = 902629, 7429 and 105: all odd, so every row past the first
+    starts off a 16-byte boundary; std 40 about a mean of 900 is the case an
+    f32 sum of squares does not survive."""
+    rng = np.random.default_rng(11)
+    vol = torch.tensor(rng.normal(900, std, (batch,) + shape),
+                       dtype=torch.float32, device=device)
+    mask = torch.tensor(rng.random((batch,) + shape) > 0.35,
+                        dtype=torch.float32, device=device)
+    before = hopper_norm.LAUNCHES["zscore"]
+    got = hopper_norm.per_scan_zscore(vol, mask)
+    torch.cuda.synchronize()
+    assert hopper_norm.LAUNCHES["zscore"] == before + 1
+    _check_zscore(got, _zscore_plain(vol, mask))
+
+
+def test_zscore_degenerate_scans(device):
+    """A scan with no valid voxel is NaN throughout, one with a single
+    valid voxel has std 0 (inf and NaN where the plain version has them);
+    the other scans are unaffected."""
+    vol, mask = _scans("normal", 4, GRID, seed=7, device=device)
+    mask[1] = 0.0
+    mask[2] = 0.0
+    mask[2].view(-1)[12345] = 1.0
+    got = hopper_norm.per_scan_zscore(vol, mask)
+    want = _zscore_plain(vol, mask)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[1]).all())
+    assert not bool(torch.isfinite(got[2]).any())
+    assert bool(torch.isfinite(got[[0, 3]]).all())
+    _check_zscore(got, want)
+
+
+def test_zscore_on_a_misaligned_view(device):
+    """Operands one float past a 16-byte boundary take the scalar path."""
+    vol, mask = _scans("normal", 4, (19, 23, 17), seed=8, device=device)
+    flat_v = torch.cat([torch.zeros(1, device=device), vol.reshape(-1)])
+    flat_m = torch.cat([torch.zeros(1, device=device), mask.reshape(-1)])
+    vol, mask = flat_v[1:].view(vol.shape), flat_m[1:].view(mask.shape)
+    assert vol.data_ptr() % 16 == 4
+    _check_zscore(hopper_norm.per_scan_zscore(vol, mask),
+                  _zscore_plain(vol, mask))
+
+
+def test_zscore_casts_other_dtypes_as_the_plain_path(device):
+    """A float16 volume is cast to float32 before the kernel, exactly as
+    the plain path casts it: the result equals the kernel on the cast."""
+    vol, mask = _scans("normal", 2, (19, 23, 17), seed=9, device=device)
+    half = vol.half()
+    got = hopper_norm.per_scan_zscore(half, mask)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, hopper_norm.per_scan_zscore(half.float(), mask))
+    _check_zscore(got, _zscore_plain(half.float(), mask))
+
+
+def test_normalize_preprocess_launches_the_zscore_kernel(device):
+    """``{"per_scan_norm": "normalize"}`` runs the z-score kernel once for
+    the batch, also when the mask is absent (all ones)."""
+    vol, mask = _scans("normal", 3, (19, 23, 17), seed=10, device=device)
+    pre = make_device_preprocess(normalize_mri={"per_scan_norm": "normalize"})
+    for batch, m in (({"mri": vol, "mri_mask": mask}, mask),
+                     ({"mri": vol}, torch.ones_like(vol))):
+        before = dict(hopper_norm.LAUNCHES)
+        got = pre(batch)["mri"]
+        torch.cuda.synchronize()
+        assert hopper_norm.LAUNCHES == dict(before,
+                                            zscore=before["zscore"] + 1)
+        _check_zscore(got, _zscore_plain(vol, m))
 
 
 # ---------------------------------------------------------- BatchNorm --

@@ -1,8 +1,12 @@
 """The PyTorch port imports no JAX-family package and nothing of the JAX
-package.
+package, and needs nothing that the machine with the card lacks.
 
 A static scan: the test process itself has jax loaded (conftest.py), so
-``sys.modules`` cannot tell what the port pulls in.
+``sys.modules`` cannot tell what the port pulls in. The card's machine has
+no pandas, yaml, plotting packages or optuna: no module of the port, and
+not chip_smoke.py, imports one of them at module level, and only the
+confusion-matrix rendering (``metrics/confusion_plot.py``, reached only when
+a caller asks for images) imports plotting packages, inside its functions.
 """
 
 import ast
@@ -14,6 +18,10 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "multimodal_alzheimer_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax",
              "multimodal_alzheimer_tpu"}
+NOT_ON_THE_CARD = {"pandas", "yaml", "matplotlib", "seaborn", "PIL",
+                   "optuna"}
+PLOTTING = {"pandas", "matplotlib", "seaborn", "PIL"}
+RENDERING = PORT / "metrics" / "confusion_plot.py"
 # What the serving front end may import: it runs no tensor code itself.
 SERVER_IMPORTS = {"__future__", "concurrent", "numpy", "queue", "threading",
                   "time", "typing"}
@@ -25,6 +33,23 @@ def _imports(path: Path):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+
+
+def _module_level_imports(path: Path):
+    """Imports that run when the module is imported: every import outside a
+    function body (under ``if`` and ``try`` at module level too)."""
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (alias.name for alias in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module
+            yield from walk(child)
+
+    yield from walk(ast.parse(path.read_text(), str(path)))
 
 
 def _top(name: str) -> str:
@@ -46,3 +71,30 @@ def test_server_imports_only_the_standard_library_and_numpy():
     and never touches a tensor itself."""
     path = PORT / "inference" / "server.py"
     assert {_top(name) for name in _imports(path)} <= SERVER_IMPORTS
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_module_imports_nothing_the_card_lacks_at_module_level(path):
+    for name in _module_level_imports(path):
+        assert _top(name) not in NOT_ON_THE_CARD, \
+            f"{path.name} imports {name} at module level"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_only_the_rendering_route_imports_plotting_packages(path):
+    """yaml and optuna nowhere; pandas and the plotting packages only in
+    the functions of metrics/confusion_plot.py."""
+    allowed = PLOTTING if path == RENDERING else set()
+    for name in _imports(path):
+        top = _top(name)
+        assert top not in NOT_ON_THE_CARD or top in allowed, \
+            f"{path.name} imports {name}"
+
+
+def test_the_scan_sees_function_level_imports():
+    """The rendering module does import the plotting packages, inside
+    functions: the scan must find them there and only there."""
+    assert {_top(n) for n in _imports(RENDERING)} >= PLOTTING
+    assert not {_top(n) for n in _module_level_imports(RENDERING)} & PLOTTING
