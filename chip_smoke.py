@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: MRI serving, training and
-the entry points from NIfTI files on disk.
+the entry points from NIfTI files on disk, and the PET family with the stem
+max-pool backward kernel.
 
     python3 chip_smoke.py
 
 Phases, each printing its lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: compiles csrc/minmax_norm.cu, csrc/batch_norm.cu and
-     csrc/zscore_norm.cu with nvcc for sm_90a, one process per source, all
-     started together, into one library; prints ptxas register counts;
+  2. build: compiles csrc/minmax_norm.cu, csrc/batch_norm.cu,
+     csrc/zscore_norm.cu and csrc/maxpool_bwd.cu with nvcc for sm_90a, one
+     process per source, all started together, into one library; prints
+     ptxas register counts;
   3. min-max kernels against their plain PyTorch versions at the real
      91x109x91 grid, batch 8: order statistics equal, apply within 1e-6;
   4. min-max times: at each serving rung (batch 8 and 32) the kernels are
@@ -41,13 +43,30 @@ Phases, each printing its lines:
  11. the flagship z-score train step (bench.py's configuration in f32):
      ResNet-18, 3 classes, batch 8 of raw scans z-scored in the step, one
      K3 launch per step, finite loss, step ms;
- 12. the entry points from disk: a synthetic split at 91x109x91 written by
+ 12. the max-pool backward kernel (K8) against its plain version at the
+     ResNet-18 stem (8, 64, 46, 55, 46), float32 and bfloat16, on ReLU-zero
+     ties: equal; against aten's max_pool3d_with_indices_backward on
+     NaN-free inputs: within 1e-6 (float32) and 1/32 (bfloat16) of the sum
+     of the magnitudes of the credited terms (the adds run in another
+     order); then kernel, plain and library times (median of 20 after 3
+     warm-ups) beside the bound;
+ 13. a full-width PETResNetCNN train step (ResNet-18 dilated, batch 8 of PET
+     volumes z-scored in the step, f32) from the same weights with
+     maxpool_impl="wf" (K8 once per step) and "xla": loss and every gradient
+     norm within the train step's tolerance; both steps timed;
+ 14. a full-width SmallPETCNN train step: ladder (8, 16, 32), BatchNorm and
+     dropout on, batch 8: finite loss, step ms;
+ 15. the entry points from disk: a synthetic split at 91x109x91 written by
      the port into a temporary directory (MMALZ_DATA_DIR, and the CWD),
      then train_anat for one epoch (memoised min-max: K2 alone in the
      step), run_training with the z-score (K3 in every train and
      validation step) for one epoch, and test_anat_cnn.main() on the best
      train_anat checkpoint over the paired three-modality test split, each
-     with its launch counts, finite metrics and the checkpoint loaded back.
+     with its launch counts, finite metrics and the checkpoint loaded back;
+ 16. the PET entry points on phase 15's split: train_pet_cnn.train and
+     train_pet_resnet_cnn.train for one epoch each and test_pet_cnn.main()
+     on the best train_pet_cnn checkpoint, with finite metrics, the
+     checkpoints loaded back, and the PET training rows counted by class.
 Any failed check raises, so the script exits non-zero without printing its
 last line, {"ok": true, "device": {...}}. It needs one card and imports the
 port only, and neither pandas, yaml nor the plotting packages: no confusion
@@ -56,6 +75,7 @@ image is rendered.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import glob
 import json
@@ -80,7 +100,11 @@ from multimodal_alzheimer_tpu_torch.data.synthetic import (
     make_labeled_volumes,
     write_synthetic_split,
 )
-from multimodal_alzheimer_tpu_torch.inference import harness, test_anat_cnn
+from multimodal_alzheimer_tpu_torch.inference import (
+    harness,
+    test_anat_cnn,
+    test_pet_cnn,
+)
 from multimodal_alzheimer_tpu_torch.inference.predictor import Predictor
 from multimodal_alzheimer_tpu_torch.inference.server import BatchingServer
 from multimodal_alzheimer_tpu_torch.losses.classification import (
@@ -88,7 +112,28 @@ from multimodal_alzheimer_tpu_torch.losses.classification import (
 )
 from multimodal_alzheimer_tpu_torch.models.mri_models import train_anat_cnn
 from multimodal_alzheimer_tpu_torch.models.mri_models.anat_cnn import AnatCNN
-from multimodal_alzheimer_tpu_torch.ops import _native, hopper_bn, hopper_norm
+from multimodal_alzheimer_tpu_torch.models.pet_models import (
+    train_pet_cnn,
+    train_pet_resnet_cnn,
+)
+from multimodal_alzheimer_tpu_torch.models.pet_models.pet_cnn import (
+    SmallPETCNN,
+)
+from multimodal_alzheimer_tpu_torch.models.pet_models.pet_resnet_cnn import (
+    PETResNetCNN,
+)
+from multimodal_alzheimer_tpu_torch.ops import (
+    _native,
+    hopper_bn,
+    hopper_maxpool,
+    hopper_norm,
+)
+from multimodal_alzheimer_tpu_torch.ops.maxpool import (
+    NO_WINNER,
+    max_pool3d_backward_plain,
+    pool_forward,
+    winner_offsets,
+)
 from multimodal_alzheimer_tpu_torch.ops.quantile import interpolate
 from multimodal_alzheimer_tpu_torch.train.checkpoint import load_checkpoint
 from multimodal_alzheimer_tpu_torch.train.driver import (
@@ -119,14 +164,16 @@ SOURCE = {"minmax_select": CSRC + "minmax_norm.cu",
           "minmax_apply": CSRC + "minmax_norm.cu",
           "zscore": CSRC + "zscore_norm.cu",
           "bn_stats": CSRC + "batch_norm.cu", "bn_apply": CSRC + "batch_norm.cu",
-          "bn_grad_sum": CSRC + "batch_norm.cu", "bn_dx": CSRC + "batch_norm.cu"}
+          "bn_grad_sum": CSRC + "batch_norm.cu", "bn_dx": CSRC + "batch_norm.cu",
+          "maxpool_bwd": CSRC + "maxpool_bwd.cu"}
 REPLACES = {"minmax_select": "multimodal_alzheimer_tpu/ops/pallas_norm.py:263",
             "minmax_apply": "multimodal_alzheimer_tpu/ops/pallas_norm.py:354",
             "zscore": "multimodal_alzheimer_tpu/ops/pallas_norm.py:63",
             "bn_stats": "multimodal_alzheimer_tpu/ops/pallas_bn.py:62",
             "bn_apply": "multimodal_alzheimer_tpu/ops/pallas_bn.py:75",
             "bn_grad_sum": "multimodal_alzheimer_tpu/ops/pallas_bn.py:82",
-            "bn_dx": "multimodal_alzheimer_tpu/ops/pallas_bn.py:96"}
+            "bn_dx": "multimodal_alzheimer_tpu/ops/pallas_bn.py:96",
+            "maxpool_bwd": "multimodal_alzheimer_tpu/ops/pallas_maxpool.py:98"}
 BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_sum", "bn_dx")
 NORM_KERNELS = ("minmax_select", "minmax_apply", "zscore")
 APPLY_TOL = 1e-6
@@ -183,6 +230,26 @@ TRIAL = {"lr": 1e-3, "freeze": False, "lr_pretrained": 1e-5,
          "batchnorm_begin": False, "batchnorm_dense": False, "batch_size": 8,
          "l2_reg": 1e-2, "norm_percentile": 0.99, "fl_gamma": None,
          "resnet_depth": 18, "linear_out": "()"}
+# The stem pool's input in ResNet-18 at 91x109x91, batch 8 (NCDHW).
+STEM = (8, 64, 46, 55, 46)
+# K8 against aten's max_pool3d_with_indices_backward, which adds with
+# atomics in another order: |kernel - aten| <= tol * (sum of |g| over the
+# credited windows). At most 8 adds per element on each side, each rounding
+# by at most 2^-24 (float32) or 2^-9 (bfloat16) of that sum.
+POOL_LIBRARY_TOL = {torch.float32: 1e-6, torch.bfloat16: 1.0 / 32}
+# The PET z-score constants of both PET entry points.
+PET_NORM = {"mean": 0.5145, "std": 0.5383}
+PET_RESNET_HPARAMS = {"n_classes": 2, "resnet_depth": 18, "linear_out": (),
+                      "lr": 1e-3, "lr_pretrained": 1e-5, "l2_reg": 1e-2,
+                      "batch_size": 8}
+# A SmallPETCNN trial for train_pet_cnn.sample_hparams and the full-width
+# step: the first conv_out ladder, its filter sizes, BatchNorm and both
+# dropouts on, batch 8.
+PET_TRIAL = {"learning_rate": 1e-4, "conv_out": "(8, 16, 32)",
+             "filter_size": "(5, 5, 3, 3)", "batchnorm": True,
+             "linear_out": 64, "batch_size": 8, "dropout_conv": True,
+             "dropout_conv_p": 0.1, "dropout_dense": True,
+             "dropout_dense_p": 0.3, "fl_gamma": None}
 
 
 def log(msg: str) -> None:
@@ -659,12 +726,14 @@ def train_optimizer(model):
 
 
 def launch_counts() -> dict:
-    return {**hopper_norm.LAUNCHES, **hopper_bn.LAUNCHES}
+    return {**hopper_norm.LAUNCHES, **hopper_bn.LAUNCHES,
+            **hopper_maxpool.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     hopper_norm.reset_launches()
     hopper_bn.reset_launches()
+    hopper_maxpool.reset_launches()
 
 
 def phase_train_step(device, grid=GRID, timed_steps: int = 3) -> dict:
@@ -738,7 +807,7 @@ def phase_train_step(device, grid=GRID, timed_steps: int = 3) -> dict:
                    if k.startswith("backbone.")) ** 0.5
     check(backbone > 0, "the backbone gradient is nonzero")
     want = {"minmax_select": 1, "minmax_apply": 1, "zscore": 0,
-            **dict.fromkeys(BN_KERNELS, BN_LAYERS)}
+            "maxpool_bwd": 0, **dict.fromkeys(BN_KERNELS, BN_LAYERS)}
     check(launches == want, f"fused step launches {launches} == {want}")
     check(launches_ref == {**want, **dict.fromkeys(BN_KERNELS, 0)},
           f"fused_bn=False launches no BatchNorm kernel: {launches_ref}")
@@ -793,7 +862,7 @@ def phase_fit(device, grid=GRID, n_train: int = 16, n_val: int = 8) -> dict:
         check(record["val_loss_epoch"] == last, "val loss returned")
         want = {"minmax_select": steps + n_val // hp["batch_size"],
                 "minmax_apply": steps + n_val // hp["batch_size"],
-                "zscore": 0,
+                "zscore": 0, "maxpool_bwd": 0,
                 **dict.fromkeys(BN_KERNELS, BN_LAYERS * steps)}
         check(launches == want, f"fit launches {launches} == {want}")
         names = sorted(os.listdir(checkpoints))
@@ -934,14 +1003,19 @@ def phase_zscore_step(device, grid=GRID, timed_steps: int = 3) -> float:
 
 
 class FixedTrial:
-    """An optuna-like trial that answers every suggestion from TRIAL."""
+    """An optuna-like trial that answers every suggestion from
+    ``answers``."""
+
+    def __init__(self, answers=TRIAL):
+        self.answers = answers
 
     def suggest_float(self, name, low, high, log=False):
-        return TRIAL[name]
+        return self.answers[name]
 
     def suggest_categorical(self, name, choices):
-        check(TRIAL[name] in choices, f"{name}={TRIAL[name]} in {choices}")
-        return TRIAL[name]
+        value = self.answers[name]
+        check(value in choices, f"{name}={value} in {choices}")
+        return value
 
 
 def _epoch_record(log_dir: str) -> dict:
@@ -953,11 +1027,11 @@ def _epoch_record(log_dir: str) -> dict:
     return record
 
 
-def _load_back(checkpoint: str, model=None) -> None:
-    """The checkpoint rebuilds its model from its hparams and loads; equal
-    to ``model``'s weights where given."""
+def _load_back(checkpoint: str, model=None, model_cls=AnatCNN) -> None:
+    """The checkpoint rebuilds its ``model_cls`` from its hparams and loads;
+    equal to ``model``'s weights where given."""
     state_dict, hparams, metrics = load_checkpoint(checkpoint)
-    restored = AnatCNN.from_hparams(hparams)
+    restored = model_cls.from_hparams(hparams)
     restored.load_state_dict(state_dict)
     check(metrics is not None and np.isfinite(metrics["val_loss_epoch"]),
           f"{checkpoint}: finite val loss")
@@ -971,13 +1045,11 @@ def _batches(n: int, batch: int) -> int:
     return math.ceil(n / batch)
 
 
-def phase_entry_points(device, grid=GRID) -> dict:
-    """train_anat, a z-score run_training and test_anat_cnn.main() on a
-    split written to disk; returns each path's launch counts."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+@contextlib.contextmanager
+def entry_split(grid=GRID):
+    """A synthetic split at ``grid`` written by the port into a temporary
+    directory, which is the CWD and ``MMALZ_DATA_DIR``'s root meanwhile."""
     cwd = os.getcwd()
-    launches = {}
     with tempfile.TemporaryDirectory() as root:
         start = time.perf_counter()
         write_synthetic_split(os.path.join(root, "data"),
@@ -988,106 +1060,356 @@ def phase_entry_points(device, grid=GRID) -> dict:
         os.environ["MMALZ_DATA_DIR"] = os.path.join(root, "data")
         os.chdir(root)
         try:
-            hp = train_anat_cnn.sample_hparams(FixedTrial())
-            hp["max_epochs"] = 1
-            trainset, valset = build_datasets(hp, ["t1w"])
-            n_train, n_val = len(trainset), len(valset)
-            check(not np.isnan(trainset.get_label_distribution()[0]).any(),
-                  "every class in the training split")
-            steps = _batches(n_train, hp["batch_size"])
-            val_batches = _batches(n_val, hp["batch_size"])
-
-            reset_launch_counts()
-            start = time.perf_counter()
-            last = train_anat_cnn.train_anat(
-                hp, "chip_smoke_anat", log_confusion_images=False,
-                device=device)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - start
-            launches["train_anat"] = launch_counts()
-            run_dir = os.path.join(root, train_anat_cnn.LOG_DIRECTORY,
-                                   "chip_smoke_anat", "version_0")
-            record = _epoch_record(run_dir)
-            check(record["val_loss_epoch"] == last, "val loss returned")
-            want = {**dict.fromkeys(launch_counts(), 0),
-                    "minmax_apply": steps + val_batches}
-            check(launches["train_anat"] == want,
-                  f"train_anat launches {launches['train_anat']} == {want}")
-            best = sorted(glob.glob(os.path.join(run_dir, "checkpoints",
-                                                 "*val_loss=*")))
-            check(len(best) == 1, f"one val-loss checkpoint: {best}")
-            _load_back(best[0])
-            log(f"[entry] train_anat: 1 epoch of {n_train} train + {n_val} "
-                f"val scans from disk at batch {hp['batch_size']} "
-                f"(ResNet-18, memoised min-max): {seconds:.2f} s in all, "
-                f"epoch {record['epoch_time_s']:.2f} s, "
-                f"{record['train_volumes_per_s']:.2f} train volumes/s, val "
-                f"loss {last:.6f}, launches {launches['train_anat']}")
-
-            hp_z = dict(hp)
-            trainset, valset = build_datasets(hp_z, ["t1w"],
-                                              normalize_mri=ZSCORE)
-            attach_class_weights(hp_z, trainset)
-            model = AnatCNN.from_hparams(hp_z,
-                                         generator=make_generator(SEED))
-            optimizer = train_anat_cnn.backbone_head_optimizer(hp_z, model)
-            reset_launch_counts()
-            start = time.perf_counter()
-            trainer, state, last = run_training(
-                model, hp_z, trainset, valset, "chip_smoke_zscore",
-                optimizer=optimizer, log_confusion_images=False,
-                device=device)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - start
-            launches["zscore"] = launch_counts()
-            record = _epoch_record(str(trainer.logger.log_dir))
-            trainer.logger.close()
-            want = {**dict.fromkeys(launch_counts(), 0),
-                    "zscore": steps + val_batches}
-            check(state.step == steps, f"{steps} z-score train steps")
-            check(launches["zscore"] == want,
-                  f"z-score run launches {launches['zscore']} == {want}")
-            _load_back(trainer.ckpt_managers[0].best_path, model)
-            log(f"[entry] run_training with the z-score: 1 epoch, "
-                f"{seconds:.2f} s in all, epoch "
-                f"{record['epoch_time_s']:.2f} s, "
-                f"{record['train_volumes_per_s']:.2f} train volumes/s, val "
-                f"loss {last:.6f}, launches {launches['zscore']}")
-
-            with open("path_config.yaml", "w") as f:
-                f.write("relative:\n"
-                        "  test_set_csv: 'data/test_path_data_labels.csv'\n"
-                        f"mri_cnn_2_class: '{best[0]}'\n")
-            n_test = len(harness.build_testset(hp))
-            check(n_test > 0, "the paired three-modality test set has rows")
-            reset_launch_counts()
-            start = time.perf_counter()
-            metrics = test_anat_cnn.main(confusion_pngs=False,
-                                         device=device)["mri_cnn_2_class"]
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - start
-            launches["test"] = launch_counts()
-            check(all(np.isfinite(v) for v in metrics.values()),
-                  f"finite test metrics {metrics}")
-            want = {**dict.fromkeys(launch_counts(), 0),
-                    "minmax_apply": _batches(n_test, hp["batch_size"])}
-            check(launches["test"] == want,
-                  f"test launches {launches['test']} == {want}")
-            with open(os.path.join("lightning_logs", "test_set_mri_2_class",
-                                   "version_0", "confusion_matrix.json")) as f:
-                counts = json.load(f)["counts"]
-            check(sum(map(sum, counts)) == n_test,
-                  f"confusion counts {counts} over {n_test} test rows")
-            log(f"[entry] test_anat_cnn.main(): {n_test} paired test rows in "
-                f"{seconds:.2f} s, test loss {metrics['test_loss_epoch']:.6f}"
-                f", F1 {metrics['test_f1_epoch']:.4f} (bootstrap "
-                f"{metrics['test_f1_epoch_boot']:.4f} +- "
-                f"{metrics['test_f1_epoch_ci']:.4f}), confusion counts "
-                f"{counts}, launches {launches['test']}")
+            yield root
         finally:
             os.chdir(cwd)
             os.environ.pop("MMALZ_DATA_DIR", None)
+
+
+def phase_entry_points(device, root) -> dict:
+    """train_anat, a z-score run_training and test_anat_cnn.main() on the
+    split in ``root`` (the CWD); returns each path's launch counts."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    hp = train_anat_cnn.sample_hparams(FixedTrial())
+    hp["max_epochs"] = 1
+    trainset, valset = build_datasets(hp, ["t1w"])
+    n_train, n_val = len(trainset), len(valset)
+    check(not np.isnan(trainset.get_label_distribution()[0]).any(),
+          "every class in the training split")
+    steps = _batches(n_train, hp["batch_size"])
+    val_batches = _batches(n_val, hp["batch_size"])
+
+    reset_launch_counts()
+    start = time.perf_counter()
+    last = train_anat_cnn.train_anat(
+        hp, "chip_smoke_anat", log_confusion_images=False,
+        device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches["train_anat"] = launch_counts()
+    run_dir = os.path.join(root, train_anat_cnn.LOG_DIRECTORY,
+                           "chip_smoke_anat", "version_0")
+    record = _epoch_record(run_dir)
+    check(record["val_loss_epoch"] == last, "val loss returned")
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "minmax_apply": steps + val_batches}
+    check(launches["train_anat"] == want,
+          f"train_anat launches {launches['train_anat']} == {want}")
+    best = sorted(glob.glob(os.path.join(run_dir, "checkpoints",
+                                         "*val_loss=*")))
+    check(len(best) == 1, f"one val-loss checkpoint: {best}")
+    _load_back(best[0])
+    log(f"[entry] train_anat: 1 epoch of {n_train} train + {n_val} "
+        f"val scans from disk at batch {hp['batch_size']} "
+        f"(ResNet-18, memoised min-max): {seconds:.2f} s in all, "
+        f"epoch {record['epoch_time_s']:.2f} s, "
+        f"{record['train_volumes_per_s']:.2f} train volumes/s, val "
+        f"loss {last:.6f}, launches {launches['train_anat']}")
+
+    hp_z = dict(hp)
+    trainset, valset = build_datasets(hp_z, ["t1w"],
+                                      normalize_mri=ZSCORE)
+    attach_class_weights(hp_z, trainset)
+    model = AnatCNN.from_hparams(hp_z,
+                                 generator=make_generator(SEED))
+    optimizer = train_anat_cnn.backbone_head_optimizer(hp_z, model)
+    reset_launch_counts()
+    start = time.perf_counter()
+    trainer, state, last = run_training(
+        model, hp_z, trainset, valset, "chip_smoke_zscore",
+        optimizer=optimizer, log_confusion_images=False,
+        device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches["zscore"] = launch_counts()
+    record = _epoch_record(str(trainer.logger.log_dir))
+    trainer.logger.close()
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "zscore": steps + val_batches}
+    check(state.step == steps, f"{steps} z-score train steps")
+    check(launches["zscore"] == want,
+          f"z-score run launches {launches['zscore']} == {want}")
+    _load_back(trainer.ckpt_managers[0].best_path, model)
+    log(f"[entry] run_training with the z-score: 1 epoch, "
+        f"{seconds:.2f} s in all, epoch "
+        f"{record['epoch_time_s']:.2f} s, "
+        f"{record['train_volumes_per_s']:.2f} train volumes/s, val "
+        f"loss {last:.6f}, launches {launches['zscore']}")
+
+    with open("path_config.yaml", "w") as f:
+        f.write("relative:\n"
+                "  test_set_csv: 'data/test_path_data_labels.csv'\n"
+                f"mri_cnn_2_class: '{best[0]}'\n")
+    n_test = len(harness.build_testset(hp))
+    check(n_test > 0, "the paired three-modality test set has rows")
+    reset_launch_counts()
+    start = time.perf_counter()
+    metrics = test_anat_cnn.main(confusion_pngs=False,
+                                 device=device)["mri_cnn_2_class"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches["test"] = launch_counts()
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"finite test metrics {metrics}")
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "minmax_apply": _batches(n_test, hp["batch_size"])}
+    check(launches["test"] == want,
+          f"test launches {launches['test']} == {want}")
+    with open(os.path.join("lightning_logs", "test_set_mri_2_class",
+                           "version_0", "confusion_matrix.json")) as f:
+        counts = json.load(f)["counts"]
+    check(sum(map(sum, counts)) == n_test,
+          f"confusion counts {counts} over {n_test} test rows")
+    log(f"[entry] test_anat_cnn.main(): {n_test} paired test rows in "
+        f"{seconds:.2f} s, test loss {metrics['test_loss_epoch']:.6f}"
+        f", F1 {metrics['test_f1_epoch']:.4f} (bootstrap "
+        f"{metrics['test_f1_epoch_boot']:.4f} +- "
+        f"{metrics['test_f1_epoch_ci']:.4f}), confusion counts "
+        f"{counts}, launches {launches['test']}")
     return launches
+
+
+def pool_bound(shape, dtype, winners=None) -> tuple:
+    """K8's bound: x, y, g read once and dx written once; its operations
+    are the winner compares this run makes (a window stops at its winner)
+    and one add per credited window."""
+    n_in = float(np.prod(shape))
+    n_out = float(np.prod(shape[:2])) * float(np.prod(
+        [(n - 1) // 2 + 1 for n in shape[2:]]))
+    item = torch.tensor([], dtype=dtype).element_size()
+    ops = 0.0
+    if winners is not None:
+        ops = float((winners.clamp(max=NO_WINNER - 1).to(torch.float64)
+                     + 1).sum() + (winners < NO_WINNER).sum())
+    return bound(item * (2 * n_in + 2 * n_out), ops)
+
+
+def aten_pool_backward(g, x, indices):
+    return torch.ops.aten.max_pool3d_with_indices_backward(
+        g, x, [3, 3, 3], [2, 2, 2], [1, 1, 1], [1, 1, 1], False, indices)
+
+
+def phase_maxpool(device, shape=STEM) -> dict:
+    """K8 against its plain version and aten's backward at the stem, then
+    kernel, plain and library times; returns per dtype (max abs error
+    against plain, ms, plain ms, library ms, bound ms, bound by)."""
+    gen = make_generator(SEED + 9, device)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.relu(torch.randn(shape, generator=gen, device=device)
+                       - 0.8).to(dtype)  # ReLU-zero ties, as after the stem
+        y, indices = torch.nn.functional.max_pool3d(x, 3, 2, 1,
+                                                    return_indices=True)
+        check(torch.equal(y, pool_forward(x)), "library pool forward")
+        g = torch.randn(y.shape, generator=gen, device=device).to(dtype)
+        got = hopper_maxpool.max_pool3d_backward(x, y, g)
+        want = max_pool3d_backward_plain(x, y, g)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K8 {dtype} equals its plain version")
+        err = (got.float() - want.float()).abs().max().item()
+        library = aten_pool_backward(g, x, indices)
+        credited = max_pool3d_backward_plain(x, y, g.abs()).float()
+        lib_err = (got.float() - library.float()).abs()
+        tol = POOL_LIBRARY_TOL[dtype]
+        check(bool((lib_err <= tol * credited).all()),
+              f"K8 {dtype} against aten within {tol} of the credited "
+              f"magnitudes: {lib_err.max().item()}")
+        winners = winner_offsets(x, y)
+        bound_ms, bound_by = pool_bound(shape, dtype, winners)
+        ms = time_ms(lambda: hopper_maxpool.max_pool3d_backward(x, y, g))
+        plain_ms = time_ms(lambda: max_pool3d_backward_plain(x, y, g))
+        library_ms = time_ms(lambda: aten_pool_backward(g, x, indices))
+        out[dtype] = (err, ms, plain_ms, library_ms, bound_ms, bound_by)
+        log(f"[maxpool] K8 {shape} {dtype}: equal to plain; against aten "
+            f"max abs err {lib_err.max().item():.3g} (tolerance {tol} of the"
+            f" credited magnitudes); {int((winners < NO_WINNER).sum())} of "
+            f"{winners.numel()} windows have a winner; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        del x, y, g, got, want, library, credited, lib_err, winners, indices
+    return out
+
+
+def pet_batch(batch: int, grid, seed: int, device, n_classes: int = 2):
+    """Raw PET volumes around the z-score constants, and labels of every
+    class."""
+    rng = np.random.default_rng(seed)
+    pet = rng.normal(0.5, 0.5, (batch,) + tuple(grid)).astype(np.float32)
+    labels = (np.arange(batch) % n_classes).astype(np.int32)
+    return {"pet1451": torch.from_numpy(pet).to(device),
+            "label": torch.from_numpy(labels).to(device)}
+
+
+def _timed_steps(step, state, batch, n: int) -> float:
+    times = []
+    for _ in range(n):
+        start = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    return statistics.median(times) * 1e3
+
+
+def phase_pet_step(device, grid=GRID, timed_steps: int = 3) -> dict:
+    """One PETResNetCNN step (ResNet-18 dilated, batch 8, PET z-score in
+    the step) from the same weights with maxpool_impl "wf" and "xla";
+    returns each one's launch counts and median step ms."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = PET_RESNET_HPARAMS
+    batch = pet_batch(hp["batch_size"], grid, SEED + 10, device)
+    preprocess = make_device_preprocess(normalize_pet=PET_NORM)
+    weights = None
+    results = {}
+    for impl in ("wf", "xla"):
+        model = PETResNetCNN.from_hparams(hp, maxpool_impl=impl,
+                                          generator=make_generator(SEED))
+        with torch.no_grad():
+            model.head.cls.bias.fill_(1.0)  # the trailing ReLU passes
+        if weights is None:
+            weights = copy.deepcopy(model.state_dict())
+        model.load_state_dict(weights)
+        model.to(device)
+        optimizer = train_optimizer(model)
+        step = make_train_step(model, make_criterion(hp), optimizer,
+                               preprocess)
+        state = TrainState(model, optimizer)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        norms = {name: p.grad.norm().item()
+                 for name, p in model.named_parameters()}
+        ms = _timed_steps(step, state, batch, timed_steps)
+        results[impl] = (aux["loss"].item(), norms, launches, ms)
+        log(f"[pet step] PETResNetCNN ResNet-18 maxpool_impl={impl!r}, batch "
+            f"{hp['batch_size']} at {grid}: loss {results[impl][0]}, median "
+            f"{ms:.2f} ms over {timed_steps} steps, launches {launches}")
+        del model, optimizer, step, state, aux
+    loss, norms, launches, wf_ms = results["wf"]
+    loss_ref, norms_ref, launches_ref, xla_ms = results["xla"]
+    check(np.isfinite(loss) and abs(loss - loss_ref)
+          <= STEP_LOSS_RTOL * abs(loss_ref),
+          f"loss {loss} (wf) against {loss_ref} (xla)")
+    gap = 0.0
+    for name, ref in norms_ref.items():
+        got = norms[name]
+        check(np.isfinite(got) and abs(got - ref) <= STEP_GRAD_TOL["atol"]
+              + STEP_GRAD_TOL["rtol"] * abs(ref),
+              f"{name}: grad norm {got} (wf) against {ref} (xla)")
+        gap = max(gap, abs(got - ref) / max(abs(ref), 1e-30))
+    zero = dict.fromkeys(launches, 0)
+    check(launches == {**zero, "maxpool_bwd": 1},
+          f"the wf step launches K8 once and nothing else: {launches}")
+    check(launches_ref == zero, f"the xla step launches nothing: "
+          f"{launches_ref}")
+    log(f"[pet step] wf vs xla: loss err {abs(loss - loss_ref):.3g}, largest "
+        f"relative grad-norm err {gap:.3g} over {len(norms_ref)} parameters "
+        f"(tolerance {STEP_GRAD_TOL}); step ms wf {wf_ms:.2f}, xla "
+        f"{xla_ms:.2f}")
+    return {"wf": launches, "wf_ms": wf_ms, "xla_ms": xla_ms}
+
+
+def phase_small_pet_step(device, grid=GRID, timed_steps: int = 3) -> float:
+    """One SmallPETCNN step at full width: the trial's ladder, BatchNorm and
+    dropout on, batch 8, PET z-score in the step; returns the median ms."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = train_pet_cnn.sample_hparams(FixedTrial(PET_TRIAL), n_classes=2)
+    hp["loss_class_weights"] = [0.5, 0.5]
+    model = SmallPETCNN.from_hparams(hp, generator=make_generator(SEED)).to(
+        device)
+    optimizer = single_lr_optimizer(model, hp["lr"])
+    step = make_train_step(model, make_criterion(hp), optimizer,
+                           make_device_preprocess(normalize_pet=PET_NORM),
+                           make_generator(SEED, device))
+    batch = pet_batch(hp["batch_size"], grid, SEED + 11, device)
+    state = TrainState(model, optimizer)
+    start = time.perf_counter()
+    state, aux = step(state, batch)
+    loss = aux["loss"].item()
+    first_s = time.perf_counter() - start
+    check(np.isfinite(loss), f"finite SmallPETCNN loss {loss}")
+    ms = _timed_steps(step, state, batch, timed_steps)
+    log(f"[pet step] SmallPETCNN conv_out {hp['conv_out']}, filters "
+        f"{hp['filter_size']}, batchnorm, dropout {hp['dropout_conv_p']}/"
+        f"{hp['dropout_dense_p']}, batch {hp['batch_size']} at {grid}: loss "
+        f"{loss}, first step {first_s:.3f} s, then median {ms:.2f} ms over "
+        f"{timed_steps} steps")
+    return ms
+
+
+def phase_pet_entry_points(device, root) -> dict:
+    """train_pet_cnn.train, train_pet_resnet_cnn.train and
+    test_pet_cnn.main() on the split in ``root`` (the CWD); returns each
+    one's seconds."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = train_pet_cnn.sample_hparams(FixedTrial(PET_TRIAL), n_classes=2)
+    hp["max_epochs"] = 1
+    trainset, valset = build_datasets(hp, ["pet1451"],
+                                      normalize_pet=PET_NORM)
+    counts = trainset.get_label_distribution()[0]
+    log(f"[pet entry] PET rows: {len(trainset)} train (per class "
+        f"{counts.tolist()}), {len(valset)} val")
+    check(len(counts) == 2 and bool((counts > 0).all()),
+          "both classes in the PET training rows")
+    seconds = {}
+    runs = (("train_pet_cnn", train_pet_cnn, hp, SmallPETCNN),
+            ("train_pet_resnet_cnn", train_pet_resnet_cnn,
+             dict(train_pet_resnet_cnn.sample_hparams(FixedTrial()),
+                  max_epochs=1), PETResNetCNN))
+    best = {}
+    for name, module, run_hp, model_cls in runs:
+        reset_launch_counts()
+        start = time.perf_counter()
+        last = module.train(run_hp, f"chip_smoke_{name}",
+                            log_confusion_images=False, device=device)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        launches = launch_counts()
+        run_dir = os.path.join(root, module.LOG_DIRECTORY,
+                               f"chip_smoke_{name}", "version_0")
+        record = _epoch_record(run_dir)
+        check(record["val_loss_epoch"] == last, "val loss returned")
+        check(launches == dict.fromkeys(launches, 0),
+              f"{name} launches no kernel: {launches}")
+        best[name] = sorted(glob.glob(os.path.join(
+            run_dir, "checkpoints", "*val_loss=*")))
+        check(len(best[name]) == 1, f"one val-loss checkpoint: {best[name]}")
+        _load_back(best[name][0], model_cls=model_cls)
+        log(f"[pet entry] {name}.train: 1 epoch from disk at batch "
+            f"{run_hp['batch_size']}: {seconds[name]:.2f} s in all, epoch "
+            f"{record['epoch_time_s']:.2f} s, "
+            f"{record['train_volumes_per_s']:.2f} train volumes/s, val loss "
+            f"{last:.6f}")
+
+    with open("path_config.yaml", "w") as f:
+        f.write("relative:\n"
+                "  test_set_csv: 'data/test_path_data_labels.csv'\n"
+                f"pet_cnn_2_class: '{best['train_pet_cnn'][0]}'\n")
+    n_test = len(harness.build_testset(hp))
+    check(n_test > 0, "the paired three-modality test set has rows")
+    start = time.perf_counter()
+    metrics = test_pet_cnn.main(confusion_pngs=False,
+                                device=device)["pet_cnn_2_class"]
+    torch.cuda.synchronize()
+    seconds["test_pet_cnn"] = time.perf_counter() - start
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"finite test metrics {metrics}")
+    with open(os.path.join("lightning_logs", "test_set_pet_2_class",
+                           "version_0", "confusion_matrix.json")) as f:
+        confusion = json.load(f)["counts"]
+    check(sum(map(sum, confusion)) == n_test,
+          f"confusion counts {confusion} over {n_test} test rows")
+    log(f"[pet entry] test_pet_cnn.main(): {n_test} paired test rows in "
+        f"{seconds['test_pet_cnn']:.2f} s, test loss "
+        f"{metrics['test_loss_epoch']:.6f}, F1 {metrics['test_f1_epoch']:.4f}"
+        f", confusion counts {confusion}")
+    return seconds
 
 
 def main() -> int:
@@ -1110,7 +1432,12 @@ def main() -> int:
     fit_launches = phase_fit(device)
     err["zscore"], zscore_times = phase_zscore(device)
     phase_zscore_step(device)
-    entry_launches = phase_entry_points(device)
+    pool = phase_maxpool(device)
+    pet_step = phase_pet_step(device)
+    phase_small_pet_step(device)
+    with entry_split() as root:
+        entry_launches = phase_entry_points(device, root)
+        phase_pet_entry_points(device, root)
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
     kernels = []
@@ -1138,6 +1465,13 @@ def main() -> int:
             "max_abs_err": err[name], "batch": 8, "shape": list(stem),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": library_ms})
+    err_k8, ms, plain_ms, library_ms, bound_ms, bound_by = pool[torch.float32]
+    kernels.append({
+        "name": "maxpool_bwd", "route": "cuda", "source": SOURCE["maxpool_bwd"],
+        "replaces": REPLACES["maxpool_bwd"],
+        "launches": pet_step["wf"]["maxpool_bwd"], "max_abs_err": err_k8,
+        "batch": 8, "shape": list(STEM), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 ``state_dict_from_flax`` turns a flax ``{'params', 'batch_stats'}`` tree
 (numpy leaves) into a ``state_dict`` for a port module whose submodule names
-follow the flax tree (``models/resnet3d.py``, ``models/heads.py``):
+follow the flax tree (``models/resnet3d.py``, ``models/heads.py``, and
+``models/pet_models/pet_cnn.py``: ``convs/block_{i}/{conv,bn}``, ``hidden``,
+``cls``; ``PETResNetCNN`` has ``AnatCNN``'s names):
 
   conv  kernel (D, H, W, I, O) -> weight (O, I, D, H, W)
   Dense kernel (in, out)       -> weight (out, in)

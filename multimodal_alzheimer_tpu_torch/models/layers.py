@@ -19,8 +19,16 @@ statistics and differ in how:
   plain apply, and the closed-form statistics VJP.
 
 Also ``max_pool3d`` with torch's floor semantics and the JAX package's guard
-against a tower too deep for its volume, ``global_avg_pool``, and flax's
-weight initialisation from an explicit ``torch.Generator``.
+against a tower too deep for its volume, ``global_avg_pool``, flax's
+weight initialisation from an explicit ``torch.Generator``, flax's
+``Dropout`` with its keep mask drawn from an explicit generator, and the
+small CNN's ``ConvBlock3D`` / ``ConvTower3D`` (``layers.py:361-442``).
+
+The JAX ``ConvBlock3D`` lowers its conv, ReLU and pool through
+``S2DConvReLUPool`` (and its BatchNorm through ``ParityBatchNorm``) for
+narrow inputs by default (``s2d_pool=True``): a TPU lowering of the same
+function. The port runs the plain conv -> BN -> ReLU -> pool, with the same
+parameter tree.
 """
 
 from __future__ import annotations
@@ -159,6 +167,89 @@ def max_pool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool3d(1) + Flatten: (B, C, D, H, W) -> (B, C)."""
     return x.mean(dim=(2, 3, 4))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` in train mode: keep each element with
+    probability ``1 - p`` and scale the survivors by ``1 / (1 - p)``; the
+    identity in eval mode and at ``p = 0``. The keep mask is drawn from
+    ``generator`` (torch's global RNG on the input's device when None); it
+    must live on the input's device. ``set_dropout_generator`` sets it."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: torch.Generator | None) -> None:
+    """Every ``Dropout`` in ``module`` draws its masks from ``generator``
+    (JAX passes ``rngs={"dropout": key}`` to the step)."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class ConvBlock3D(nn.Module):
+    """Conv3d('same', bias) -> [BN] -> ReLU -> MaxPool(2) -> [Dropout]
+    (reference pet_cnn.py:17-28); submodules ``conv``, ``bn``."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 use_batchnorm: bool = False, dropout_p=None,
+                 bn_torch_stats: bool = False, device=None):
+        super().__init__()
+        self.conv = nn.Conv3d(in_features, features, kernel_size,
+                              padding="same", device=device)
+        self.bn = (batch_norm(features,
+                              "torch_stats" if bn_torch_stats else False,
+                              device)
+                   if use_batchnorm else None)
+        self.dropout = Dropout(dropout_p) if dropout_p is not None else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        x = max_pool3d(F.relu(x))
+        if self.dropout is not None:
+            x = self.dropout(x)
+        return x
+
+
+class ConvTower3D(nn.Module):
+    """``block_{i}``: one ConvBlock3D per (width, kernel) pair
+    (pet_cnn.py:17-28); ``out_features`` is the last block's width."""
+
+    def __init__(self, in_features: int, conv_out, filter_size,
+                 use_batchnorm: bool = False, dropout_p=None,
+                 bn_torch_stats: bool = False, device=None):
+        super().__init__()
+        self.out_features = in_features
+        self.n_blocks = 0
+        for i, (features, kernel) in enumerate(zip(conv_out, filter_size)):
+            self.add_module(f"block_{i}", ConvBlock3D(
+                self.out_features, features, kernel, use_batchnorm,
+                dropout_p, bn_torch_stats, device))
+            self.out_features = features
+            self.n_blocks = i + 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_blocks):
+            x = getattr(self, f"block_{i}")(x)
+        return x
 
 
 @torch.no_grad()

@@ -34,6 +34,7 @@ class AnatCNN(nn.Module):
                  dilated: bool = True,
                  fused_bn=False,
                  bn_torch_stats: bool = False,
+                 maxpool_impl: str = "xla",
                  input_key: str = "mri",
                  device=None,
                  generator: torch.Generator | None = None):
@@ -41,6 +42,8 @@ class AnatCNN(nn.Module):
         None); it must live on ``device``. ``fused_bn`` picks the backbone's
         BatchNorm (``models.layers.batch_norm``); ``bn_torch_stats`` gives
         backbone and head torch's running statistics and overrides it.
+        ``maxpool_impl`` picks the stem pool's backward (``"xla"``, ``"sf"``
+        or ``"wf"``; ``models.resnet3d.MedicalNetResNet3D``).
         ``freeze_backbone`` cuts the gradient below the head, so a frozen
         backbone runs no backward; its BatchNorm statistics still update in
         train mode."""
@@ -53,7 +56,8 @@ class AnatCNN(nn.Module):
         self.input_key = input_key
         self.backbone = MedicalNetResNet3D(
             resnet_depth, dilated, device=device,
-            fused_bn="torch_stats" if bn_torch_stats else fused_bn)
+            fused_bn="torch_stats" if bn_torch_stats else fused_bn,
+            maxpool_impl=maxpool_impl)
         self.head = ClassifierHead3D(
             FEATURE_WIDTH[resnet_depth], n_classes, conv_out, filter_size,
             linear_out, batchnorm_begin, batchnorm_conv, batchnorm_dense,

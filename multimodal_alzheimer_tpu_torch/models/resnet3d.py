@@ -17,8 +17,11 @@ torch-symmetric ``dilation*(k-1)//2``, as in the JAX package.
 
 ``fused_bn`` picks every backbone BatchNorm (20 in ResNet-18) through
 ``models.layers.batch_norm``: False (flax), ``"full"``/True (the Hopper
-kernels), ``"hybrid"`` or ``"torch_stats"``. Train mode follows
-``module.train()``.
+kernels), ``"hybrid"`` or ``"torch_stats"``. ``maxpool_impl`` picks the stem
+pool's backward, as the JAX ``_max_pool_stem`` does: ``"xla"`` (the default)
+is ``F.max_pool3d`` with torch's own backward; ``"sf"`` and ``"wf"``, JAX's
+hand-written first-max backwards, both run ``ops.hopper_maxpool.max_pool3d_pl``,
+whose backward is the Hopper kernel K8. Train mode follows ``module.train()``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_alzheimer_tpu_torch.models.layers import batch_norm
+from multimodal_alzheimer_tpu_torch.ops.hopper_maxpool import max_pool3d_pl
 
 BLOCK_CONFIGS = {
     10: ("basic", (1, 1, 1, 1)),
@@ -37,6 +41,7 @@ BLOCK_CONFIGS = {
 }
 
 FEATURE_WIDTH = {10: 512, 18: 512, 34: 512, 50: 2048}
+MAXPOOL_IMPLS = ("xla", "sf", "wf")
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
@@ -109,8 +114,12 @@ class MedicalNetResNet3D(nn.Module):
     """
 
     def __init__(self, depth: int = 18, dilated: bool = True, device=None,
-                 fused_bn=False):
+                 fused_bn=False, maxpool_impl: str = "xla"):
         super().__init__()
+        if maxpool_impl not in MAXPOOL_IMPLS:
+            raise ValueError(f"maxpool_impl must be one of {MAXPOOL_IMPLS}, "
+                             f"got {maxpool_impl!r}")
+        self.maxpool_impl = maxpool_impl
         block_kind, layout = BLOCK_CONFIGS[depth]
         block = BasicBlock3D if block_kind == "basic" else Bottleneck3D
         self.conv1 = _conv(1, 64, 7, stride=2, device=device)
@@ -132,7 +141,10 @@ class MedicalNetResNet3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool3d(x, 3, 2, 1)
+        if self.maxpool_impl == "xla":
+            x = F.max_pool3d(x, 3, 2, 1)
+        else:
+            x = max_pool3d_pl(x)
         for name in self.block_names:
             x = getattr(self, name)(x)
         return x

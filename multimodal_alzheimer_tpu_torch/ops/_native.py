@@ -21,7 +21,8 @@ from pathlib import Path
 _PACKAGE = Path(__file__).resolve().parents[1]
 SOURCES = (_PACKAGE / "csrc" / "minmax_norm.cu",
            _PACKAGE / "csrc" / "batch_norm.cu",
-           _PACKAGE / "csrc" / "zscore_norm.cu")
+           _PACKAGE / "csrc" / "zscore_norm.cu",
+           _PACKAGE / "csrc" / "maxpool_bwd.cu")
 BUILD_DIR = _PACKAGE / "_build"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -123,6 +124,9 @@ def library() -> ctypes.CDLL:
     lib.zscore_workspace_bytes.restype = i64
     lib.zscore_norm.argtypes = [ptr, ptr, ptr, i64, i64, ptr, i64, ptr]
     lib.zscore_norm.restype = ctypes.c_int
+    lib.maxpool_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
+                                i64, i64, ptr]
+    lib.maxpool_bwd.restype = ctypes.c_int
     return lib
 
 

@@ -109,8 +109,11 @@ class Trainer:
         self.label_ind_by_names = LABEL_NAMES[self.n_classes]
         self.log_confusion_images = log_confusion_images
 
+        # the dropout masks of the train steps (JAX splits a step key from
+        # its root key, train/loop.py:226)
+        self.dropout_generator = make_generator(seed, self.device)
         self.train_step = (make_train_step(self.model, criterion, optimizer,
-                                           preprocess)
+                                           preprocess, self.dropout_generator)
                            if optimizer is not None else None)
         self.eval_step = make_eval_step(self.model, criterion, preprocess)
 

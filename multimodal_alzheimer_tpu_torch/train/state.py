@@ -15,6 +15,8 @@ from typing import Callable, Optional
 
 import torch
 
+from multimodal_alzheimer_tpu_torch.models.layers import set_dropout_generator
+
 
 @dataclass
 class TrainState:
@@ -39,10 +41,18 @@ def _set_learning_rates(optimizer: torch.optim.Optimizer,
 
 def make_train_step(model: torch.nn.Module, criterion: Callable,
                     optimizer: torch.optim.Optimizer,
-                    preprocess: Optional[Callable] = None):
+                    preprocess: Optional[Callable] = None,
+                    dropout_generator: Optional[torch.Generator] = None):
     """Build ``step(state, batch) -> (state, aux)``: preprocess, forward in
     train mode (BatchNorm statistics update), loss, backward, Adam update.
-    ``aux`` holds the detached 'loss', 'logits' and 'labels'."""
+    ``aux`` holds the detached 'loss', 'logits' and 'labels'.
+
+    The model's dropout layers draw their masks from ``dropout_generator``
+    (on the model's device), whose state advances with every step: JAX
+    passes ``rngs={"dropout": ...}`` with a fresh key per step. A model with
+    no dropout draws nothing from it."""
+    if dropout_generator is not None:
+        set_dropout_generator(model, dropout_generator)
 
     def train_step(state: TrainState, batch: dict):
         model.train()

@@ -34,7 +34,7 @@ from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from torch_port_helpers import model_pair
+from torch_port_helpers import Trial, model_pair
 
 SHAPE = (12, 14, 12)
 HPARAMS = {"n_classes": 2, "resnet_depth": 10, "lr": 1e-3,
@@ -215,26 +215,10 @@ def test_backbone_head_optimizer_groups_match_jax(monkeypatch,
     assert len(lrs) < len(list(port.parameters())) or lr_pretrained
 
 
-class _Trial:
-    """Answers suggestions from a seeded numpy RNG and logs them."""
-
-    def __init__(self, seed):
-        self.rng = np.random.default_rng(seed)
-        self.calls = []
-
-    def suggest_float(self, name, low, high, log=False):
-        self.calls.append((name, low, high, log))
-        return float(self.rng.uniform(low, high))
-
-    def suggest_categorical(self, name, choices):
-        self.calls.append((name, tuple(choices)))
-        return choices[int(self.rng.integers(len(choices)))]
-
-
 @pytest.mark.parametrize("seed", range(6))
 @pytest.mark.parametrize("n_classes", [2, 3])
 def test_sample_hparams_matches_jax(seed, n_classes):
-    port_trial, jax_trial = _Trial(seed), _Trial(seed)
+    port_trial, jax_trial = Trial(seed), Trial(seed)
     got = train_anat_cnn.sample_hparams(port_trial, n_classes)
     want = jax_train_anat_cnn.sample_hparams(jax_trial, n_classes)
     assert got == want
@@ -275,7 +259,7 @@ def test_train_anat_runs_from_disk(split, tmp_path, monkeypatch):
     MMALZ_DATA_DIR, checkpoints under lightning_logs/ in the CWD."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("MMALZ_DATA_DIR", os.path.dirname(split["train"]))
-    hp = train_anat_cnn.sample_hparams(_Trial(0))
+    hp = train_anat_cnn.sample_hparams(Trial(0))
     hp.update(resnet_depth=10, batch_size=4, max_epochs=1, fl_gamma=None,
               linear_out=(), lr_pretrained=1e-5)
     last = train_anat_cnn.train_anat(hp, "anat", log_confusion_images=False,

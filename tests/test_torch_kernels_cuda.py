@@ -12,7 +12,9 @@ within 1e-5 * (1 + |plain|) with NaN where the plain version has NaN (the
 kernel's statistics are summed in double in another order). The
 BatchNorm kernels: the elementwise ones (apply, dx) equal to their plain
 versions given the same inputs; the per-channel sums within 1e-6 of the sum
-of the magnitudes of what is added (the order of summation differs).
+of the magnitudes of what is added (the order of summation differs). The
+max-pool backward (K8) equal to its plain version, bit for bit, in float32
+and bfloat16: both add in the same order with one rounding per add.
 """
 
 import numpy as np
@@ -22,7 +24,15 @@ import torch
 from multimodal_alzheimer_tpu_torch.data.preprocess import (
     make_device_preprocess,
 )
-from multimodal_alzheimer_tpu_torch.ops import hopper_bn, hopper_norm
+from multimodal_alzheimer_tpu_torch.ops import (
+    hopper_bn,
+    hopper_maxpool,
+    hopper_norm,
+)
+from multimodal_alzheimer_tpu_torch.ops.maxpool import (
+    max_pool3d_backward_plain,
+    pool_forward,
+)
 from multimodal_alzheimer_tpu_torch.ops.quantile import interpolate
 
 pytestmark = pytest.mark.cuda
@@ -358,3 +368,67 @@ def test_bn_precision_tool_against_float64(device):
     r = layer_precision(x, g, scale)
     for key in ("var", "dscale", "dbias", "dx"):
         assert r[key]["kernel"] < 1e-5 and r[key]["cudnn"] < 1e-5, (key, r)
+
+
+# The JAX tests' odd and even grids (tests/test_pallas_maxpool.py:35-40) as
+# NCDHW, and the ResNet-18 stem at 91x109x91, batch 8.
+POOL_SHAPES = [(2, 4, 9, 11, 9), (1, 3, 8, 8, 8), (2, 8, 12, 10, 14),
+               (1, 2, 5, 7, 5), (8, 64, 46, 55, 46)]
+
+
+def _pool_operands(shape, kind, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device)
+    if kind == "relu_ties":
+        x = torch.relu(x - 0.8)
+    elif kind == "neg_inf_border":
+        x[:, :, 0] = float("-inf")
+        x[:, :, :, :3] = float("-inf")
+    x = x.to(dtype)
+    y = pool_forward(x)
+    g = torch.randn(y.shape, generator=gen, device=device).to(dtype)
+    return x, y, g
+
+
+@pytest.mark.parametrize("kind", ["normal", "relu_ties", "neg_inf_border"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("shape", POOL_SHAPES, ids=str)
+def test_maxpool_backward_equals_plain(device, shape, dtype, kind):
+    x, y, g = _pool_operands(shape, kind, dtype, device, seed=1)
+    before = hopper_maxpool.LAUNCHES["maxpool_bwd"]
+    got = hopper_maxpool.max_pool3d_backward(x, y, g)
+    torch.cuda.synchronize()
+    assert hopper_maxpool.LAUNCHES["maxpool_bwd"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, max_pool3d_backward_plain(x, y, g))
+
+
+def test_maxpool_autograd_function_launches_once(device):
+    x, _, g = _pool_operands((2, 8, 12, 10, 14), "relu_ties",
+                             torch.float32, device, seed=2)
+    x.requires_grad_(True)
+    before = hopper_maxpool.LAUNCHES["maxpool_bwd"]
+    y = hopper_maxpool.max_pool3d_pl(x)
+    torch.testing.assert_close(y, pool_forward(x.detach()), rtol=0, atol=0)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert hopper_maxpool.LAUNCHES["maxpool_bwd"] == before + 1
+    assert torch.equal(x.grad, max_pool3d_backward_plain(x.detach(),
+                                                         y.detach(), g))
+
+
+def test_maxpool_backward_refuses_what_it_does_not_take(device):
+    x, y, g = _pool_operands((2, 4, 9, 11, 9), "normal", torch.float32,
+                             device, seed=3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        hopper_maxpool.max_pool3d_backward(x.double(), y.double(),
+                                           g.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        hopper_maxpool.max_pool3d_backward(
+            x.transpose(0, 1).contiguous().transpose(0, 1), y, g)
+    with pytest.raises(ValueError, match="pool of x"):
+        hopper_maxpool.max_pool3d_backward(x, y[..., :-1].contiguous(), g)
+    with pytest.raises(TypeError, match="operands of"):
+        hopper_maxpool.max_pool3d_backward(x, y, g.to(torch.bfloat16))
+

@@ -16,11 +16,11 @@ from multimodal_alzheimer_tpu_torch.models.convert import state_dict_from_flax
 from multimodal_alzheimer_tpu_torch.models.mri_models.anat_cnn import AnatCNN
 
 
-def random_flax_variables(model, volume_shape, seed):
-    """numpy {'params', 'batch_stats'} of ``model`` with non-trivial BN
-    statistics and a positive classifier bias (keeps the trailing ReLU off
-    its floor)."""
-    example = {"mri": jnp.zeros((1,) + tuple(volume_shape), jnp.float32)}
+def random_flax_variables(model, volume_shape, seed, input_key="mri"):
+    """numpy {'params', 'batch_stats'} of ``model`` (which reads batch key
+    ``input_key``) with non-trivial BN statistics and a positive classifier
+    bias (keeps the trailing ReLU off its floor)."""
+    example = {input_key: jnp.zeros((1,) + tuple(volume_shape), jnp.float32)}
     shapes = jax.eval_shape(
         lambda b: model.init(jax.random.PRNGKey(0), b, train=False), example)
     rng = np.random.default_rng(seed)
@@ -53,3 +53,32 @@ def model_pair(hparams, volume_shape, seed=0, **overrides):
     port = AnatCNN.from_hparams(hparams, **overrides)
     port.load_state_dict(state_dict_from_flax(variables, port))
     return jax_model, variables, port.eval()
+
+
+class Trial:
+    """optuna's suggest API from a seeded numpy generator; records the
+    calls."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+        self.calls = []
+
+    def suggest_float(self, name, low, high, log=False):
+        self.calls.append((name, low, high, log))
+        return float(self.rng.uniform(low, high))
+
+    def suggest_categorical(self, name, choices):
+        self.calls.append((name, tuple(choices)))
+        return choices[int(self.rng.integers(len(choices)))]
+
+
+def run_unfused(fn, *args):
+    """``jax.jit(fn)(*args)`` compiled without XLA's fusion pass. On the CPU
+    the fused program may recompute a max's operand with other rounding than
+    the max itself, and the ``x == max`` winner tests of the JAX "sf"/"wf"
+    pool backward and of ``jnp.max``'s VJP (the ``s2d_pool`` blocks) then
+    miss: early-layer gradients that finite differences refute. Unfused, the
+    program agrees with eager JAX and with finite differences."""
+    compiled = jax.jit(fn).lower(*args).compile(
+        {"xla_disable_hlo_passes": "fusion"})
+    return compiled(*args)
