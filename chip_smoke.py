@@ -13,13 +13,18 @@ Phases, each printing its lines:
   3. min-max kernels against their plain PyTorch versions at the real
      91x109x91 grid, batch 8: order statistics equal, apply within 1e-6;
   4. min-max times: at each serving rung (batch 8 and 32) the kernels are
-     held to their plain versions again, then both are timed, median of 20
-     runs after 3 warm-ups (CUDA events);
-  5. BatchNorm kernels against their plain versions at the ResNet-18 stem
-     (8, 64, 46, 55, 46) and layer4 (8, 512, 12, 14, 12) shapes: sums within
-     1e-6 of the sum of magnitudes, apply and dx equal; batch_norm_train
-     forward and backward against F.batch_norm(training=True) and autograd;
-     then kernel, plain and library times at both shapes (median of 20);
+     held to their plain versions again, then both are timed. Every kernel
+     and library time here is device time (tools/kernel_times.py): CUDA
+     events around 40 back-to-back calls enqueued behind a spin kernel,
+     median of 5 runs, with the time of one call between two events (the
+     wrapper's host time included) beside it;
+  5. BatchNorm kernels against their plain versions at the five BatchNorm
+     shapes of the ResNet-18 train path, stem (8, 64, 46, 55, 46), layer1
+     (8, 64, 23, 28, 23) and layers 2-4 (8, 128/256/512, 12, 14, 12): sums
+     within 1e-6 of the sum of magnitudes, apply and dx equal;
+     batch_norm_train forward and backward against
+     F.batch_norm(training=True) and autograd; then kernel, plain and
+     library times at each shape, with operands cycled past the L2;
   6. the ResNet-18 AnatCNN (dilated, f32, seeded random weights) on the GPU
      against the same model on the CPU, on 2 raw requests;
   7. serving: 40 raw requests from 4 client threads through BatchingServer
@@ -30,8 +35,9 @@ Phases, each printing its lines:
      preprocessed in the step, from the same weights once with
      fused_bn="full" (the BatchNorm kernels) and once with fused_bn=False;
      loss and every parameter's gradient norm must agree, and the fused
-     step must launch each BatchNorm kernel 20 times and K1+K2 once; then
-     both steps are timed;
+     step must launch each BatchNorm kernel 20 times and K1+K2 once, its
+     BatchNorms taking inputs of the five shapes 1, 4, 5, 5 and 5 times;
+     then both steps are timed;
   9. training: Trainer.fit, one epoch over 16 training and 8 validation
      scans at batch 8 with fused_bn="full", from a DataLoader on the card,
      with its launch counts; a top-k checkpoint is loaded back;
@@ -39,7 +45,7 @@ Phases, each printing its lines:
      on N(900, 400) and N(900, 40) scans, with a scan that has no valid
      voxel and one with a single valid voxel: within 1e-5 * (1 + |plain|),
      NaN where the plain version has NaN; then kernel and plain times at
-     both batches (median of 20 after 3 warm-ups);
+     both batches;
  11. the flagship z-score train step (bench.py's configuration in f32):
      ResNet-18, 3 classes, batch 8 of raw scans z-scored in the step, one
      K3 launch per step, finite loss, step ms;
@@ -48,8 +54,7 @@ Phases, each printing its lines:
      ties: equal; against aten's max_pool3d_with_indices_backward on
      NaN-free inputs: within 1e-6 (float32) and 1/32 (bfloat16) of the sum
      of the magnitudes of the credited terms (the adds run in another
-     order); then kernel, plain and library times (median of 20 after 3
-     warm-ups) beside the bound;
+     order); then kernel, plain and library times beside the bound;
  13. a full-width PETResNetCNN train step (ResNet-18 dilated, batch 8 of PET
      volumes z-scored in the step, f32) from the same weights with
      maxpool_impl="wf" (K8 once per step) and "xla": loss and every gradient
@@ -110,6 +115,7 @@ from multimodal_alzheimer_tpu_torch.inference.server import BatchingServer
 from multimodal_alzheimer_tpu_torch.losses.classification import (
     make_criterion,
 )
+from multimodal_alzheimer_tpu_torch.models.layers import FusedBatchNorm
 from multimodal_alzheimer_tpu_torch.models.mri_models import train_anat_cnn
 from multimodal_alzheimer_tpu_torch.models.mri_models.anat_cnn import AnatCNN
 from multimodal_alzheimer_tpu_torch.models.pet_models import (
@@ -135,6 +141,21 @@ from multimodal_alzheimer_tpu_torch.ops.maxpool import (
     winner_offsets,
 )
 from multimodal_alzheimer_tpu_torch.ops.quantile import interpolate
+from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
+    BN_EPS,
+    BN_KERNELS,
+    BN_PER_STEP,
+    BN_SHAPES,
+    STEM,
+    aten_pool_backward,
+    bn_chain,
+    bn_operands,
+    bound,
+    call_ms,
+    device_ms,
+    time_bn,
+    time_pool,
+)
 from multimodal_alzheimer_tpu_torch.train.checkpoint import load_checkpoint
 from multimodal_alzheimer_tpu_torch.train.driver import (
     attach_class_weights,
@@ -174,7 +195,6 @@ REPLACES = {"minmax_select": "multimodal_alzheimer_tpu/ops/pallas_norm.py:263",
             "bn_grad_sum": "multimodal_alzheimer_tpu/ops/pallas_bn.py:82",
             "bn_dx": "multimodal_alzheimer_tpu/ops/pallas_bn.py:96",
             "maxpool_bwd": "multimodal_alzheimer_tpu/ops/pallas_maxpool.py:98"}
-BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_sum", "bn_dx")
 NORM_KERNELS = ("minmax_select", "minmax_apply", "zscore")
 APPLY_TOL = 1e-6
 # The z-score kernel against its plain version: |kernel - plain| <= ZSCORE_TOL
@@ -182,18 +202,12 @@ APPLY_TOL = 1e-6
 # statistics in double in another order, so the mean and std it rounds to
 # f32 may differ from the plain version's by an ulp or two.
 ZSCORE_TOL = 1e-5
-# BatchNorm shapes of ResNet-18 (dilated) at 91x109x91, batch 8.
-BN_SHAPES = {"stem": (8, 64, 46, 55, 46), "layer4": (8, 512, 12, 14, 12)}
-BN_EPS = 1e-5
 # Per-channel sums: |kernel - plain| <= SUM_TOL * sum of |terms| (the order
 # of summation differs). batch_norm_train against F.batch_norm + autograd:
 # y and dx within BN_TOL; dscale and dbias, sums of n terms of order 1,
 # within rtol 1e-4 and atol 1e-6 n.
 SUM_TOL = 1e-6
 BN_TOL = dict(rtol=1e-4, atol=1e-5)
-# One H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s f32 outside the tensor cores.
-HBM_BYTES_PER_MS = 3.35e9
-F32_FLOP_PER_MS = 67e9
 # The flagship training configuration; each phase sets fused_bn.
 TRAIN_HPARAMS = {"n_classes": 2, "resnet_depth": 18, "linear_out": (),
                  "lr": 1e-3, "lr_pretrained": 1e-5, "l2_reg": 1e-2,
@@ -230,8 +244,6 @@ TRIAL = {"lr": 1e-3, "freeze": False, "lr_pretrained": 1e-5,
          "batchnorm_begin": False, "batchnorm_dense": False, "batch_size": 8,
          "l2_reg": 1e-2, "norm_percentile": 0.99, "fl_gamma": None,
          "resnet_depth": 18, "linear_out": "()"}
-# The stem pool's input in ResNet-18 at 91x109x91, batch 8 (NCDHW).
-STEM = (8, 64, 46, 55, 46)
 # K8 against aten's max_pool3d_with_indices_backward, which adds with
 # atomics in another order: |kernel - aten| <= tol * (sum of |g| over the
 # credited windows). At most 8 adds per element on each side, each rounding
@@ -350,21 +362,13 @@ def phase_kernels(device, grid=GRID, batch=8) -> dict:
     return err
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def kernel_times(kernel, plain, wrapper=None) -> tuple:
+    """(device ms, per-call ms) of a kernel's wrapper, and its plain
+    version's ms (tools/kernel_times.py says how each is taken). Where the
+    wrapper waits for the card, ``kernel`` is its launch alone and
+    ``wrapper`` the call a user makes, timed per call."""
+    return (device_ms([kernel]), call_ms([wrapper or kernel]),
+            device_ms([plain], spin=False))
 
 
 def phase_times(device, err: dict, batches=(8, 32), grid=GRID) -> dict:
@@ -392,49 +396,22 @@ def phase_times(device, err: dict, batches=(8, 32), grid=GRID) -> dict:
         err["minmax_apply"] = max(err["minmax_apply"], e)
         log(f"[times] B={batch}: order statistics equal, apply err {e}")
         times[batch] = {
-            "minmax_select": (
-                time_ms(lambda: hopper_norm.order_stats(vol, mask, qs)),
-                time_ms(lambda: hopper_norm.order_stats_plain(*rows, qs_t))),
-            "minmax_apply": (
-                time_ms(lambda: hopper_norm.minmax_apply(vol, mask, qmin,
-                                                         qmax)),
-                time_ms(lambda: hopper_norm.minmax_apply_plain(
-                    vol, mask, qmin, qmax))),
+            # order_stats copies qs to the card from host memory, which
+            # waits for the queue: its device time is the launch's alone.
+            "minmax_select": kernel_times(
+                lambda: hopper_norm._order_stats_kernel(*rows, qs_t),
+                lambda: hopper_norm.order_stats_plain(*rows, qs_t),
+                lambda: hopper_norm.order_stats(vol, mask, qs)),
+            "minmax_apply": kernel_times(
+                lambda: hopper_norm.minmax_apply(vol, mask, qmin, qmax),
+                lambda: hopper_norm.minmax_apply_plain(vol, mask, qmin,
+                                                       qmax)),
         }
-        for name, (k, p) in times[batch].items():
-            log(f"[times] {name} B={batch} at {grid}: kernel {k:.4f} ms, "
-                f"plain {p:.4f} ms")
+        for name, (k, c, p) in times[batch].items():
+            log(f"[times] {name} B={batch} at {grid}: kernel {k:.4f} ms "
+                f"(per call {c:.4f}), plain {p:.4f} ms")
         del vol, mask, rows
     return times
-
-
-def bound(nbytes: float, flops: float) -> tuple:
-    """Least time one H100 SXM could take: the bytes over 3.35 TB/s or the
-    f32 operations over 67 TFLOP/s, whichever is larger; and which."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOP_PER_MS
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                          "operations")
-
-
-def bn_bounds(shape) -> dict:
-    """Per kernel: each input read once, each output written once (4-byte
-    floats), and its f32 operations per element."""
-    elems = float(np.prod(shape))
-    c = shape[1]
-    #        (full tensors moved, (C,) vectors moved, flops per element)
-    counts = {"bn_stats": (1, 2, 3), "bn_apply": (2, 4, 4),
-              "bn_grad_sum": (2, 4, 5), "bn_dx": (3, 5, 6)}
-    return {k: bound(4 * (t * elems + v * c), f * elems)
-            for k, (t, v, f) in counts.items()}
-
-
-def bn_operands(shape, generator, device):
-    c = shape[1]
-    x = torch.randn(shape, generator=generator, device=device) * 2 + 0.5
-    g = torch.randn(shape, generator=generator, device=device)
-    scale = torch.rand(c, generator=generator, device=device) + 0.5
-    bias = torch.randn(c, generator=generator, device=device)
-    return x, g, scale, bias
 
 
 def _rows3(t):
@@ -449,16 +426,6 @@ def _sum_err(got, want, terms, what) -> float:
     return err.max().item()
 
 
-def bn_chain(x, g, scale, bias):
-    """The kernels' inputs as batch_norm_train forms them: mean, inv, red."""
-    n = x.numel() // x.shape[1]
-    sums = hopper_bn.bn_stats_plain(_rows3(x))
-    mean = sums[0] / n
-    inv = torch.rsqrt(sums[1] / n - mean * mean + BN_EPS)
-    red = hopper_bn.bn_grad_sum_plain(_rows3(g), _rows3(x), mean, inv) / n
-    return mean, inv, red
-
-
 def phase_bn_kernels(device, shapes=BN_SHAPES) -> dict:
     """Each BatchNorm kernel against its plain version, and batch_norm_train
     against F.batch_norm; returns max abs errors."""
@@ -467,7 +434,7 @@ def phase_bn_kernels(device, shapes=BN_SHAPES) -> dict:
     for name, shape in shapes.items():
         x, g, scale, bias = bn_operands(shape, gen, device)
         x3, g3 = _rows3(x), _rows3(g)
-        mean, inv, red = bn_chain(x, g, scale, bias)
+        mean, inv, red = bn_chain(x, g)
         xhat = (x3 - mean[None, :, None]) * inv[None, :, None]
         e = {
             "bn_stats": _sum_err(
@@ -526,63 +493,25 @@ def phase_bn_kernels(device, shapes=BN_SHAPES) -> dict:
 
 def phase_bn_times(device, shapes=BN_SHAPES) -> dict:
     """Kernel, plain and library times of each BatchNorm kernel, and of
-    F.batch_norm's forward and backward, at each shape."""
+    F.batch_norm's forward and backward, at each shape (time_bn)."""
     gen = make_generator(SEED + 5, device)
     times = {}
     for name, shape in shapes.items():
-        x, g, scale, bias = bn_operands(shape, gen, device)
-        x3, g3 = _rows3(x), _rows3(g)
-        mean, inv, red = bn_chain(x, g, scale, bias)
-        n = x.numel() // shape[1]
-        count = torch.tensor([n], dtype=torch.int32, device=device)
-        sum_dy, sum_dy_xmu = torch.batch_norm_backward_reduce(
-            g, x, mean, inv, scale, True, True, True)[:2]
-        cases = {
-            "bn_stats": (lambda: hopper_bn.bn_stats(x),
-                         lambda: hopper_bn.bn_stats_plain(x3),
-                         lambda: torch.batch_norm_stats(x, BN_EPS)),
-            "bn_apply": (lambda: hopper_bn.bn_apply(x, mean, inv, scale, bias),
-                         lambda: hopper_bn.bn_apply_plain(x3, mean, inv,
-                                                          scale, bias),
-                         lambda: torch.batch_norm_elemt(x, scale, bias, mean,
-                                                        inv, BN_EPS)),
-            "bn_grad_sum": (lambda: hopper_bn.bn_grad_sum(g, x, mean, inv),
-                            lambda: hopper_bn.bn_grad_sum_plain(g3, x3, mean,
-                                                                inv),
-                            lambda: torch.batch_norm_backward_reduce(
-                                g, x, mean, inv, scale, True, True, True)),
-            "bn_dx": (lambda: hopper_bn.bn_dx(g, x, mean, inv, scale, red),
-                      lambda: hopper_bn.bn_dx_plain(g3, x3, mean, inv, scale,
-                                                    red),
-                      lambda: torch.batch_norm_backward_elemt(
-                          g, x, mean, inv, scale, sum_dy, sum_dy_xmu, count)),
-        }
-        times[name] = {k: tuple(time_ms(fn) for fn in fns)
-                       for k, fns in cases.items()}
-        xg = x.detach().clone().requires_grad_(True)
-        sg = scale.detach().clone().requires_grad_(True)
-        bg = bias.detach().clone().requires_grad_(True)
-        y = torch.nn.functional.batch_norm(xg, None, None, sg, bg,
-                                           training=True, eps=BN_EPS)
-        times[name]["F.batch_norm"] = (
-            time_ms(lambda: torch.nn.functional.batch_norm(
-                x, None, None, scale, bias, training=True, eps=BN_EPS)),
-            time_ms(lambda: torch.autograd.grad(y, (xg, sg, bg), g,
-                                                retain_graph=True)))
-        bounds = bn_bounds(shape)
+        times[name] = time_bn(shape, gen, device)
         for k in BN_KERNELS:
-            ms, plain, library = times[name][k]
-            log(f"[bn times] {k} {name} {shape}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, library {library:.4f} ms, bound "
-                f"{bounds[k][0]:.4f} ms ({bounds[k][1]})")
-        fwd, bwd = times[name]["F.batch_norm"]
+            r = times[name][k]
+            log(f"[bn times] {k} {name} {shape}, {BN_PER_STEP[name]} per "
+                f"step: kernel {r['ms']:.4f} ms (per call "
+                f"{r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms (per call "
+                f"{r['library_call_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+        t = times[name]
         log(f"[bn times] {name}: F.batch_norm(training=True) forward "
-            f"{fwd:.4f} ms, backward {bwd:.4f} ms; kernels K4+K5 "
-            f"{times[name]['bn_stats'][0] + times[name]['bn_apply'][0]:.4f}"
-            f" ms, K6+K7 "
-            f"{times[name]['bn_grad_sum'][0] + times[name]['bn_dx'][0]:.4f}"
-            f" ms")
-        del x, g, x3, g3, xg, y
+            f"{t['F.batch_norm']['forward_ms']:.4f} ms, backward "
+            f"{t['F.batch_norm']['backward_ms']:.4f} ms; kernels K4+K5 "
+            f"{t['bn_stats']['ms'] + t['bn_apply']['ms']:.4f} ms, K6+K7 "
+            f"{t['bn_grad_sum']['ms'] + t['bn_dx']['ms']:.4f} ms")
     return times
 
 
@@ -762,6 +691,10 @@ def phase_train_step(device, grid=GRID, timed_steps: int = 3) -> dict:
         step = make_train_step(model, make_criterion(TRAIN_HPARAMS),
                                optimizer, preprocess)
         state = TrainState(model, optimizer)
+        bn_inputs = []
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out: bn_inputs.append(tuple(args[0].shape)))
+            for m in model.modules() if isinstance(m, FusedBatchNorm)]
         torch.cuda.synchronize()
         reset_launch_counts()
         start = time.perf_counter()
@@ -769,6 +702,17 @@ def phase_train_step(device, grid=GRID, timed_steps: int = 3) -> dict:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - start
         launches = launch_counts()
+        for hook in hooks:
+            hook.remove()
+        if fused == "full":
+            per_shape = {name: bn_inputs.count(shape)
+                         for name, shape in BN_SHAPES.items()}
+            check(per_shape == BN_PER_STEP
+                  and len(bn_inputs) == sum(BN_PER_STEP.values()),
+                  f"BatchNorm inputs of the step {per_shape} against "
+                  f"{BN_PER_STEP} ({len(bn_inputs)} in all)")
+            log(f"[train step] the step's {len(bn_inputs)} BatchNorm inputs "
+                f"per shape: {per_shape}")
         norms = {name: p.grad.norm().item()
                  for name, p in model.named_parameters()}
         results[case] = (aux["loss"].item(), norms, launches)
@@ -915,7 +859,8 @@ def zscore_scans(batch: int, std: float, grid, generator, device):
 def phase_zscore(device, batches=(8, 32), grid=GRID) -> tuple:
     """K3 against its plain version at each batch, on both intensity
     regimes, also with degenerate scans; then kernel and plain times.
-    Returns (max abs error, {batch: (kernel ms, plain ms)})."""
+    Returns (max abs error, {batch: (kernel ms, per-call ms, plain
+    ms)})."""
     gen = make_generator(SEED + 8, device)
     err, times = 0.0, {}
     for batch in batches:
@@ -926,9 +871,9 @@ def phase_zscore(device, batches=(8, 32), grid=GRID) -> tuple:
                             hopper_norm.zscore_plain(*rows).reshape(vol.shape),
                             f"B={batch} N(900, {std:g})")
             if std == 400.0:
-                times[batch] = (
-                    time_ms(lambda: hopper_norm.per_scan_zscore(vol, mask)),
-                    time_ms(lambda: hopper_norm.zscore_plain(*rows)))
+                times[batch] = kernel_times(
+                    lambda: hopper_norm.per_scan_zscore(vol, mask),
+                    lambda: hopper_norm.zscore_plain(*rows))
             mask[1] = 0.0  # no valid voxel: NaN throughout
             mask[2] = 0.0
             mask[2].view(-1)[mask.shape[1] // 2] = 1.0  # one: std 0
@@ -947,12 +892,12 @@ def phase_zscore(device, batches=(8, 32), grid=GRID) -> tuple:
                 f"(tolerance {ZSCORE_TOL} * (1 + |plain|)); with an empty and "
                 f"a one-voxel scan {e_deg}, NaN and inf positions equal")
             del vol, mask, rows, got
-        k, p = times[batch]
+        k, c, p = times[batch]
         n = batch * int(np.prod(grid))
-        log(f"[zscore times] B={batch} at {grid}: kernel {k:.4f} ms, plain "
-            f"{p:.4f} ms, bound {bound(12 * n, 5 * n)[0]:.4f} ms (function "
-            f"bytes), {bound(20 * n, 5 * n)[0]:.4f} ms (this design's two "
-            f"reads)")
+        log(f"[zscore times] B={batch} at {grid}: kernel {k:.4f} ms (per "
+            f"call {c:.4f}), plain {p:.4f} ms, bound "
+            f"{bound(12 * n, 5 * n)[0]:.4f} ms (function bytes), "
+            f"{bound(20 * n, 5 * n)[0]:.4f} ms (this design's two reads)")
     return err, times
 
 
@@ -1171,30 +1116,10 @@ def phase_entry_points(device, root) -> dict:
     return launches
 
 
-def pool_bound(shape, dtype, winners=None) -> tuple:
-    """K8's bound: x, y, g read once and dx written once; its operations
-    are the winner compares this run makes (a window stops at its winner)
-    and one add per credited window."""
-    n_in = float(np.prod(shape))
-    n_out = float(np.prod(shape[:2])) * float(np.prod(
-        [(n - 1) // 2 + 1 for n in shape[2:]]))
-    item = torch.tensor([], dtype=dtype).element_size()
-    ops = 0.0
-    if winners is not None:
-        ops = float((winners.clamp(max=NO_WINNER - 1).to(torch.float64)
-                     + 1).sum() + (winners < NO_WINNER).sum())
-    return bound(item * (2 * n_in + 2 * n_out), ops)
-
-
-def aten_pool_backward(g, x, indices):
-    return torch.ops.aten.max_pool3d_with_indices_backward(
-        g, x, [3, 3, 3], [2, 2, 2], [1, 1, 1], [1, 1, 1], False, indices)
-
-
 def phase_maxpool(device, shape=STEM) -> dict:
     """K8 against its plain version and aten's backward at the stem, then
     kernel, plain and library times; returns per dtype (max abs error
-    against plain, ms, plain ms, library ms, bound ms, bound by)."""
+    against plain, time_pool's record)."""
     gen = make_generator(SEED + 9, device)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1217,17 +1142,16 @@ def phase_maxpool(device, shape=STEM) -> dict:
               f"K8 {dtype} against aten within {tol} of the credited "
               f"magnitudes: {lib_err.max().item()}")
         winners = winner_offsets(x, y)
-        bound_ms, bound_by = pool_bound(shape, dtype, winners)
-        ms = time_ms(lambda: hopper_maxpool.max_pool3d_backward(x, y, g))
-        plain_ms = time_ms(lambda: max_pool3d_backward_plain(x, y, g))
-        library_ms = time_ms(lambda: aten_pool_backward(g, x, indices))
-        out[dtype] = (err, ms, plain_ms, library_ms, bound_ms, bound_by)
+        r = time_pool(x, y, indices, g)
+        out[dtype] = (err, r)
         log(f"[maxpool] K8 {shape} {dtype}: equal to plain; against aten "
             f"max abs err {lib_err.max().item():.3g} (tolerance {tol} of the"
             f" credited magnitudes); {int((winners < NO_WINNER).sum())} of "
-            f"{winners.numel()} windows have a winner; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"{winners.numel()} windows have a winner; kernel {r['ms']:.4f} "
+            f"ms (per call {r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms,"
+            f" library {r['library_ms']:.4f} ms (per call "
+            f"{r['library_call_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
         del x, y, g, got, want, library, credited, lib_err, winners, indices
     return out
 
@@ -1441,7 +1365,7 @@ def main() -> int:
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
     kernels = []
-    for name, nbytes, flops, launches, (ms, plain_ms) in (
+    for name, nbytes, flops, launches, (ms, per_call, plain_ms) in (
             ("minmax_select", 4 * 2 * n, 0.0, serve_launches,
              times[8]["minmax_select"]),
             ("minmax_apply", 4 * 3 * n, 0.0, serve_launches,
@@ -1453,25 +1377,29 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], "batch": 8,
-            "shape": [8, int(np.prod(GRID))], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    stem = BN_SHAPES["stem"]
-    bounds = bn_bounds(stem)
+            "shape": [8, int(np.prod(GRID))], "ms": ms, "call_ms": per_call,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
+    keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     for name in BN_KERNELS:
-        ms, plain_ms, library_ms = bn_times["stem"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": fit_launches[name],
-            "max_abs_err": err[name], "batch": 8, "shape": list(stem),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": library_ms})
-    err_k8, ms, plain_ms, library_ms, bound_ms, bound_by = pool[torch.float32]
+            "max_abs_err": err[name], "batch": 8,
+            "shape": list(BN_SHAPES["stem"]),
+            **{k: bn_times["stem"][name][k] for k in keys},
+            "per_shape": {
+                shape: {"dims": list(BN_SHAPES[shape]),
+                        "launches_per_step": BN_PER_STEP[shape],
+                        **{k: bn_times[shape][name][k] for k in keys}}
+                for shape in BN_SHAPES}})
+    err_k8, k8 = pool[torch.float32]
     kernels.append({
         "name": "maxpool_bwd", "route": "cuda", "source": SOURCE["maxpool_bwd"],
         "replaces": REPLACES["maxpool_bwd"],
         "launches": pet_step["wf"]["maxpool_bwd"], "max_abs_err": err_k8,
-        "batch": 8, "shape": list(STEM), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+        "batch": 8, "shape": list(STEM), **{k: k8[k] for k in keys},
+        "bfloat16": {k: pool[torch.bfloat16][1][k] for k in keys}})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,17 @@
 // bn_stats (replaces multimodal_alzheimer_tpu/ops/pallas_bn.py _sum_kernel):
 //   per-channel [sum x; sum x^2] in f32. On the TPU one grid walks the rows
 //   in order and accumulates into one (2, 128) block. Blocks run in parallel
-//   here, so a block takes one channel and one stretch of S in each of the B
-//   rows, reduces it with 16-byte loads, warp shuffles and shared memory, and
-//   writes one partial per (channel, stretch). A second, tiny pass sums each
-//   channel's partials in a fixed order: no float atomics, so the result is
-//   the same from run to run.
+//   here, so one launch gives each channel a thread-block cluster of up to 8
+//   blocks (cudaLaunchKernelEx with a cluster dimension) and each block one
+//   stretch of S in all B rows: 16-byte loads, warp shuffles, shared memory.
+//   Rank 0 of the cluster then adds the blocks' partials through
+//   distributed shared memory in rank order and writes the channel's sums:
+//   no workspace, no second launch, no float atomics, so the result is the
+//   same from run to run. The cluster
+//   size aims at about 512 blocks in all (four per SM of an H100's 132) with
+//   at least 256 elements of S per block: 8 at the ResNet-18 stem and
+//   layer1 (64 channels), 4 at layer2 (128), 2 at layer3 (256) and 1 at
+//   layer4 (512).
 //   Bound: memory, x read once (4 bytes per element).
 //
 // bn_apply (replaces pallas_bn.py _apply_kernel):
@@ -22,7 +28,7 @@
 //
 // bn_grad_sum (replaces pallas_bn.py _grad_sum_kernel):
 //   per-channel [sum g; sum g * xhat], xhat = (x - mean) * inv recomputed in
-//   registers; bn_stats' structure over two inputs, with the same second pass.
+//   registers; bn_stats' kernel (one template) over two inputs.
 //   Bound: memory, 8 bytes read per element.
 //
 // bn_dx (replaces pallas_bn.py _dx_kernel):
@@ -41,38 +47,46 @@
 // cudaStream_t, allocates nothing, and returns the first CUDA error seen (0 on
 // success).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // Blocks a statistics pass aims for over all channels (about four per SM of
-// an H100's 132), and the least stretch of a row one block takes.
+// an H100's 132), the least stretch of a row one block takes, and the
+// largest portable cluster.
 constexpr int64_t kReduceBlocks = 512;
-constexpr int64_t kMinSpan = 512;
+constexpr int64_t kMinSpan = 256;
+constexpr int64_t kMaxCluster = 8;
 // Blocks an elementwise pass aims for over all rows.
 constexpr int64_t kApplyBlocks = 2048;
 
-// Sum of v over the block, valid in thread 0. `smem` holds kWarps floats and
-// may be reused as soon as this returns.
-__device__ __forceinline__ float block_sum(float v, float* smem) {
+// (a, b) summed over the block, valid in thread 0. Each block reduces once,
+// so `smem` (kWarps entries) is never reused and one barrier does.
+__device__ __forceinline__ float2 block_sum2(float a, float b, float2* smem) {
 #pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1)
-    v += __shfl_down_sync(0xFFFFFFFFu, v, offset);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  float total = 0.0f;
-  if (warp == 0) {
-    total = lane < kWarps ? smem[lane] : 0.0f;
-#pragma unroll
-    for (int offset = 16; offset > 0; offset >>= 1)
-      total += __shfl_down_sync(0xFFFFFFFFu, total, offset);
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    a += __shfl_down_sync(0xFFFFFFFFu, a, offset);
+    b += __shfl_down_sync(0xFFFFFFFFu, b, offset);
   }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) smem[warp] = make_float2(a, b);
   __syncthreads();
+  float2 total = make_float2(0.0f, 0.0f);
+  if (warp == 0) {
+    if (lane < kWarps) total = smem[lane];
+#pragma unroll
+    for (int offset = 16; offset > 0; offset >>= 1) {
+      total.x += __shfl_down_sync(0xFFFFFFFFu, total.x, offset);
+      total.y += __shfl_down_sync(0xFFFFFFFFu, total.y, offset);
+    }
+  }
   return total;
 }
 
@@ -94,61 +108,78 @@ __device__ __forceinline__ void accumulate(float x, float g, float mean,
   }
 }
 
-// One block per (stretch of S, channel): partials of both sums over the
-// stretch [split * span, split * span + span) of every row of the channel.
-// partial is (2, C, splits).
 template <bool kGrad>
-__global__ void reduce_partial_kernel(const float* __restrict__ x,
-                                      const float* __restrict__ g,
-                                      const float* __restrict__ mean,
-                                      const float* __restrict__ inv,
-                                      int64_t batch, int64_t channels,
-                                      int64_t spatial, int64_t span, bool vec,
-                                      float* __restrict__ partial) {
-  __shared__ float smem[kWarps];
-  const int64_t c = blockIdx.y, split = blockIdx.x, splits = gridDim.x;
-  const int64_t begin = split * span;
+__device__ __forceinline__ void accumulate4(const float4& x, const float4& g,
+                                            float mean, float inv, float* a,
+                                            float* b) {
+  accumulate<kGrad>(x.x, g.x, mean, inv, a[0], b[0]);
+  accumulate<kGrad>(x.y, g.y, mean, inv, a[1], b[1]);
+  accumulate<kGrad>(x.z, g.z, mean, inv, a[2], b[2]);
+  accumulate<kGrad>(x.w, g.w, mean, inv, a[3], b[3]);
+}
+
+// One cluster per channel, one block per stretch of S: block `rank` sums
+// [rank * span, rank * span + span) of each of the channel's B rows, row
+// after row, into four accumulators, a lane of a float4 each. (Loads of
+// several rows issued together before the adds were slower on an H100 at
+// the ResNet-18 stem; PERF.md has the times.) After a cluster barrier,
+// rank 0 adds the cluster's partials from distributed shared memory in rank
+// order and writes sums (2, C). Every add happens in an order fixed by the
+// code: the same inputs give the same bits.
+template <bool kGrad>
+__global__ void __launch_bounds__(kThreads)
+    reduce_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                  const float* __restrict__ mean,
+                  const float* __restrict__ inv, int64_t batch,
+                  int64_t channels, int64_t spatial, int64_t span, bool vec,
+                  float* __restrict__ sums) {
+  __shared__ float2 warp_sums[kWarps];
+  __shared__ float2 partial;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int64_t c = blockIdx.y;
+  const int64_t begin = rank * span;
   const int64_t end = begin + span < spatial ? begin + span : spatial;
   const float m = kGrad ? mean[c] : 0.0f;
   const float iv = kGrad ? inv[c] : 0.0f;
-  float a = 0.0f, b = 0.0f;
-  for (int64_t row = c; row < batch * channels; row += channels) {
-    const float* xr = x + row * spatial;
-    const float* gr = kGrad ? g + row * spatial : nullptr;
+  const int64_t row_step = channels * spatial;  // row (r, c) to (r + 1, c)
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, b[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int64_t r = 0; r < batch; ++r) {
+    const float* xr = x + r * row_step + c * spatial;
+    const float* gr = kGrad ? g + r * row_step + c * spatial : nullptr;
     if (vec) {
       const float4* x4 = reinterpret_cast<const float4*>(xr);
       const float4* g4 = reinterpret_cast<const float4*>(gr);
-      for (int64_t i = begin / 4 + threadIdx.x; i < end / 4; i += blockDim.x) {
-        const float4 xv = x4[i];
-        const float4 gv = kGrad ? g4[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        accumulate<kGrad>(xv.x, gv.x, m, iv, a, b);
-        accumulate<kGrad>(xv.y, gv.y, m, iv, a, b);
-        accumulate<kGrad>(xv.z, gv.z, m, iv, a, b);
-        accumulate<kGrad>(xv.w, gv.w, m, iv, a, b);
-      }
+      const int i1 = static_cast<int>(end / 4);
+      for (int i = static_cast<int>(begin / 4) + threadIdx.x; i < i1;
+           i += kThreads)
+        accumulate4<kGrad>(__ldg(x4 + i),
+                           kGrad ? __ldg(g4 + i)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                           m, iv, a, b);
     } else {
-      for (int64_t i = begin + threadIdx.x; i < end; i += blockDim.x)
-        accumulate<kGrad>(xr[i], kGrad ? gr[i] : 0.0f, m, iv, a, b);
+      const int i1 = static_cast<int>(end);
+      for (int i = static_cast<int>(begin) + threadIdx.x; i < i1;
+           i += kThreads)
+        accumulate<kGrad>(__ldg(xr + i), kGrad ? __ldg(gr + i) : 0.0f, m,
+                          iv, a[0], b[0]);
     }
   }
-  a = block_sum(a, smem);
-  b = block_sum(b, smem);
-  if (threadIdx.x == 0) {
-    partial[c * splits + split] = a;
-    partial[(channels + c) * splits + split] = b;
+  const float2 total = block_sum2((a[0] + a[1]) + (a[2] + a[3]),
+                                  (b[0] + b[1]) + (b[2] + b[3]), warp_sums);
+  if (threadIdx.x == 0) partial = total;
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    float2 s = make_float2(0.0f, 0.0f);
+    for (unsigned r = 0; r < cluster.num_blocks(); ++r) {
+      const float2 p = *cluster.map_shared_rank(&partial, r);
+      s.x += p.x;
+      s.y += p.y;
+    }
+    sums[c] = s.x;
+    sums[channels + c] = s.y;
   }
-}
-
-// One thread per (sum, channel): the channel's partials in order of split.
-__global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    int64_t channels, int64_t splits,
-                                    float* __restrict__ sums) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= 2 * channels) return;
-  const float* p = partial + i * splits;
-  float total = 0.0f;
-  for (int64_t j = 0; j < splits; ++j) total += p[j];
-  sums[i] = total;
+  cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
 __device__ __forceinline__ float apply_one(float x, float mean, float inv,
@@ -232,21 +263,15 @@ bool aligned16(const void* p) {
 
 bool valid_shape(int64_t batch, int64_t channels, int64_t spatial) {
   return batch >= 1 && channels >= 1 && channels <= 65535 && spatial >= 1 &&
-         batch * channels <= 0x7FFFFFFFLL;
+         spatial <= 0x7FFFFFFFLL && batch * channels <= 0x7FFFFFFFLL;
 }
 
-// Stretch of a row, in elements, that one block of a statistics pass takes:
-// a multiple of 4, so float4 loads stay aligned when S is.
-int64_t reduce_span(int64_t channels, int64_t spatial) {
-  const int64_t target = (kReduceBlocks + channels - 1) / channels;
-  int64_t span = (spatial + target - 1) / target;
-  span = (span + 3) / 4 * 4;
-  return span < kMinSpan ? kMinSpan : span;
-}
-
-int64_t reduce_splits(int64_t channels, int64_t spatial) {
-  const int64_t span = reduce_span(channels, spatial);
-  return (spatial + span - 1) / span;
+// Blocks of a statistics pass's cluster: one channel's stretches of S.
+int64_t reduce_cluster(int64_t channels, int64_t spatial) {
+  int64_t n = (kReduceBlocks + channels - 1) / channels;
+  if (n > kMaxCluster) n = kMaxCluster;
+  if (n > spatial / kMinSpan) n = spatial / kMinSpan;
+  return n < 1 ? 1 : n;
 }
 
 // Chunks of each row in an elementwise pass: about kApplyBlocks blocks in
@@ -268,18 +293,26 @@ unsigned apply_chunks(int64_t rows, int64_t spatial) {
 template <bool kGrad>
 cudaError_t reduce(const float* x, const float* g, const float* mean,
                    const float* inv, int64_t batch, int64_t channels,
-                   int64_t spatial, float* partial, float* sums,
-                   cudaStream_t stream) {
-  const int64_t span = reduce_span(channels, spatial);
-  const int64_t splits = (spatial + span - 1) / span;
+                   int64_t spatial, float* sums, cudaStream_t stream) {
+  const int64_t cluster = reduce_cluster(channels, spatial);
+  // A multiple of 4, so float4 loads stay aligned when S is.
+  const int64_t span = ((spatial + cluster - 1) / cluster + 3) / 4 * 4;
   const bool vec = spatial % 4 == 0 && aligned16(x) && (!kGrad || aligned16(g));
-  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(channels));
-  reduce_partial_kernel<kGrad><<<grid, kThreads, 0, stream>>>(
-      x, g, mean, inv, batch, channels, spatial, span, vec, partial);
-  RETURN_IF_ERROR(cudaGetLastError());
-  const int small = 128;
-  const unsigned blocks = static_cast<unsigned>((2 * channels + small - 1) / small);
-  sum_partials_kernel<<<blocks, small, 0, stream>>>(partial, channels, splits, sums);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(cluster),
+                        static_cast<unsigned>(channels));
+  config.blockDim = dim3(kThreads);
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  RETURN_IF_ERROR(cudaLaunchKernelEx(&config, reduce_kernel<kGrad>, x, g,
+                                     mean, inv, batch, channels, spatial,
+                                     span, vec, sums));
   return cudaGetLastError();
 }
 
@@ -287,20 +320,13 @@ cudaError_t reduce(const float* x, const float* g, const float* mean,
 
 extern "C" {
 
-// Partials per channel and sum that bn_stats and bn_grad_sum write: their
-// workspace holds 2 * channels * bn_reduce_splits(channels, spatial) floats.
-int64_t bn_reduce_splits(int64_t channels, int64_t spatial) {
-  if (channels < 1 || spatial < 1) return 0;
-  return reduce_splits(channels, spatial);
-}
-
 // sums (2, C) = [sum x; sum x^2] over the B rows of each channel.
 int bn_stats(const float* x, int64_t batch, int64_t channels, int64_t spatial,
-             float* workspace, float* sums, int64_t device, void* stream_handle) {
+             float* sums, int64_t device, void* stream_handle) {
   if (!valid_shape(batch, channels, spatial)) return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(static_cast<int>(device)));
   return reduce<false>(x, nullptr, nullptr, nullptr, batch, channels, spatial,
-                       workspace, sums, static_cast<cudaStream_t>(stream_handle));
+                       sums, static_cast<cudaStream_t>(stream_handle));
 }
 
 // y = ((x - mean) * inv) * scale + bias with (C,) mean, inv, scale, bias.
@@ -322,12 +348,12 @@ int bn_apply(const float* x, const float* mean, const float* inv,
 // sums (2, C) = [sum g; sum g * (x - mean) * inv].
 int bn_grad_sum(const float* g, const float* x, const float* mean,
                 const float* inv, int64_t batch, int64_t channels,
-                int64_t spatial, float* workspace, float* sums, int64_t device,
+                int64_t spatial, float* sums, int64_t device,
                 void* stream_handle) {
   if (!valid_shape(batch, channels, spatial)) return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(static_cast<int>(device)));
-  return reduce<true>(x, g, mean, inv, batch, channels, spatial, workspace,
-                      sums, static_cast<cudaStream_t>(stream_handle));
+  return reduce<true>(x, g, mean, inv, batch, channels, spatial, sums,
+                      static_cast<cudaStream_t>(stream_handle));
 }
 
 // dx = (scale * inv) * ((g - red[0]) - (x - mean) * inv * red[1]), red (2, C).

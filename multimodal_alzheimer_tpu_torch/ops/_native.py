@@ -107,15 +107,13 @@ def library() -> ctypes.CDLL:
     lib.minmax_apply.restype = ctypes.c_int
     lib.minmax_error_string.argtypes = [ctypes.c_int]
     lib.minmax_error_string.restype = ctypes.c_char_p
-    lib.bn_reduce_splits.argtypes = [i64, i64]
-    lib.bn_reduce_splits.restype = i64
-    lib.bn_stats.argtypes = [ptr, i64, i64, i64, ptr, ptr, i64, ptr]
+    lib.bn_stats.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr]
     lib.bn_stats.restype = ctypes.c_int
     lib.bn_apply.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
                              i64, ptr]
     lib.bn_apply.restype = ctypes.c_int
-    lib.bn_grad_sum.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr,
-                                i64, ptr]
+    lib.bn_grad_sum.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr, i64,
+                                ptr]
     lib.bn_grad_sum.restype = ctypes.c_int
     lib.bn_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
                           i64, ptr]
@@ -124,8 +122,10 @@ def library() -> ctypes.CDLL:
     lib.zscore_workspace_bytes.restype = i64
     lib.zscore_norm.argtypes = [ptr, ptr, ptr, i64, i64, ptr, i64, ptr]
     lib.zscore_norm.restype = ctypes.c_int
-    lib.maxpool_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
-                                i64, i64, ptr]
+    lib.maxpool_bwd_slab.argtypes = [i64, i64, i64, i64]
+    lib.maxpool_bwd_slab.restype = i64
+    lib.maxpool_bwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64,
+                                i64, ptr]
     lib.maxpool_bwd.restype = ctypes.c_int
     return lib
 

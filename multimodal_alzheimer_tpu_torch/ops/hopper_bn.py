@@ -90,23 +90,20 @@ def bn_dx_plain(g3, x3, mean, inv, scale, red) -> torch.Tensor:
 
 
 def _reduce_kernel(name: str, x3: torch.Tensor, *extra) -> torch.Tensor:
-    """``bn_stats`` (no extra operands) or ``bn_grad_sum`` (g, mean, inv)."""
+    """``bn_stats`` (no extra operands) or ``bn_grad_sum`` (g, mean, inv):
+    one launch, no workspace."""
     lib = _native.library()
     b, c, s = x3.shape
     device = x3.device
-    work = torch.empty(2 * c * lib.bn_reduce_splits(c, s),
-                       dtype=torch.float32, device=device)
     sums = torch.empty((2, c), dtype=torch.float32, device=device)
     if name == "bn_stats":
-        code = lib.bn_stats(x3.data_ptr(), b, c, s, work.data_ptr(),
-                            sums.data_ptr(), device.index,
-                            _native.stream(device))
+        code = lib.bn_stats(x3.data_ptr(), b, c, s, sums.data_ptr(),
+                            device.index, _native.stream(device))
     else:
         g3, mean, inv = extra
         code = lib.bn_grad_sum(g3.data_ptr(), x3.data_ptr(), mean.data_ptr(),
-                               inv.data_ptr(), b, c, s, work.data_ptr(),
-                               sums.data_ptr(), device.index,
-                               _native.stream(device))
+                               inv.data_ptr(), b, c, s, sums.data_ptr(),
+                               device.index, _native.stream(device))
     _native.check(code, name)
     LAUNCHES[name] += 1
     return sums

@@ -8,9 +8,12 @@ winner of each window from ``x == y``, as the JAX function does, and never
 torch's pool indices.
 
 ``max_pool3d_backward`` launches the kernel of ``csrc/maxpool_bwd.cu`` on a
-CUDA tensor (float32 or bfloat16, contiguous, one device; anything else
-raises) and runs ``ops/maxpool.max_pool3d_backward_plain`` on a CPU tensor.
-Every kernel launch adds one to ``LAUNCHES["maxpool_bwd"]``.
+CUDA tensor (float32 or bfloat16, contiguous, one device, at any storage
+offset; anything else raises, and so does a plane whose slab of one output
+slice does not fit in a block's shared memory: f32 slices of more than
+about 14,000 elements) and runs ``ops/maxpool.max_pool3d_backward_plain`` on
+a CPU tensor. One launch per call, no workspace; every launch adds one to
+``LAUNCHES["maxpool_bwd"]``.
 """
 
 from __future__ import annotations
@@ -56,6 +59,12 @@ def _check_operands(x: torch.Tensor, y: torch.Tensor,
             raise ValueError(f"operands on {x.device} and {t.device}")
         if not t.is_contiguous():
             raise ValueError("the max-pool kernel takes contiguous tensors")
+    d, h, w = x.shape[2:]
+    if _native.library().maxpool_bwd_slab(d, h, w,
+                                          _DTYPE_CODES[x.dtype]) == 0:
+        raise ValueError(f"the max-pool kernel stages slices of H x W = "
+                         f"{h} x {w} {x.dtype} in shared memory, and a slab "
+                         f"of them does not fit")
 
 
 def max_pool3d_backward(x: torch.Tensor, y: torch.Tensor,
@@ -68,10 +77,9 @@ def max_pool3d_backward(x: torch.Tensor, y: torch.Tensor,
     _check_operands(x, y, g)
     lib = _native.library()
     b, c, d, h, w = x.shape
-    work = torch.empty(y.numel(), dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     code = lib.maxpool_bwd(x.data_ptr(), y.data_ptr(), g.data_ptr(),
-                           work.data_ptr(), dx.data_ptr(), b * c, d, h, w,
+                           dx.data_ptr(), b * c, d, h, w,
                            _DTYPE_CODES[x.dtype], x.device.index,
                            _native.stream(x.device))
     _native.check(code, "maxpool_bwd")

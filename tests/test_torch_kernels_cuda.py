@@ -14,7 +14,9 @@ BatchNorm kernels: the elementwise ones (apply, dx) equal to their plain
 versions given the same inputs; the per-channel sums within 1e-6 of the sum
 of the magnitudes of what is added (the order of summation differs). The
 max-pool backward (K8) equal to its plain version, bit for bit, in float32
-and bfloat16: both add in the same order with one rounding per add.
+and bfloat16: both add in the same order with one rounding per add. The
+one-launch reductions (K4, K6) and K8 allocate their output and nothing
+else; K4 and K6 give the same bits on every call.
 """
 
 import numpy as np
@@ -245,6 +247,9 @@ def test_normalize_preprocess_launches_the_zscore_kernel(device):
 
 BN_SHAPES = {
     "stem": (8, 64, 46, 55, 46),    # ResNet-18 at 91x109x91, batch 8
+    "layer1": (8, 64, 23, 28, 23),
+    "layer2": (8, 128, 12, 14, 12),
+    "layer3": (8, 256, 12, 14, 12),
     "layer4": (8, 512, 12, 14, 12),
     "odd": (3, 5, 7, 9, 11),        # S = 693: the scalar path
     "dense": (6, 16),               # (B, C): S = 1
@@ -298,6 +303,58 @@ def test_bn_kernels_match_plain(device, name):
     torch.cuda.synchronize()
     assert {k: hopper_bn.LAUNCHES[k] - before[k] for k in before} == \
         dict.fromkeys(before, 1)
+
+
+@pytest.mark.parametrize("name", ["stem", "layer2", "layer4"])
+def test_bn_sums_are_repeatable(device, name):
+    """The one-launch reductions add in an order fixed by the code (no float
+    atomics): two calls on the same inputs give the same bits. Clusters of
+    8, 4 and 1 blocks per channel at these shapes."""
+    x, g, _, _ = _bn_operands(BN_SHAPES[name], device, seed=4)
+    mean = x.mean(dim=(0, 2, 3, 4))
+    inv = torch.rsqrt(x.var(dim=(0, 2, 3, 4), unbiased=False) + 1e-5)
+    first = (hopper_bn.bn_stats(x), hopper_bn.bn_grad_sum(g, x, mean, inv))
+    second = (hopper_bn.bn_stats(x), hopper_bn.bn_grad_sum(g, x, mean, inv))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def _allocations(fn):
+    """The result of ``fn`` and the number of blocks it allocated on the
+    card."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = fn()
+    return out, torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+def test_bn_reductions_launch_once_without_a_workspace(device):
+    """K4 and K6 allocate their (2, C) output and nothing else, and launch
+    one kernel."""
+    x, g, _, _ = _bn_operands(BN_SHAPES["layer2"], device, seed=5)
+    c = torch.ones(x.shape[1], device=device)
+    x3 = x.reshape(x.shape[0], x.shape[1], -1)  # a view: no allocation
+    for name, call in (("bn_stats", lambda: hopper_bn.bn_stats(x3)),
+                       ("bn_grad_sum",
+                        lambda: hopper_bn.bn_grad_sum(g, x3, c, c))):
+        before = hopper_bn.LAUNCHES[name]
+        sums, allocated = _allocations(call)
+        assert sums.shape == (2, x.shape[1]) and allocated == 1, name
+        assert hopper_bn.LAUNCHES[name] == before + 1
+
+
+def test_bn_reduction_error_raises(device):
+    """A shape the C entry point refuses (65536 channels: one cluster per
+    channel on the grid's second axis) comes back as a CUDA error, and the
+    wrapper raises; nothing falls back to another path."""
+    x = torch.ones(1, 65536, device=device)
+    before = dict(hopper_bn.LAUNCHES)
+    with pytest.raises(RuntimeError, match="bn_stats: CUDA error"):
+        hopper_bn.bn_stats(x)
+    with pytest.raises(RuntimeError, match="bn_grad_sum: CUDA error"):
+        hopper_bn.bn_grad_sum(x, x, x[0], x[0])
+    assert hopper_bn.LAUNCHES == before
 
 
 def test_bn_kernels_on_a_misaligned_view(device):
@@ -404,6 +461,57 @@ def test_maxpool_backward_equals_plain(device, shape, dtype, kind):
     assert torch.equal(got, max_pool3d_backward_plain(x, y, g))
 
 
+def _slab(shape, dtype):
+    from multimodal_alzheimer_tpu_torch.ops import _native
+
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    return _native.library().maxpool_bwd_slab(*shape[2:], code)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_maxpool_backward_ragged_last_slab(device, dtype):
+    """A D whose output slices do not fill the kernel's last slab: 32 x 32
+    slices take slabs of 6 (float32) or 8 (bfloat16) output slices, and
+    D = 29 gives 15 of them."""
+    shape = (2, 3, 29, 32, 32)
+    td, d_out = _slab(shape, dtype), (shape[2] - 1) // 2 + 1
+    assert 1 < td < d_out and d_out % td != 0, td
+    x, y, g = _pool_operands(shape, "relu_ties", dtype, device, seed=4)
+    got = hopper_maxpool.max_pool3d_backward(x, y, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, max_pool3d_backward_plain(x, y, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_maxpool_backward_off_a_16_byte_boundary(device, dtype):
+    """Operands one element past a 16-byte boundary: the kernel copies and
+    stores the partial 16-byte chunks at either end of each range element by
+    element, and its result is the plain version's, bit for bit."""
+    shape = (8, 64, 46, 55, 46)
+    x, y, g = _pool_operands(shape, "relu_ties", dtype, device, seed=5)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    xs, ys, gs = shifted(x), shifted(y), shifted(g)
+    assert all(t.data_ptr() % 16 != 0 for t in (xs, ys, gs))
+    got = hopper_maxpool.max_pool3d_backward(xs, ys, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, max_pool3d_backward_plain(x, y, g))
+
+
+def test_maxpool_backward_launches_once_without_a_workspace(device):
+    x, y, g = _pool_operands((8, 64, 46, 55, 46), "relu_ties",
+                             torch.float32, device, seed=6)
+    before = hopper_maxpool.LAUNCHES["maxpool_bwd"]
+    dx, allocated = _allocations(
+        lambda: hopper_maxpool.max_pool3d_backward(x, y, g))
+    assert allocated == 1 and dx.shape == x.shape  # dx alone
+    assert hopper_maxpool.LAUNCHES["maxpool_bwd"] == before + 1
+
+
 def test_maxpool_autograd_function_launches_once(device):
     x, _, g = _pool_operands((2, 8, 12, 10, 14), "relu_ties",
                              torch.float32, device, seed=2)
@@ -431,4 +539,13 @@ def test_maxpool_backward_refuses_what_it_does_not_take(device):
         hopper_maxpool.max_pool3d_backward(x, y[..., :-1].contiguous(), g)
     with pytest.raises(TypeError, match="operands of"):
         hopper_maxpool.max_pool3d_backward(x, y, g.to(torch.bfloat16))
+    # Slices of 200 x 200 float32: a slab of one output slice needs more
+    # shared memory than a block has.
+    big = torch.zeros(1, 1, 3, 200, 200, device=device)
+    assert _slab(big.shape, torch.float32) == 0
+    before = hopper_maxpool.LAUNCHES["maxpool_bwd"]
+    with pytest.raises(ValueError, match="does not fit"):
+        hopper_maxpool.max_pool3d_backward(big, pool_forward(big),
+                                           pool_forward(big))
+    assert hopper_maxpool.LAUNCHES["maxpool_bwd"] == before
 

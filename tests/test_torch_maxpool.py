@@ -247,3 +247,157 @@ def test_anat_cnn_wf_matches_jax_wf():
 def test_unknown_maxpool_impl_raises():
     with pytest.raises(ValueError, match="maxpool_impl"):
         AnatCNN(n_classes=2, resnet_depth=10, maxpool_impl="bogus")
+
+
+# ------------------------------------------ K8's slab walk, on the CPU --
+#
+# csrc/maxpool_bwd.cu runs only on the card. This walks its decomposition in
+# numpy with the kernel's own index arithmetic: per plane, slabs of td output
+# slices [a0, a0 + td); the staged input slices [2 a0 - 1, 2 a0 + 2 td - 1];
+# winner codes for the slab's windows (27 compares) and for the halo window
+# a0 + td (the 9 compares of od = 0, computed again rather than taken from
+# the next slab), with the kernel's masks for taps in the padding; then dx
+# of the input slices [2 a0, 2 a0 + 2 td) in 16-byte chunks counted from an
+# address `head` bytes past a 16-byte boundary, each element adding its
+# windows' credits in ascending output order with one rounding per add. It
+# must equal the plain version bitwise, and write every element once.
+
+# The JAX grids above and one whose D = 13 gives Do = 7: a ragged last slab
+# for td = 2 and 4.
+WALK_SHAPES = SHAPES + [(1, 13, 7, 6, 3)]
+
+
+def _bf16_round(v):
+    """float32 values rounded to the nearest bfloat16, ties to even."""
+    u = np.asarray(v, np.float32).reshape(-1).view(np.uint32)
+    u = u.astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+    return u.view(np.float32).reshape(np.shape(v))
+
+
+# Bits of the 27 offsets lin = (od * 3 + oh) * 3 + ow with od, oh or ow at
+# 0 or 2, as the kernel masks its taps.
+K_ALL, K_OD0 = (1 << 27) - 1, 0x1FF
+K_OD2, K_OH0 = K_OD0 << 18, 0x7 | 0x7 << 9 | 0x7 << 18
+K_OH2, K_OW0 = K_OH0 << 6, 0x1249249
+K_OW2 = K_OW0 << 2
+
+
+def _walk_codes(xs, ys, a0, full_end, xi0, xi1, dims):
+    """Winner codes (planes, windows) of windows [a0, a0 + n) from the
+    staged slices ``xs`` (slices [xi0, xi1)) and their ``ys``, as the kernel
+    makes them: every tap loaded, a tap in the padding reading a clamped
+    slice or row, the element before or after the row, or a guard element
+    (0 here, a tie for ReLU zeros), then masked."""
+    d, h, w, oh_, ow_ = dims
+    planes, n = ys.shape
+    guarded = np.pad(xs, ((0, 0), (1, 1)))
+    codes = np.empty((planes, n), np.int64)
+    for e in range(n):
+        la, rem = divmod(e, oh_ * ow_)
+        b, c = divmod(rem, ow_)
+        a = a0 + la
+        m = ys[:, e]
+        taps = K_ALL if a < full_end else K_OD0
+        valid = taps
+        for bad, mask in ((2 * a - 1 < 0, K_OD0), (2 * a + 1 >= d, K_OD2),
+                          (2 * b - 1 < 0, K_OH0), (2 * b + 1 >= h, K_OH2),
+                          (2 * c - 1 < 0, K_OW0), (2 * c + 1 >= w, K_OW2)):
+            if bad:
+                valid &= ~mask
+        hits = np.zeros(planes, np.int64)
+        for od in range(3 if taps == K_ALL else 1):
+            i = min(max(2 * a - 1 + od, xi0), xi1 - 1) - xi0
+            for oh in range(3):
+                j = min(max(2 * b - 1 + oh, 0), h - 1)
+                row = i * h * w + j * w + 2 * c - 1
+                for ow in range(3):
+                    hit = guarded[:, row + ow + 1] == m
+                    hits |= np.where(hit, 1 << ((od * 3 + oh) * 3 + ow), 0)
+        hits &= valid
+        hits |= np.where(m == -np.inf, taps & ~valid, 0)
+        win = np.full(planes, 27)
+        for lin in range(26, -1, -1):
+            win = np.where((hits >> lin) & 1, lin, win)
+        codes[:, e] = win
+    return codes
+
+
+def _walk_credit(li, j, k, n_win, oh_, ow_, codes, gs, rnd):
+    t, di = divmod(li, 2)
+    u, dj = divmod(j, 2)
+    v, dk = divmod(k, 2)
+    acc = np.float32(0.0)
+    for da in range(di + 1):
+        for db in range(dj + 1):
+            for dc in range(dk + 1):
+                la, b, c = t + da, u + db, v + dc
+                if la >= n_win or b >= oh_ or c >= ow_:
+                    continue
+                od = 2 - 2 * da if di else 1
+                oh = 2 - 2 * db if dj else 1
+                ow = 2 - 2 * dc if dk else 1
+                o = (la * oh_ + b) * ow_ + c
+                if codes[o] == (od * 3 + oh) * 3 + ow:
+                    acc = rnd(np.float32(acc + gs[o]))
+    return acc
+
+
+def _k8_walk(x, y, g, td, base_head, item):
+    """dx (planes, D, H, W) by K8's slabs; ``base_head`` is the byte offset
+    of dx's first element past a 16-byte boundary."""
+    planes, d, h, w = x.shape
+    od_, oh_, ow_ = y.shape[1:]
+    hw, ohw = h * w, oh_ * ow_
+    rnd = _bf16_round if item == 2 else (lambda v: v)
+    xf, yf, gf = (t.reshape(planes, -1) for t in (x, y, g))
+    dx = np.full(x.shape, np.nan, np.float32)
+    writes = np.zeros(x.shape, np.int64)
+    for a0 in range(0, od_, td):
+        full_end, ae = min(a0 + td, od_), min(a0 + td + 1, od_)
+        n_win = ae - a0
+        xi0, xi1 = max(2 * a0 - 1, 0), min(2 * a0 + 2 * td, d)
+        n_dx = (min(2 * a0 + 2 * td, d) - 2 * a0) * hw
+        codes = _walk_codes(xf[:, xi0 * hw:xi1 * hw], yf[:, a0 * ohw:ae * ohw],
+                            a0, full_end, xi0, xi1, (d, h, w, oh_, ow_))
+        gs = gf[:, a0 * ohw:ae * ohw]
+        for p in range(planes):
+            head = (base_head + (p * d + 2 * a0) * hw * item) % 16
+            end = head + n_dx * item
+            for lo in range(0, end, 16):
+                start, stop = max(lo, head), min(lo + 16, end)
+                li, rem = divmod((start - head) // item, hw)
+                j, k = divmod(rem, w)
+                for _ in range(start, stop, item):
+                    dx[p, 2 * a0 + li, j, k] = _walk_credit(
+                        li, j, k, n_win, oh_, ow_, codes[p], gs[p], rnd)
+                    writes[p, 2 * a0 + li, j, k] += 1
+                    k += 1
+                    if k == w:
+                        k = 0
+                        j += 1
+                        if j == h:
+                            j = 0
+                            li += 1
+    assert (writes == 1).all()
+    return dx
+
+
+@pytest.mark.parametrize("kind", ["relu_ties", "neg_inf_border"])
+@pytest.mark.parametrize("td,head", [(1, 0), (2, 4), (4, 12)],
+                         ids=["td1-aligned", "td2-head4", "td4-head12"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", WALK_SHAPES, ids=str)
+def test_k8_slab_walk_equals_plain(shape, dtype, td, head, kind):
+    torch_dtype = DTYPES[dtype][1]
+    item = torch.tensor([], dtype=torch_dtype).element_size()
+    xt = _ncdhw(_input(kind, shape, seed=11), torch_dtype)
+    y = pool_forward(xt)
+    g = torch.from_numpy(np.random.default_rng(12).normal(
+        size=y.shape).astype(np.float32)).to(torch_dtype)
+    want = max_pool3d_backward_plain(xt, y, g).float().numpy()
+    planes = shape[0] * shape[-1]
+    got = _k8_walk(*(t.float().numpy().reshape((planes,) + t.shape[2:])
+                     for t in (xt, y, g)), td, head - head % item, item)
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+
