@@ -11,26 +11,34 @@ Phases, each printing its lines:
      process per source, all started together, into one library; prints
      ptxas register counts;
   3. min-max kernels against their plain PyTorch versions at the real
-     91x109x91 grid, batch 8: order statistics equal, apply within 1e-6;
+     91x109x91 grid, batch 8: order statistics equal (also with a scan of no
+     valid voxel, +inf for it), apply within 1e-6; 10^6-voxel scans, too
+     large for the select's one-cluster route, take its device-memory route,
+     equal too;
   4. min-max times: at each serving rung (batch 8 and 32) the kernels are
-     held to their plain versions again, then both are timed. Every kernel
-     and library time here is device time (tools/kernel_times.py): CUDA
-     events around 40 back-to-back calls enqueued behind a spin kernel,
-     median of 5 runs, with the time of one call between two events (the
-     wrapper's host time included) beside it;
+     held to their plain versions again, order_stats and per_scan_minmax are
+     checked to return while a spin queued ahead of them still runs (no
+     host synchronisation), then both kernels are timed (K1 as its whole
+     order_stats call). Every kernel and library time here is device time
+     (tools/kernel_times.py): CUDA events around 40 back-to-back calls
+     enqueued behind a spin kernel, median of 5 runs, with the time of one
+     call between two events (the wrapper's host time included) beside it;
   5. BatchNorm kernels against their plain versions at the five BatchNorm
      shapes of the ResNet-18 train path, stem (8, 64, 46, 55, 46), layer1
-     (8, 64, 23, 28, 23) and layers 2-4 (8, 128/256/512, 12, 14, 12): sums
-     within 1e-6 of the sum of magnitudes, apply and dx equal;
-     batch_norm_train forward and backward against
-     F.batch_norm(training=True) and autograd; then kernel, plain and
-     library times at each shape, with operands cycled past the L2;
+     (8, 64, 23, 28, 23) and layers 2-4 (8, 128/256/512, 12, 14, 12), with
+     float32 and with bfloat16 activations: sums within 1e-6 of the sum of
+     magnitudes, apply and dx equal; batch_norm_train forward and backward
+     against F.batch_norm(training=True) and autograd in float32; then
+     kernel, plain and library times at each shape in both dtypes, with
+     operands cycled past the L2;
   6. the ResNet-18 AnatCNN (dilated, f32, seeded random weights) on the GPU
      against the same model on the CPU, on 2 raw requests;
   7. serving: 40 raw requests from 4 client threads through BatchingServer
      -> Predictor (rungs 8/32) -> min-max preprocess (the kernels) ->
      AnatCNN, checked against single-sample predict_batch, with the kernels'
-     launch counts over the run;
+     launch counts over the run; then a bf16 AnatCNN with the same weights
+     at rung 8 beside the f32 one: logits within 2e-2 of max(1, |logit|),
+     argmax equal where the margin is clear, requests/s of each;
   8. a train step at full width: ResNet-18 AnatCNN, batch 8 of raw scans
      preprocessed in the step, from the same weights once with
      fused_bn="full" (the BatchNorm kernels) and once with fused_bn=False;
@@ -48,7 +56,12 @@ Phases, each printing its lines:
      both batches;
  11. the flagship z-score train step (bench.py's configuration in f32):
      ResNet-18, 3 classes, batch 8 of raw scans z-scored in the step, one
-     K3 launch per step, finite loss, step ms;
+     K3 launch per step, finite loss, step ms; then bench.py's configuration
+     exactly, in bfloat16 compute with float32 params, with fused_bn=False
+     and "full" (K4-K7 in bf16, 80 launches, inputs counted by shape):
+     "full" against False within twice what moving the scans by one bf16
+     ulp opens, bf16 against f32 (loss within 5e-2, gradient norm within
+     1e-1), step ms and train volumes/s beside f32's;
  12. the max-pool backward kernel (K8) against its plain version at the
      ResNet-18 stem (8, 64, 46, 55, 46), float32 and bfloat16, on ReLU-zero
      ties: equal; against aten's max_pool3d_with_indices_backward on
@@ -72,8 +85,12 @@ Phases, each printing its lines:
      train_pet_resnet_cnn.train for one epoch each and test_pet_cnn.main()
      on the best train_pet_cnn checkpoint, with finite metrics, the
      checkpoints loaded back, and the PET training rows counted by class.
-Any failed check raises, so the script exits non-zero without printing its
-last line, {"ok": true, "device": {...}}. It needs one card and imports the
+The kernels line before the last lists every kernel with the launches of
+the path that ran it, its error against its plain version, its device time,
+per-call time, plain and library time and bound; K4-K7 also per shape and
+in bfloat16 (launches from the bf16 "full" step). Any failed check raises,
+so the script exits non-zero without printing its last line,
+{"ok": true, "device": {...}}. It needs one card and imports the
 port only, and neither pandas, yaml nor the plotting packages: no confusion
 image is rendered.
 """
@@ -153,7 +170,9 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     bound,
     call_ms,
     device_ms,
+    norm_bounds,
     time_bn,
+    time_norm,
     time_pool,
 )
 from multimodal_alzheimer_tpu_torch.train.checkpoint import load_checkpoint
@@ -233,6 +252,19 @@ N_REQUESTS, N_CLIENTS = 40, 4
 ZSCORE_HPARAMS = {"n_classes": 3, "resnet_depth": 18, "linear_out": (),
                   "batchnorm_begin": False, "lr": 1e-3,
                   "loss_class_weights": [0.4, 0.3, 0.3]}
+# bf16 compute against f32 on the same weights and batch, one train step:
+# the loss within 5e-2 relative and the gradient's global norm within 1e-1
+# (bf16 keeps 8 significant bits; the JAX package's own bf16 and f32
+# models differ by 4.4e-3 of the largest logit in eval and 7.1e-2 of the
+# largest backbone_gap entry in train, at depth 18 on a small volume).
+BF16_STEP_TOL = {"loss": 5e-2, "grad_norm": 1e-1}
+# fused_bn="full" against False in bf16: no more than twice the gap that
+# moving the raw scans by one bf16 ulp opens between two False steps, plus
+# 1e-3 (relative) for a control that happens to move little.
+BF16_FLOOR_FACTOR, BF16_FLOOR_SLACK = 2.0, 1e-3
+# A bf16 AnatCNN's serving logits against the f32 model's, same weights and
+# requests: within 2e-2 of max(1, largest |f32 logit|).
+BF16_SERVE_TOL = 2e-2
 # The split the entry points read: n_subjects (8, 4, 4) from seed 10 at
 # 91x109x91 holds 15 training and 6 validation T1w rows of both binary
 # classes and 5 paired three-modality test rows. (A training split of one
@@ -354,26 +386,45 @@ def phase_kernels(device, grid=GRID, batch=8) -> dict:
     n_p, lo_p, hi_p = hopper_norm.order_stats_plain(*_rows(vol, mask), qs_t)
     torch.cuda.synchronize()
     keep = torch.arange(batch, device=device) != batch // 2
-    check(int(n[batch // 2]) == 0 and torch.equal(lo[keep], lo_p[keep])
-          and torch.equal(hi[keep], hi_p[keep]),
-          "a scan with no valid voxel leaves the others exact")
+    check(int(n[batch // 2]) == 0 and torch.equal(lo, lo_p)
+          and torch.equal(hi, hi_p),
+          "a batch with a scan of no valid voxel: every statistic equal "
+          "(+inf for that scan)")
     check(bool(torch.isfinite(out[keep]).all()), "finite min-max output")
-    log(f"[kernels] batch with an all-zero scan: ran, other scans exact")
+    log(f"[kernels] batch with an all-zero scan: order statistics equal, "
+        f"+inf for that scan")
+    big = make_scans("normal", 2, (100, 100, 100), gen, device)
+    n, lo, hi = hopper_norm.order_stats(*big, qs)
+    n_p, lo_p, hi_p = hopper_norm.order_stats_plain(*_rows(*big), qs_t)
+    check(_native.library().minmax_select_workspace_words(2, 10 ** 6, 2) > 0
+          and torch.equal(n, n_p) and torch.equal(lo, lo_p)
+          and torch.equal(hi, hi_p),
+          "a scan of 10^6 voxels takes the device-memory route, exact")
+    log(f"[kernels] 10^6-voxel scans (too large for one cluster): the "
+        f"device-memory route, order statistics equal")
     return err
 
 
-def kernel_times(kernel, plain, wrapper=None) -> tuple:
+def kernel_times(kernel, plain) -> tuple:
     """(device ms, per-call ms) of a kernel's wrapper, and its plain
-    version's ms (tools/kernel_times.py says how each is taken). Where the
-    wrapper waits for the card, ``kernel`` is its launch alone and
-    ``wrapper`` the call a user makes, timed per call."""
-    return (device_ms([kernel]), call_ms([wrapper or kernel]),
+    version's ms (tools/kernel_times.py says how each is taken)."""
+    return (device_ms([kernel]), call_ms([kernel]),
             device_ms([plain], spin=False))
 
 
 def phase_times(device, err: dict, batches=(8, 32), grid=GRID) -> dict:
     """Kernel and plain times at each serving rung, after holding the
-    kernels to their plain versions at that rung; updates ``err``."""
+    kernels to their plain versions at that rung; updates ``err``. K1 is
+    timed on the whole ``order_stats`` call (tools/kernel_times.time_norm),
+    which enqueues without waiting for the card: checked here behind a
+    spin."""
+    lib = _native.library()
+    n_vox = int(np.prod(grid))
+    check(lib.minmax_select_workspace_words(8, n_vox, 2) == 0,
+          "K1 at this grid: the one-launch route, no workspace")
+    log(f"[times] K1: {lib.minmax_select_cluster_blocks(n_vox)} blocks a "
+        f"cluster, {lib.minmax_select_active_clusters(n_vox, device.index)}"
+        f" clusters resident at once on this card")
     gen = make_generator(SEED + 1, device)
     qs = (QUANTILE, 1.0 - QUANTILE)
     qs_t = torch.tensor(qs, dtype=torch.float32, device=device)
@@ -395,13 +446,17 @@ def phase_times(device, err: dict, batches=(8, 32), grid=GRID) -> dict:
         check(e <= APPLY_TOL, f"B={batch}: apply error {e}")
         err["minmax_apply"] = max(err["minmax_apply"], e)
         log(f"[times] B={batch}: order statistics equal, apply err {e}")
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(200 * 2.0e6))  # 100 ms or more
+        hopper_norm.order_stats(vol, mask, qs)
+        hopper_norm.per_scan_minmax(vol, mask, QUANTILE)
+        check(not torch.cuda.current_stream().query(),
+              "order_stats and per_scan_minmax return before a spin queued "
+              "ahead of them ends: no host synchronisation")
+        k1 = time_norm(batch, gen, device, ("minmax_select",))[
+            "minmax_select"]
         times[batch] = {
-            # order_stats copies qs to the card from host memory, which
-            # waits for the queue: its device time is the launch's alone.
-            "minmax_select": kernel_times(
-                lambda: hopper_norm._order_stats_kernel(*rows, qs_t),
-                lambda: hopper_norm.order_stats_plain(*rows, qs_t),
-                lambda: hopper_norm.order_stats(vol, mask, qs)),
+            "minmax_select": (k1["ms"], k1["call_ms"], k1["plain_ms"]),
             "minmax_apply": kernel_times(
                 lambda: hopper_norm.minmax_apply(vol, mask, qmin, qmax),
                 lambda: hopper_norm.minmax_apply_plain(vol, mask, qmin,
@@ -426,43 +481,51 @@ def _sum_err(got, want, terms, what) -> float:
     return err.max().item()
 
 
-def phase_bn_kernels(device, shapes=BN_SHAPES) -> dict:
-    """Each BatchNorm kernel against its plain version, and batch_norm_train
-    against F.batch_norm; returns max abs errors."""
+def phase_bn_kernels(device, shapes=BN_SHAPES,
+                     dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """Each BatchNorm kernel against its plain version in each activation
+    dtype, and batch_norm_train against F.batch_norm in float32; returns
+    max abs errors, per dtype."""
     gen = make_generator(SEED + 4, device)
-    err = dict.fromkeys(BN_KERNELS, 0.0)
-    for name, shape in shapes.items():
-        x, g, scale, bias = bn_operands(shape, gen, device)
+    err = {dtype: dict.fromkeys(BN_KERNELS, 0.0) for dtype in dtypes}
+    for dtype, name in ((d, s) for d in dtypes for s in shapes):
+        shape = shapes[name]
+        x, g, scale, bias = bn_operands(shape, gen, device, dtype)
         x3, g3 = _rows3(x), _rows3(g)
+        xf, gf = x3.float(), g3.float()
         mean, inv, red = bn_chain(x, g)
-        xhat = (x3 - mean[None, :, None]) * inv[None, :, None]
+        xhat = (xf - mean[None, :, None]) * inv[None, :, None]
         e = {
             "bn_stats": _sum_err(
                 hopper_bn.bn_stats(x), hopper_bn.bn_stats_plain(x3),
-                torch.stack([x3.abs().sum((0, 2)), (x3 * x3).sum((0, 2))]),
+                torch.stack([xf.abs().sum((0, 2)), (xf * xf).sum((0, 2))]),
                 f"{name} bn_stats"),
-            "bn_apply": (hopper_bn.bn_apply(x, mean, inv, scale, bias)
+            "bn_apply": (hopper_bn.bn_apply(x, mean, inv, scale, bias).float()
                          - hopper_bn.bn_apply_plain(x3, mean, inv, scale,
                                                     bias).reshape(shape)
                          ).abs().max().item(),
             "bn_grad_sum": _sum_err(
                 hopper_bn.bn_grad_sum(g, x, mean, inv),
                 hopper_bn.bn_grad_sum_plain(g3, x3, mean, inv),
-                torch.stack([g3.abs().sum((0, 2)),
-                             (g3 * xhat).abs().sum((0, 2))]),
+                torch.stack([gf.abs().sum((0, 2)),
+                             (gf * xhat).abs().sum((0, 2))]),
                 f"{name} bn_grad_sum"),
-            "bn_dx": (hopper_bn.bn_dx(g, x, mean, inv, scale, red)
+            "bn_dx": (hopper_bn.bn_dx(g, x, mean, inv, scale, red).float()
                       - hopper_bn.bn_dx_plain(g3, x3, mean, inv, scale,
                                               red).reshape(shape)
                       ).abs().max().item(),
         }
         torch.cuda.synchronize()
         check(e["bn_apply"] == 0.0 and e["bn_dx"] == 0.0,
-              f"{name}: apply and dx equal to their plain versions ({e})")
+              f"{name} {dtype}: apply and dx equal to their plain versions "
+              f"({e})")
         for k in BN_KERNELS:
-            err[k] = max(err[k], e[k])
-        log(f"[bn] {name} {shape}: sums within {SUM_TOL} of the sum of "
-            f"magnitudes, apply and dx exact; max abs err {e}")
+            err[dtype][k] = max(err[dtype][k], e[k])
+        log(f"[bn] {name} {shape} {dtype}: sums within {SUM_TOL} of the sum "
+            f"of magnitudes, apply and dx exact; max abs err {e}")
+        if dtype != torch.float32:
+            del x, g, x3, g3, xf, gf, xhat
+            continue
 
         outs = []
         for fused in (True, False):
@@ -491,16 +554,18 @@ def phase_bn_kernels(device, shapes=BN_SHAPES) -> dict:
     return err
 
 
-def phase_bn_times(device, shapes=BN_SHAPES) -> dict:
+def phase_bn_times(device, shapes=BN_SHAPES, dtype=torch.float32) -> dict:
     """Kernel, plain and library times of each BatchNorm kernel, and of
-    F.batch_norm's forward and backward, at each shape (time_bn)."""
+    F.batch_norm's forward and backward, at each shape with ``dtype``
+    activations (time_bn)."""
     gen = make_generator(SEED + 5, device)
     times = {}
     for name, shape in shapes.items():
-        times[name] = time_bn(shape, gen, device)
+        times[name] = time_bn(shape, gen, device, dtype=dtype)
         for k in BN_KERNELS:
             r = times[name][k]
-            log(f"[bn times] {k} {name} {shape}, {BN_PER_STEP[name]} per "
+            log(f"[bn times] {k} {name} {shape} {dtype}, "
+                f"{BN_PER_STEP[name]} per "
                 f"step: kernel {r['ms']:.4f} ms (per call "
                 f"{r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
                 f"{r['library_ms']:.4f} ms (per call "
@@ -870,10 +935,6 @@ def phase_zscore(device, batches=(8, 32), grid=GRID) -> tuple:
             e = _zscore_err(hopper_norm.per_scan_zscore(vol, mask),
                             hopper_norm.zscore_plain(*rows).reshape(vol.shape),
                             f"B={batch} N(900, {std:g})")
-            if std == 400.0:
-                times[batch] = kernel_times(
-                    lambda: hopper_norm.per_scan_zscore(vol, mask),
-                    lambda: hopper_norm.zscore_plain(*rows))
             mask[1] = 0.0  # no valid voxel: NaN throughout
             mask[2] = 0.0
             mask[2].view(-1)[mask.shape[1] // 2] = 1.0  # one: std 0
@@ -892,12 +953,11 @@ def phase_zscore(device, batches=(8, 32), grid=GRID) -> tuple:
                 f"(tolerance {ZSCORE_TOL} * (1 + |plain|)); with an empty and "
                 f"a one-voxel scan {e_deg}, NaN and inf positions equal")
             del vol, mask, rows, got
-        k, c, p = times[batch]
-        n = batch * int(np.prod(grid))
-        log(f"[zscore times] B={batch} at {grid}: kernel {k:.4f} ms (per "
-            f"call {c:.4f}), plain {p:.4f} ms, bound "
-            f"{bound(12 * n, 5 * n)[0]:.4f} ms (function bytes), "
-            f"{bound(20 * n, 5 * n)[0]:.4f} ms (this design's two reads)")
+        r = time_norm(batch, gen, device, ("zscore",))["zscore"]
+        times[batch] = (r["ms"], r["call_ms"], r["plain_ms"])
+        log(f"[zscore times] B={batch} at {grid}: kernel {r['ms']:.4f} ms "
+            f"(per call {r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return err, times
 
 
@@ -945,6 +1005,190 @@ def phase_zscore_step(device, grid=GRID, timed_steps: int = 3) -> float:
         f"then median {ms:.2f} ms over {timed_steps} steps, K3 launches "
         f"{hopper_norm.LAUNCHES['zscore']}")
     return ms
+
+
+def bench_batch(grid, device, seed: int = 0) -> dict:
+    """bench.py's flagship batch: 8 raw N(900, 400) scans, masks > 0.35,
+    3-class labels."""
+    rng = np.random.default_rng(seed)
+    shape = (8,) + tuple(grid)
+    batch = {"mri": rng.normal(900, 400, shape).astype(np.float32),
+             "mri_mask": (rng.random(shape) > 0.35).astype(np.float32),
+             "label": rng.integers(0, 3, 8).astype(np.int32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def phase_bf16_step(device, f32_ms: float, grid=GRID,
+                    timed_steps: int = 3) -> dict:
+    """bench.py's flagship train step exactly: ResNet-18 dilated,
+    linear_out=(), batchnorm_begin=False, lr 1e-3, class weights [0.4, 0.3,
+    0.3], batch 8, the z-score in the step (K3), bfloat16 compute with
+    float32 params, fused_bn=False; and the same with fused_bn="full" (K4-K7
+    in bf16, 80 launches, the BatchNorm inputs counted by shape). From one
+    set of weights: "full" against False within a floor measured by False
+    with the scans one bf16 ulp up, and bf16 against the same step in f32
+    within BF16_STEP_TOL. Returns the step ms and the "full" step's
+    launches."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = ZSCORE_HPARAMS
+    batch = bench_batch(grid, device)
+    raw = batch["mri"].cpu().to(torch.bfloat16)
+    bumped = dict(batch, mri=torch.nextafter(
+        raw, torch.full_like(raw, float("inf"))).to(device, torch.float32))
+    weights = AnatCNN.from_hparams(
+        hp, generator=make_generator(SEED)).state_dict()
+    # the classifier bias at 1 keeps the trailing ReLU on the logits open,
+    # so the step has a gradient to compare (train_model does the same)
+    weights["head.cls.bias"].fill_(1.0)
+    bf16 = torch.bfloat16
+    results = {}
+    for case, dtype, fused, inputs in (
+            ("bf16 False", bf16, False, batch),
+            ("bf16 full", bf16, "full", batch),
+            ("bf16 False, scans +1 bf16 ulp", bf16, False, bumped),
+            ("f32 False", torch.float32, False, batch)):
+        model = AnatCNN.from_hparams(hp, dtype=dtype, fused_bn=fused)
+        model.load_state_dict(weights)
+        model.to(device)
+        optimizer = single_lr_optimizer(model, hp["lr"])
+        step = make_train_step(model, make_criterion(hp), optimizer,
+                               make_device_preprocess(normalize_mri=ZSCORE))
+        state = TrainState(model, optimizer)
+        bn_inputs = []
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out: bn_inputs.append(
+                (tuple(args[0].shape), args[0].dtype)))
+            for m in model.modules() if isinstance(m, FusedBatchNorm)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        start = time.perf_counter()
+        state, aux = step(state, inputs)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - start
+        launches = launch_counts()
+        for hook in hooks:
+            hook.remove()
+        norms = {name: p.grad.norm().item()
+                 for name, p in model.named_parameters()}
+        r = {"loss": aux["loss"].item(), "norms": norms,
+             "launches": launches,
+             "grad_norm": sum(v * v for v in norms.values()) ** 0.5}
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              and r["grad_norm"] > 0, f"{case}: finite loss and a nonzero "
+              f"finite gradient")
+        check(aux["logits"].dtype == torch.float32
+              and all(p.dtype == torch.float32 for p in model.parameters()),
+              f"{case}: float32 logits and parameters")
+        want = {**dict.fromkeys(launches, 0), "zscore": 1}
+        if fused == "full":
+            per_shape = {name: bn_inputs.count((shape, bf16))
+                         for name, shape in BN_SHAPES.items()}
+            check(per_shape == BN_PER_STEP
+                  and len(bn_inputs) == sum(BN_PER_STEP.values()),
+                  f"bf16 BatchNorm inputs of the step {per_shape} against "
+                  f"{BN_PER_STEP}")
+            want.update(dict.fromkeys(BN_KERNELS, BN_LAYERS))
+        check(launches == want, f"{case}: launches {launches} == {want}")
+        line = (f"[bf16 step] {case}: loss {r['loss']}, gradient norm "
+                f"{r['grad_norm']:.6g}, first step {first_s:.3f} s")
+        if inputs is batch and dtype == bf16:
+            step_s = []
+            for _ in range(timed_steps):
+                start = time.perf_counter()
+                step(state, inputs)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - start)
+            r["ms"] = statistics.median(step_s) * 1e3
+            line += (f", then median {r['ms']:.2f} ms over {timed_steps} "
+                     f"steps ({8e3 / r['ms']:.1f} train volumes/s)")
+        log(f"{line}, launches {launches}")
+        results[case] = r
+        del model, optimizer, step, state, aux
+
+    def gaps(a, b):
+        loss = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        worst = max((abs(a["norms"][k] - v) / max(abs(v), 1e-30), k)
+                    for k, v in b["norms"].items())
+        return loss, worst
+
+    ref = results["bf16 False"]
+    full_loss, full_worst = gaps(results["bf16 full"], ref)
+    ctl_loss, ctl_worst = gaps(results["bf16 False, scans +1 bf16 ulp"], ref)
+    check(full_loss <= BF16_FLOOR_FACTOR * ctl_loss + BF16_FLOOR_SLACK
+          and full_worst[0] <= BF16_FLOOR_FACTOR * ctl_worst[0]
+          + BF16_FLOOR_SLACK,
+          f"bf16 full vs False: loss {full_loss:.3g}, grad norm "
+          f"{full_worst[0]:.3g} ({full_worst[1]}) within "
+          f"{BF16_FLOOR_FACTOR} x the one-ulp control's ({ctl_loss:.3g}, "
+          f"{ctl_worst[0]:.3g}) + {BF16_FLOOR_SLACK}")
+    f32 = results["f32 False"]
+    d_loss = abs(ref["loss"] - f32["loss"]) / abs(f32["loss"])
+    d_norm = abs(ref["grad_norm"] - f32["grad_norm"]) / f32["grad_norm"]
+    bf_worst = gaps(ref, f32)[1]
+    check(d_loss <= BF16_STEP_TOL["loss"]
+          and d_norm <= BF16_STEP_TOL["grad_norm"],
+          f"bf16 vs f32 step: loss {d_loss:.3g}, gradient norm {d_norm:.3g} "
+          f"within {BF16_STEP_TOL}")
+    log(f"[bf16 step] full vs False: loss {full_loss:.3g}, largest "
+        f"relative grad-norm gap {full_worst[0]:.3g} ({full_worst[1]}); "
+        f"control (scans +1 bf16 ulp): loss {ctl_loss:.3g}, largest "
+        f"{ctl_worst[0]:.3g} ({ctl_worst[1]}); bf16 vs f32: loss "
+        f"{d_loss:.3g}, gradient norm {d_norm:.3g}, largest per-parameter "
+        f"{bf_worst[0]:.3g} ({bf_worst[1]}) (tolerance {BF16_STEP_TOL})")
+    log(f"[bf16 step] step ms: bf16 False {ref['ms']:.2f}, bf16 full "
+        f"{results['bf16 full']['ms']:.2f}, f32 False {f32_ms:.2f} (the "
+        f"z-score step phase); train volumes/s {8e3 / ref['ms']:.1f} / "
+        f"{8e3 / results['bf16 full']['ms']:.1f} / {8e3 / f32_ms:.1f}")
+    return {"ms": {False: ref["ms"], "full": results["bf16 full"]["ms"]},
+            "launches": results["bf16 full"]["launches"]}
+
+
+def phase_bf16_serve(model, preprocess, device, grid=GRID,
+                     reps: int = 5) -> dict:
+    """A bf16 AnatCNN served by Predictor at rung 8 beside the f32 model
+    with the same weights (phase 6's): logits within BF16_SERVE_TOL, the
+    argmax equal wherever the f32 margin exceeds it, the backbone_gap
+    finite; and requests/s of a full rung of 8 raw requests, each model."""
+    model_bf16 = AnatCNN(n_classes=3, resnet_depth=18, dilated=True,
+                         dtype=torch.bfloat16)
+    model_bf16.load_state_dict(model.state_dict())
+    model_bf16.to(device).eval()
+    batch = _stack(make_requests(8, grid, SEED + 9))
+    outs, rate = {}, {}
+    for name, m in (("f32", model), ("bf16", model_bf16)):
+        predictor = Predictor(m, batch_size=8, ladder=(8,), device=device,
+                              preprocess=preprocess)
+        predictor.warmup(batch)
+        reset_launch_counts()
+        outs[name] = predictor.predict_batch(batch)
+        launches = launch_counts()
+        check(launches["minmax_select"] == 1
+              and launches["minmax_apply"] == 1,
+              f"{name} serving batch: K1 and K2 once each ({launches})")
+        times = []
+        for _ in range(reps):
+            start = time.perf_counter()
+            predictor.predict_batch(batch)
+            times.append(time.perf_counter() - start)
+        rate[name] = 8 / statistics.median(times)
+    l32, l16 = outs["f32"]["logits"], outs["bf16"]["logits"]
+    gap16 = outs["bf16"]["embeddings"]["backbone_gap"]
+    tol = BF16_SERVE_TOL * max(1.0, float(np.abs(l32).max()))
+    err = float(np.abs(l16 - l32).max())
+    top2 = np.sort(l32, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * tol
+    check(l16.shape == (8, 3) and np.isfinite(l16).all()
+          and gap16.shape == (8, 512) and np.isfinite(gap16).all(),
+          "bf16 serving: finite (8, 3) logits and (8, 512) backbone_gap")
+    check(err <= tol, f"bf16 logits {err} from f32's, tolerance {tol}")
+    check(bool((l16.argmax(1) == l32.argmax(1))[clear].all()),
+          "bf16 argmax equal to f32's where the f32 margin exceeds 2x tol")
+    log(f"[bf16 serve] rung 8: bf16 logits max abs err {err:.4g} from f32's "
+        f"(tolerance {tol:.4g}), argmax equal on {int(clear.sum())} clear "
+        f"requests; {rate['bf16']:.2f} requests/s bf16, {rate['f32']:.2f} "
+        f"f32 (median of {reps} batches of 8 raw requests)")
+    return rate
 
 
 class FixedTrial:
@@ -1347,15 +1591,19 @@ def main() -> int:
     phase_build()
     err = phase_kernels(device)
     times = phase_times(device, err)
-    err.update(phase_bn_kernels(device))
+    bn_err = phase_bn_kernels(device)
+    err.update(bn_err[torch.float32])
     bn_times = phase_bn_times(device)
+    bn_times_bf16 = phase_bn_times(device, dtype=torch.bfloat16)
     model, preprocess = phase_model(device)
     serve_launches = phase_serve(model, preprocess, device)
+    phase_bf16_serve(model, preprocess, device)
     del model
     phase_train_step(device)
     fit_launches = phase_fit(device)
     err["zscore"], zscore_times = phase_zscore(device)
-    phase_zscore_step(device)
+    f32_ms = phase_zscore_step(device)
+    bf16_step = phase_bf16_step(device, f32_ms)
     pool = phase_maxpool(device)
     pet_step = phase_pet_step(device)
     phase_small_pet_step(device)
@@ -1364,15 +1612,15 @@ def main() -> int:
         phase_pet_entry_points(device, root)
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
+    norm_bound = norm_bounds(8, int(np.prod(GRID)))
     kernels = []
-    for name, nbytes, flops, launches, (ms, per_call, plain_ms) in (
-            ("minmax_select", 4 * 2 * n, 0.0, serve_launches,
+    for name, (bound_ms, bound_by), launches, (ms, per_call, plain_ms) in (
+            ("minmax_select", norm_bound["minmax_select"], serve_launches,
              times[8]["minmax_select"]),
-            ("minmax_apply", 4 * 3 * n, 0.0, serve_launches,
+            ("minmax_apply", bound(4 * 3 * n, 0.0), serve_launches,
              times[8]["minmax_apply"]),
-            ("zscore", 4 * 3 * n, 5.0 * n, entry_launches["zscore"],
+            ("zscore", norm_bound["zscore"], entry_launches["zscore"],
              zscore_times[8])):
-        bound_ms, bound_by = bound(nbytes, flops)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -1392,7 +1640,14 @@ def main() -> int:
                 shape: {"dims": list(BN_SHAPES[shape]),
                         "launches_per_step": BN_PER_STEP[shape],
                         **{k: bn_times[shape][name][k] for k in keys}}
-                for shape in BN_SHAPES}})
+                for shape in BN_SHAPES},
+            "bfloat16": {
+                "launches": bf16_step["launches"][name],
+                "max_abs_err": bn_err[torch.bfloat16][name],
+                **{k: bn_times_bf16["stem"][name][k] for k in keys},
+                "per_shape": {
+                    shape: {k: bn_times_bf16[shape][name][k] for k in keys}
+                    for shape in BN_SHAPES}}})
     err_k8, k8 = pool[torch.float32]
     kernels.append({
         "name": "maxpool_bwd", "route": "cuda", "source": SOURCE["maxpool_bwd"],

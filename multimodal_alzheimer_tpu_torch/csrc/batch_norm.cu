@@ -3,7 +3,7 @@
 // Four kernels behind a plain C interface, loaded with ctypes by
 // ops/_native.py and wrapped by ops/hopper_bn.py. They work on the model's
 // NCDHW activation viewed as (B, C, S) rows, S = D*H*W, with no permute copy:
-// row (b, c) is S contiguous floats. The TPU kernels pack F = 128 / C voxels
+// row (b, c) is S contiguous elements. The TPU kernels pack F = 128 / C voxels
 // into each 128-lane row only to fill the TPU's lanes; nothing here needs it.
 //
 // bn_stats (replaces multimodal_alzheimer_tpu/ops/pallas_bn.py _sum_kernel):
@@ -36,18 +36,29 @@
 //   / N, one elementwise pass. Bound: memory, 8 bytes read and 4 written per
 //   element.
 //
+// x and g are float32 or bfloat16 (the model's compute dtype); mean, inv,
+// scale, bias, the reductions and the sums are float32. Every kernel reads
+// its inputs in their dtype, computes in f32 and writes y and dx in x's
+// dtype with one rounding (__float2bfloat16_rn in bf16), as the Pallas
+// bodies do (pallas_bn.py:70-103). In bf16 the bound halves: 2 bytes per
+// element read or written.
+//
 // The elementwise kernels write every floating-point operation as an _rn
 // intrinsic, so no FMA contraction changes a bit: given the same mean, inv,
 // scale, bias and reductions they equal the plain PyTorch versions exactly.
-// Each row takes float4 loads and stores when S is a multiple of 4 and the
-// operands are 16-byte aligned (S = 116380, 14812 and 2016 on the flagship
-// model's path), else scalar ones.
+// Every row is read and written in 16-byte chunks of its own address (4
+// floats or 8 bfloat16s) with element accesses for the partial chunks at
+// either end, so any alignment is taken: at the ResNet-18 stem a bf16 row
+// of S = 116380 elements is 232,760 bytes, and every other row starts 8
+// bytes past a 16-byte boundary. Operands whose addresses differ modulo 16
+// take element accesses throughout.
 //
-// Each entry point takes device pointers, int64 sizes, the device index and a
-// cudaStream_t, allocates nothing, and returns the first CUDA error seen (0 on
-// success).
+// Each entry point takes device pointers, a dtype code (0 float32, 1
+// bfloat16), int64 sizes, the device index and a cudaStream_t, allocates
+// nothing, and returns the first CUDA error seen (0 on success).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -94,6 +105,68 @@ __device__ __forceinline__ float normalised(float x, float mean, float inv) {
   return __fmul_rn(__fsub_rn(x, mean), inv);
 }
 
+// Loads, stores and 16-byte chunks of one element type, in f32 registers.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int kVec = 4;  // elements of a 16-byte chunk
+  static __device__ __forceinline__ float load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+  static __device__ __forceinline__ uint32_t bits(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(bits(f[0]) | (bits(f[1]) << 16),
+                      bits(f[2]) | (bits(f[3]) << 16),
+                      bits(f[4]) | (bits(f[5]) << 16),
+                      bits(f[6]) | (bits(f[7]) << 16));
+  }
+};
+
+// Elements from p to the next 16-byte boundary (0 if p is on one), at most
+// len; all of len when `vec` is false.
+template <typename T>
+__device__ __forceinline__ int64_t head_of(const T* p, int64_t len, bool vec) {
+  if (!vec) return len;
+  const int64_t h =
+      static_cast<int64_t>(((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) /
+                           sizeof(T));
+  return h < len ? h : len;
+}
+
 // kGrad false: a += x, b += x*x (bn_stats). kGrad true: a += g,
 // b += g * xhat (bn_grad_sum).
 template <bool kGrad>
@@ -108,62 +181,59 @@ __device__ __forceinline__ void accumulate(float x, float g, float mean,
   }
 }
 
-template <bool kGrad>
-__device__ __forceinline__ void accumulate4(const float4& x, const float4& g,
-                                            float mean, float inv, float* a,
-                                            float* b) {
-  accumulate<kGrad>(x.x, g.x, mean, inv, a[0], b[0]);
-  accumulate<kGrad>(x.y, g.y, mean, inv, a[1], b[1]);
-  accumulate<kGrad>(x.z, g.z, mean, inv, a[2], b[2]);
-  accumulate<kGrad>(x.w, g.w, mean, inv, a[3], b[3]);
-}
-
 // One cluster per channel, one block per stretch of S: block `rank` sums
 // [rank * span, rank * span + span) of each of the channel's B rows, row
-// after row, into four accumulators, a lane of a float4 each. (Loads of
-// several rows issued together before the adds were slower on an H100 at
-// the ResNet-18 stem; PERF.md has the times.) After a cluster barrier,
-// rank 0 adds the cluster's partials from distributed shared memory in rank
-// order and writes sums (2, C). Every add happens in an order fixed by the
-// code: the same inputs give the same bits.
-template <bool kGrad>
+// after row, into four accumulators, element j of a chunk into a[j % 4].
+// (Loads of several rows issued together before the adds were slower on an
+// H100 at the ResNet-18 stem; PERF.md has the times.) After a cluster
+// barrier, rank 0 adds the cluster's partials from distributed shared
+// memory in rank order and writes sums (2, C). Every add happens in an
+// order fixed by the code: the same inputs give the same bits.
+template <typename T, bool kGrad>
 __global__ void __launch_bounds__(kThreads)
-    reduce_kernel(const float* __restrict__ x, const float* __restrict__ g,
+    reduce_kernel(const T* __restrict__ x, const T* __restrict__ g,
                   const float* __restrict__ mean,
                   const float* __restrict__ inv, int64_t batch,
                   int64_t channels, int64_t spatial, int64_t span, bool vec,
                   float* __restrict__ sums) {
+  constexpr int kVec = Elem<T>::kVec;
   __shared__ float2 warp_sums[kWarps];
   __shared__ float2 partial;
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
   const int64_t c = blockIdx.y;
-  const int64_t begin = rank * span;
+  const int64_t begin = rank * span < spatial ? rank * span : spatial;
   const int64_t end = begin + span < spatial ? begin + span : spatial;
   const float m = kGrad ? mean[c] : 0.0f;
   const float iv = kGrad ? inv[c] : 0.0f;
   const int64_t row_step = channels * spatial;  // row (r, c) to (r + 1, c)
   float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, b[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int64_t r = 0; r < batch; ++r) {
-    const float* xr = x + r * row_step + c * spatial;
-    const float* gr = kGrad ? g + r * row_step + c * spatial : nullptr;
-    if (vec) {
-      const float4* x4 = reinterpret_cast<const float4*>(xr);
-      const float4* g4 = reinterpret_cast<const float4*>(gr);
-      const int i1 = static_cast<int>(end / 4);
-      for (int i = static_cast<int>(begin / 4) + threadIdx.x; i < i1;
-           i += kThreads)
-        accumulate4<kGrad>(__ldg(x4 + i),
-                           kGrad ? __ldg(g4 + i)
-                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f),
-                           m, iv, a, b);
-    } else {
-      const int i1 = static_cast<int>(end);
-      for (int i = static_cast<int>(begin) + threadIdx.x; i < i1;
-           i += kThreads)
-        accumulate<kGrad>(__ldg(xr + i), kGrad ? __ldg(gr + i) : 0.0f, m,
-                          iv, a[0], b[0]);
+    const T* xr = x + r * row_step + c * spatial + begin;
+    const T* gr = kGrad ? g + r * row_step + c * spatial + begin : nullptr;
+    const int64_t len = end - begin;
+    const int64_t head = head_of(xr, len, vec);
+    const int64_t chunks = (len - head) / kVec;
+    for (int64_t i = threadIdx.x; i < head; i += kThreads)
+      accumulate<kGrad>(Elem<T>::load(xr + i),
+                        kGrad ? Elem<T>::load(gr + i) : 0.0f, m, iv, a[0],
+                        b[0]);
+    const uint4* x4 = reinterpret_cast<const uint4*>(xr + head);
+    const uint4* g4 = reinterpret_cast<const uint4*>(kGrad ? gr + head : xr);
+    for (int64_t i = threadIdx.x; i < chunks; i += kThreads) {
+      float xf[kVec], gf[kVec];
+      Elem<T>::unpack(__ldg(x4 + i), xf);
+      if (kGrad) Elem<T>::unpack(__ldg(g4 + i), gf);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j)
+        accumulate<kGrad>(xf[j], kGrad ? gf[j] : 0.0f, m, iv, a[j % 4],
+                          b[j % 4]);
     }
+    for (int64_t i = head + chunks * kVec + threadIdx.x; i < len;
+         i += kThreads)
+      accumulate<kGrad>(Elem<T>::load(xr + i),
+                        kGrad ? Elem<T>::load(gr + i) : 0.0f, m, iv, a[0],
+                        b[0]);
   }
   const float2 total = block_sum2((a[0] + a[1]) + (a[2] + a[3]),
                                   (b[0] + b[1]) + (b[2] + b[3]), warp_sums);
@@ -196,69 +266,82 @@ __device__ __forceinline__ float dx_one(float g, float x, float mean, float inv,
 }
 
 // Grid (rows, chunks): block (row, j) strides over row b*C + c from j.
-__global__ void apply_kernel(const float* __restrict__ x,
+template <typename T>
+__global__ void apply_kernel(const T* __restrict__ x,
                              const float* __restrict__ mean,
                              const float* __restrict__ inv,
                              const float* __restrict__ scale,
                              const float* __restrict__ bias,
-                             float* __restrict__ y, int64_t channels,
+                             T* __restrict__ y, int64_t channels,
                              int64_t spatial, bool vec) {
+  constexpr int kVec = Elem<T>::kVec;
   const int64_t row = blockIdx.x, c = row % channels;
   const float m = mean[c], iv = inv[c], sc = scale[c], bi = bias[c];
-  const float* xr = x + row * spatial;
-  float* yr = y + row * spatial;
+  const T* xr = x + row * spatial;
+  T* yr = y + row * spatial;
+  const int64_t head = head_of(xr, spatial, vec);
+  const int64_t chunks = (spatial - head) / kVec;
   const int64_t start = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.x;
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    float4* y4 = reinterpret_cast<float4*>(yr);
-    for (int64_t i = start; i < spatial / 4; i += stride) {
-      const float4 v = x4[i];
-      y4[i] = make_float4(apply_one(v.x, m, iv, sc, bi), apply_one(v.y, m, iv, sc, bi),
-                          apply_one(v.z, m, iv, sc, bi), apply_one(v.w, m, iv, sc, bi));
-    }
-  } else {
-    for (int64_t i = start; i < spatial; i += stride)
-      yr[i] = apply_one(xr[i], m, iv, sc, bi);
+  for (int64_t i = start; i < head; i += stride)
+    Elem<T>::store(yr + i, apply_one(Elem<T>::load(xr + i), m, iv, sc, bi));
+  const uint4* x4 = reinterpret_cast<const uint4*>(xr + head);
+  uint4* y4 = reinterpret_cast<uint4*>(yr + head);
+  for (int64_t i = start; i < chunks; i += stride) {
+    float f[kVec];
+    Elem<T>::unpack(x4[i], f);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) f[j] = apply_one(f[j], m, iv, sc, bi);
+    y4[i] = Elem<T>::pack(f);
   }
+  for (int64_t i = head + chunks * kVec + start; i < spatial; i += stride)
+    Elem<T>::store(yr + i, apply_one(Elem<T>::load(xr + i), m, iv, sc, bi));
 }
 
-__global__ void dx_kernel(const float* __restrict__ g,
-                          const float* __restrict__ x,
+template <typename T>
+__global__ void dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
                           const float* __restrict__ mean,
                           const float* __restrict__ inv,
                           const float* __restrict__ scale,
                           const float* __restrict__ red,
-                          float* __restrict__ dx, int64_t channels,
+                          T* __restrict__ dx, int64_t channels,
                           int64_t spatial, bool vec) {
+  constexpr int kVec = Elem<T>::kVec;
   const int64_t row = blockIdx.x, c = row % channels;
   const float m = mean[c], iv = inv[c];
   const float s = __fmul_rn(scale[c], iv);
   const float r0 = red[c], r1 = red[channels + c];
-  const float* gr = g + row * spatial;
-  const float* xr = x + row * spatial;
-  float* dr = dx + row * spatial;
+  const T* gr = g + row * spatial;
+  const T* xr = x + row * spatial;
+  T* dr = dx + row * spatial;
+  const int64_t head = head_of(xr, spatial, vec);
+  const int64_t chunks = (spatial - head) / kVec;
   const int64_t start = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.x;
-  if (vec) {
-    const float4* g4 = reinterpret_cast<const float4*>(gr);
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    float4* d4 = reinterpret_cast<float4*>(dr);
-    for (int64_t i = start; i < spatial / 4; i += stride) {
-      const float4 a = g4[i], b = x4[i];
-      d4[i] = make_float4(dx_one(a.x, b.x, m, iv, s, r0, r1),
-                          dx_one(a.y, b.y, m, iv, s, r0, r1),
-                          dx_one(a.z, b.z, m, iv, s, r0, r1),
-                          dx_one(a.w, b.w, m, iv, s, r0, r1));
-    }
-  } else {
-    for (int64_t i = start; i < spatial; i += stride)
-      dr[i] = dx_one(gr[i], xr[i], m, iv, s, r0, r1);
+  for (int64_t i = start; i < head; i += stride)
+    Elem<T>::store(dr + i, dx_one(Elem<T>::load(gr + i), Elem<T>::load(xr + i),
+                                  m, iv, s, r0, r1));
+  const uint4* g4 = reinterpret_cast<const uint4*>(gr + head);
+  const uint4* x4 = reinterpret_cast<const uint4*>(xr + head);
+  uint4* d4 = reinterpret_cast<uint4*>(dr + head);
+  for (int64_t i = start; i < chunks; i += stride) {
+    float gf[kVec], xf[kVec];
+    Elem<T>::unpack(g4[i], gf);
+    Elem<T>::unpack(x4[i], xf);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) gf[j] = dx_one(gf[j], xf[j], m, iv, s, r0, r1);
+    d4[i] = Elem<T>::pack(gf);
   }
+  for (int64_t i = head + chunks * kVec + start; i < spatial; i += stride)
+    Elem<T>::store(dr + i, dx_one(Elem<T>::load(gr + i), Elem<T>::load(xr + i),
+                                  m, iv, s, r0, r1));
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// Whether two operands are equally placed within 16 bytes, so their rows
+// share their 16-byte chunks.
+bool congruent(const void* p, const void* q) {
+  return ((reinterpret_cast<uintptr_t>(p) ^ reinterpret_cast<uintptr_t>(q)) &
+          15) == 0;
 }
 
 bool valid_shape(int64_t batch, int64_t channels, int64_t spatial) {
@@ -290,14 +373,17 @@ unsigned apply_chunks(int64_t rows, int64_t spatial) {
     if (err_ != cudaSuccess) return err_; \
   } while (0)
 
-template <bool kGrad>
-cudaError_t reduce(const float* x, const float* g, const float* mean,
+template <typename T, bool kGrad>
+cudaError_t reduce(const void* x, const void* g, const float* mean,
                    const float* inv, int64_t batch, int64_t channels,
                    int64_t spatial, float* sums, cudaStream_t stream) {
   const int64_t cluster = reduce_cluster(channels, spatial);
-  // A multiple of 4, so float4 loads stay aligned when S is.
-  const int64_t span = ((spatial + cluster - 1) / cluster + 3) / 4 * 4;
-  const bool vec = spatial % 4 == 0 && aligned16(x) && (!kGrad || aligned16(g));
+  // A multiple of 16 bytes, so the blocks' stretches of an aligned row
+  // start on 16-byte boundaries.
+  const int64_t vec_elems = Elem<T>::kVec;
+  const int64_t span =
+      ((spatial + cluster - 1) / cluster + vec_elems - 1) / vec_elems * vec_elems;
+  const bool vec = !kGrad || congruent(x, g);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(static_cast<unsigned>(cluster),
                         static_cast<unsigned>(channels));
@@ -310,9 +396,40 @@ cudaError_t reduce(const float* x, const float* g, const float* mean,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  RETURN_IF_ERROR(cudaLaunchKernelEx(&config, reduce_kernel<kGrad>, x, g,
-                                     mean, inv, batch, channels, spatial,
-                                     span, vec, sums));
+  RETURN_IF_ERROR(cudaLaunchKernelEx(
+      &config, reduce_kernel<T, kGrad>, static_cast<const T*>(x),
+      static_cast<const T*>(g), mean, inv, batch, channels, spatial, span, vec,
+      sums));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t apply(const void* x, const float* mean, const float* inv,
+                  const float* scale, const float* bias, void* y,
+                  int64_t batch, int64_t channels, int64_t spatial,
+                  cudaStream_t stream) {
+  const int64_t rows = batch * channels;
+  const bool vec = congruent(x, y);
+  const dim3 grid(static_cast<unsigned>(rows),
+                  apply_chunks(rows, vec ? spatial / Elem<T>::kVec : spatial));
+  apply_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), mean, inv, scale, bias, static_cast<T*>(y),
+      channels, spatial, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dx(const void* g, const void* x, const float* mean,
+               const float* inv, const float* scale, const float* red,
+               void* out, int64_t batch, int64_t channels, int64_t spatial,
+               cudaStream_t stream) {
+  const int64_t rows = batch * channels;
+  const bool vec = congruent(g, x) && congruent(x, out);
+  const dim3 grid(static_cast<unsigned>(rows),
+                  apply_chunks(rows, vec ? spatial / Elem<T>::kVec : spatial));
+  dx_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale,
+      red, static_cast<T*>(out), channels, spatial, vec);
   return cudaGetLastError();
 }
 
@@ -321,55 +438,65 @@ cudaError_t reduce(const float* x, const float* g, const float* mean,
 extern "C" {
 
 // sums (2, C) = [sum x; sum x^2] over the B rows of each channel.
-int bn_stats(const float* x, int64_t batch, int64_t channels, int64_t spatial,
-             float* sums, int64_t device, void* stream_handle) {
-  if (!valid_shape(batch, channels, spatial)) return cudaErrorInvalidValue;
+int bn_stats(const void* x, int64_t dtype, int64_t batch, int64_t channels,
+             int64_t spatial, float* sums, int64_t device,
+             void* stream_handle) {
+  if (!valid_shape(batch, channels, spatial) || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(static_cast<int>(device)));
-  return reduce<false>(x, nullptr, nullptr, nullptr, batch, channels, spatial,
-                       sums, static_cast<cudaStream_t>(stream_handle));
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  return dtype == 0
+             ? reduce<float, false>(x, nullptr, nullptr, nullptr, batch,
+                                    channels, spatial, sums, stream)
+             : reduce<__nv_bfloat16, false>(x, nullptr, nullptr, nullptr,
+                                            batch, channels, spatial, sums,
+                                            stream);
 }
 
 // y = ((x - mean) * inv) * scale + bias with (C,) mean, inv, scale, bias.
-int bn_apply(const float* x, const float* mean, const float* inv,
-             const float* scale, const float* bias, float* y, int64_t batch,
+int bn_apply(const void* x, int64_t dtype, const float* mean, const float* inv,
+             const float* scale, const float* bias, void* y, int64_t batch,
              int64_t channels, int64_t spatial, int64_t device,
              void* stream_handle) {
-  if (!valid_shape(batch, channels, spatial)) return cudaErrorInvalidValue;
+  if (!valid_shape(batch, channels, spatial) || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(static_cast<int>(device)));
-  const int64_t rows = batch * channels;
-  const bool vec = spatial % 4 == 0 && aligned16(x) && aligned16(y);
-  const dim3 grid(static_cast<unsigned>(rows),
-                  apply_chunks(rows, vec ? spatial / 4 : spatial));
-  apply_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream_handle)>>>(
-      x, mean, inv, scale, bias, y, channels, spatial, vec);
-  return cudaGetLastError();
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  return dtype == 0 ? apply<float>(x, mean, inv, scale, bias, y, batch,
+                                   channels, spatial, stream)
+                    : apply<__nv_bfloat16>(x, mean, inv, scale, bias, y,
+                                           batch, channels, spatial, stream);
 }
 
 // sums (2, C) = [sum g; sum g * (x - mean) * inv].
-int bn_grad_sum(const float* g, const float* x, const float* mean,
+int bn_grad_sum(const void* g, const void* x, int64_t dtype, const float* mean,
                 const float* inv, int64_t batch, int64_t channels,
                 int64_t spatial, float* sums, int64_t device,
                 void* stream_handle) {
-  if (!valid_shape(batch, channels, spatial)) return cudaErrorInvalidValue;
+  if (!valid_shape(batch, channels, spatial) || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(static_cast<int>(device)));
-  return reduce<true>(x, g, mean, inv, batch, channels, spatial, sums,
-                      static_cast<cudaStream_t>(stream_handle));
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  return dtype == 0
+             ? reduce<float, true>(x, g, mean, inv, batch, channels, spatial,
+                                   sums, stream)
+             : reduce<__nv_bfloat16, true>(x, g, mean, inv, batch, channels,
+                                           spatial, sums, stream);
 }
 
 // dx = (scale * inv) * ((g - red[0]) - (x - mean) * inv * red[1]), red (2, C).
-int bn_dx(const float* g, const float* x, const float* mean, const float* inv,
-          const float* scale, const float* red, float* dx, int64_t batch,
-          int64_t channels, int64_t spatial, int64_t device,
+int bn_dx(const void* g, const void* x, int64_t dtype, const float* mean,
+          const float* inv, const float* scale, const float* red, void* out,
+          int64_t batch, int64_t channels, int64_t spatial, int64_t device,
           void* stream_handle) {
-  if (!valid_shape(batch, channels, spatial)) return cudaErrorInvalidValue;
+  if (!valid_shape(batch, channels, spatial) || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(static_cast<int>(device)));
-  const int64_t rows = batch * channels;
-  const bool vec = spatial % 4 == 0 && aligned16(g) && aligned16(x) && aligned16(dx);
-  const dim3 grid(static_cast<unsigned>(rows),
-                  apply_chunks(rows, vec ? spatial / 4 : spatial));
-  dx_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream_handle)>>>(
-      g, x, mean, inv, scale, red, dx, channels, spatial, vec);
-  return cudaGetLastError();
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  return dtype == 0 ? dx<float>(g, x, mean, inv, scale, red, out, batch,
+                                channels, spatial, stream)
+                    : dx<__nv_bfloat16>(g, x, mean, inv, scale, red, out,
+                                        batch, channels, spatial, stream);
 }
 
 }  // extern "C"

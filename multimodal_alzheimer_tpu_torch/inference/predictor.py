@@ -27,9 +27,13 @@ class StagedSample:
 
 
 def _to_numpy(tree, n: int):
+    """The first n rows of every tensor as numpy. numpy has no bfloat16: a
+    bfloat16 output (a bf16 model's ``backbone_gap``) returns as float32,
+    which holds every bfloat16 value exactly."""
     if isinstance(tree, dict):
         return {k: _to_numpy(v, n) for k, v in tree.items()}
-    return tree[:n].cpu().numpy()
+    t = tree[:n].cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 class Predictor:

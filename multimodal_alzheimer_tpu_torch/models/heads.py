@@ -8,7 +8,10 @@ Port of ``multimodal_alzheimer_tpu/models/heads.py``:
 (anat_cnn.py:77). ``embeddings['backbone_gap']`` is the (optionally BN'd)
 GAP feature taken before the conv ladder, the fusion stages' input.
 The head's BatchNorms are flax's, or torch's running statistics with
-``bn_torch_stats``; never the fused kernels, as in JAX.
+``bn_torch_stats``; never the fused kernels, as in JAX. ``dtype`` is the
+compute dtype: convolutions, dense layers and BatchNorms compute in it, the
+``backbone_gap`` tap stays in it, and the logits are cast to float32 last
+(JAX ``heads.py:74``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_alzheimer_tpu_torch.models.layers import (
+    Conv3d,
+    Linear,
     batch_norm,
     global_avg_pool,
     max_pool3d,
@@ -42,34 +47,40 @@ class ClassifierHead3D(nn.Module):
                  batchnorm_dense: bool = False,
                  trailing_relu: bool = True,
                  bn_torch_stats: bool = False,
-                 device=None):
+                 device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.trailing_relu = trailing_relu
         bn_kind = "torch_stats" if bn_torch_stats else False
-        self.bn_begin = (batch_norm(in_features, bn_kind, device)
+        self.bn_begin = (batch_norm(in_features, bn_kind, device, dtype)
                          if batchnorm_begin else None)
         self.convs = []  # (conv name, bn name or None, kernel)
         width = in_features
         for i, (features, kernel) in enumerate(zip(conv_out, filter_size)):
-            self.add_module(f"conv_{i}", nn.Conv3d(width, features, kernel,
-                                                   device=device))
+            self.add_module(f"conv_{i}", Conv3d(width, features, kernel,
+                                                device=device,
+                                                compute_dtype=dtype))
             bn = None
             if batchnorm_conv:
                 bn = f"bn_conv_{i}"
-                self.add_module(bn, batch_norm(features, bn_kind, device))
+                self.add_module(bn, batch_norm(features, bn_kind, device,
+                                               dtype))
             self.convs.append((f"conv_{i}", bn, kernel))
             width = features
         self.denses = []  # (dense name, bn name or None)
         for i, features in enumerate(linear_out):
-            self.add_module(f"dense_{i}", nn.Linear(width, features,
-                                                    device=device))
+            self.add_module(f"dense_{i}", Linear(width, features,
+                                                 device=device,
+                                                 compute_dtype=dtype))
             bn = None
             if batchnorm_dense:
                 bn = f"bn_dense_{i}"
-                self.add_module(bn, batch_norm(features, bn_kind, device))
+                self.add_module(bn, batch_norm(features, bn_kind, device,
+                                               dtype))
             self.denses.append((f"dense_{i}", bn))
             width = features
-        self.cls = nn.Linear(width, n_classes, device=device)
+        self.cls = Linear(width, n_classes, device=device,
+                          compute_dtype=dtype)
 
     def forward(self, fmap: torch.Tensor) -> dict:
         x = fmap

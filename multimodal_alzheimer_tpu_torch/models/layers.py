@@ -18,6 +18,25 @@ statistics and differ in how:
 * ``HybridBatchNorm`` (``fused_bn="hybrid"``): the statistics kernel, a
   plain apply, and the closed-form statistics VJP.
 
+Compute dtype (JAX's ``dtype`` field): parameters and running statistics
+stay float32, statistics are taken in float32, and each module computes as
+its JAX counterpart does with ``dtype``, which is where a bfloat16 port
+goes wrong quietly:
+
+* ``FlaxBatchNorm`` (flax ``_normalize``): ``(x - mean) * (rsqrt(var + eps)
+  * scale) + bias`` in float32, cast to ``dtype`` once at the end;
+* ``TorchStatsBatchNorm`` (JAX ``layers.py:79-82``), ``HybridBatchNorm``
+  (``pallas_bn.py:404-405``) and ``FusedBatchNorm`` in eval mode
+  (``pallas_bn.py:299-301``): ``(x - mean) * mul + bias`` in ``dtype``
+  arithmetic, with x, mean, ``mul = rsqrt(var + eps) * scale`` and bias
+  cast to ``dtype`` first; the chain itself is evaluated in float32 and
+  rounded to ``dtype`` once, as XLA evaluates an elementwise chain of
+  ``dtype`` operands (it keeps the excess precision inside a fusion);
+* ``FusedBatchNorm`` in train mode: the kernels read x in ``dtype`` and
+  write y in it, computing in float32;
+* ``Conv3d`` and ``Linear`` (flax ``nn.Conv``/``nn.Dense`` with float32
+  params): input, weight and bias cast to ``dtype``, the product in it.
+
 Also ``max_pool3d`` with torch's floor semantics and the JAX package's guard
 against a tower too deep for its volume, ``global_avg_pool``, flax's
 weight initialisation from an explicit ``torch.Generator``, flax's
@@ -33,7 +52,9 @@ parameter tree.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -47,13 +68,60 @@ FLAX_MOMENTUM = 0.9  # running = 0.9 * running + 0.1 * batch statistic
 _TRUNCATED_STD = 0.87962566103423978
 
 
-class _BatchNorm(nn.Module):
-    """Scale, bias and running statistics over axis 1 of (B, C, ...)."""
+_STATE = threading.local()
 
-    def __init__(self, features: int, eps: float = BN_EPS, device=None):
+
+@contextlib.contextmanager
+def no_tracking():
+    """BatchNorms in train mode leave their running statistics alone in
+    this thread while the block runs (a rematerialised block's second
+    forward)."""
+    before = getattr(_STATE, "frozen", False)
+    _STATE.frozen = True
+    try:
+        yield
+    finally:
+        _STATE.frozen = before
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` computing in ``compute_dtype`` (flax ``nn.Conv`` with
+    ``dtype``): input, weight and bias cast to it; the parameters stay in
+    their own dtype."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (flax ``nn.Dense`` with
+    ``dtype``)."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class _BatchNorm(nn.Module):
+    """Scale, bias and running statistics over axis 1 of (B, C, ...);
+    ``dtype`` is the compute dtype (JAX's ``dtype`` field)."""
+
+    def __init__(self, features: int, eps: float = BN_EPS, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.num_features = features
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean",
@@ -70,17 +138,32 @@ class _BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, training=False,
-                                eps=self.eps)
+            return self._affine(x, self.running_mean, self.running_var)
         return self._train_forward(x)
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def _affine(self, x, mean, var) -> torch.Tensor:
+        """``(x - mean) * (rsqrt(var + eps) * scale) + bias`` on operands
+        cast to ``dtype`` (JAX ``layers.py:79-82``), evaluated in float32
+        and rounded to ``dtype`` once."""
+        dt = self.dtype
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+
+        def operand(t):
+            return t.to(dt).to(torch.float32)
+
+        y = ((operand(x) - operand(mean).reshape(shape))
+             * operand(mul).reshape(shape) + operand(self.bias).reshape(shape))
+        return y.to(dt)
+
     @torch.no_grad()
     def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """flax's EMA of the batch statistics."""
+        """flax's EMA of the batch statistics (none under ``no_tracking``)."""
+        if getattr(_STATE, "frozen", False):
+            return
         self.running_mean.copy_(FLAX_MOMENTUM * self.running_mean
                                 + (1.0 - FLAX_MOMENTUM) * mean)
         self.running_var.copy_(FLAX_MOMENTUM * self.running_var
@@ -92,11 +175,20 @@ class _BatchNorm(nn.Module):
 
 class FlaxBatchNorm(_BatchNorm):
     """flax ``nn.BatchNorm``: the running variance tracks the biased batch
-    variance ``max(0, E[x^2] - E[x]^2)``."""
+    variance ``max(0, E[x^2] - E[x]^2)``. ``F.batch_norm`` computes in
+    float32 for a bfloat16 input and rounds once, as flax's ``_normalize``
+    does before its cast to ``dtype``."""
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps).to(self.dtype)
+        return self._train_forward(x)
 
     def _train_forward(self, x):
         y = F.batch_norm(x, None, None, self.weight, self.bias,
-                         training=True, eps=self.eps)
+                         training=True, eps=self.eps).to(self.dtype)
         with torch.no_grad():
             xf = x.to(torch.float32)
             axes = [0] + list(range(2, x.ndim))
@@ -108,19 +200,28 @@ class FlaxBatchNorm(_BatchNorm):
 
 class TorchStatsBatchNorm(_BatchNorm):
     """torch's running statistics (``nn.BatchNorm*d``, momentum 0.1): the
-    running variance tracks the unbiased batch variance."""
+    running variance tracks the unbiased batch variance. JAX's
+    ``TorchStatsBatchNorm``: float32 batch statistics ``E[x^2] - E[x]^2``,
+    the running variance Bessel-corrected, the normalisation in ``dtype``
+    arithmetic."""
 
     def _train_forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=True,
-                            momentum=1.0 - FLAX_MOMENTUM, eps=self.eps)
+        xf = x.to(torch.float32)
+        axes = [0] + list(range(2, x.ndim))
+        mean = xf.mean(axes)
+        var = (xf * xf).mean(axes) - mean * mean
+        n = x.numel() // x.shape[1]
+        self._track(mean.detach(), var.detach() * (n / max(n - 1, 1)))
+        return self._affine(x, mean, var)
 
 
 class FusedBatchNorm(_BatchNorm):
-    """``pallas_bn.FusedBatchNorm``: forward and backward in the kernels."""
+    """``pallas_bn.FusedBatchNorm``: forward and backward in the kernels,
+    which read and write ``dtype``."""
 
     def _train_forward(self, x):
-        y, mean, var = hopper_bn.batch_norm_train(x, self.weight, self.bias,
+        y, mean, var = hopper_bn.batch_norm_train(x.to(self.dtype),
+                                                  self.weight, self.bias,
                                                   self.eps)
         self._track(mean, var)
         return y
@@ -130,25 +231,26 @@ class HybridBatchNorm(_BatchNorm):
     """``pallas_bn.HybridBatchNorm``: kernel statistics, plain apply."""
 
     def _train_forward(self, x):
+        x = x.to(self.dtype)
         mean, var = hopper_bn.lane_packed_stats(x)
         self._track(mean.detach(), var.detach())
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean.reshape(shape)) * mul.reshape(shape)
-                + self.bias.reshape(shape))
+        return self._affine(x, mean, var)
 
 
-def batch_norm(features: int, fused=False, device=None) -> _BatchNorm:
+def batch_norm(features: int, fused=False, device=None,
+               dtype=torch.float32) -> _BatchNorm:
     """The BatchNorm factory: ``fused`` is False (flax), ``"full"`` or True
-    (the kernels), ``"hybrid"`` or ``"torch_stats"``."""
+    (the kernels), ``"hybrid"`` or ``"torch_stats"``; ``dtype`` is the
+    compute dtype."""
+    kwargs = dict(device=device, dtype=dtype)
     if fused is True or fused == "full":
-        return FusedBatchNorm(features, device=device)
+        return FusedBatchNorm(features, **kwargs)
     if fused == "hybrid":
-        return HybridBatchNorm(features, device=device)
+        return HybridBatchNorm(features, **kwargs)
     if fused == "torch_stats":
-        return TorchStatsBatchNorm(features, device=device)
+        return TorchStatsBatchNorm(features, **kwargs)
     if fused is False:
-        return FlaxBatchNorm(features, device=device)
+        return FlaxBatchNorm(features, **kwargs)
     raise ValueError(f"fused_bn must be False, True, 'full', 'hybrid' or "
                      f"'torch_stats', got {fused!r}")
 
@@ -172,7 +274,9 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 class Dropout(nn.Module):
     """flax ``nn.Dropout`` in train mode: keep each element with
     probability ``1 - p`` and scale the survivors by ``1 / (1 - p)``; the
-    identity in eval mode and at ``p = 0``. The keep mask is drawn from
+    identity in eval mode and at ``p = 0``. The result keeps x's dtype: flax
+    divides by the Python float ``1 - p`` (a weak type), as torch divides by
+    it here. The keep mask is drawn from
     ``generator`` (torch's global RNG on the input's device when None); it
     must live on the input's device. ``set_dropout_generator`` sets it."""
 
@@ -205,17 +309,19 @@ def set_dropout_generator(module: nn.Module,
 
 class ConvBlock3D(nn.Module):
     """Conv3d('same', bias) -> [BN] -> ReLU -> MaxPool(2) -> [Dropout]
-    (reference pet_cnn.py:17-28); submodules ``conv``, ``bn``."""
+    (reference pet_cnn.py:17-28); submodules ``conv``, ``bn``; ``dtype`` is
+    the compute dtype."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  use_batchnorm: bool = False, dropout_p=None,
-                 bn_torch_stats: bool = False, device=None):
+                 bn_torch_stats: bool = False, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv3d(in_features, features, kernel_size,
-                              padding="same", device=device)
+        self.conv = Conv3d(in_features, features, kernel_size,
+                           padding="same", device=device, compute_dtype=dtype)
         self.bn = (batch_norm(features,
                               "torch_stats" if bn_torch_stats else False,
-                              device)
+                              device, dtype)
                    if use_batchnorm else None)
         self.dropout = Dropout(dropout_p) if dropout_p is not None else None
 
@@ -235,14 +341,15 @@ class ConvTower3D(nn.Module):
 
     def __init__(self, in_features: int, conv_out, filter_size,
                  use_batchnorm: bool = False, dropout_p=None,
-                 bn_torch_stats: bool = False, device=None):
+                 bn_torch_stats: bool = False, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.out_features = in_features
         self.n_blocks = 0
         for i, (features, kernel) in enumerate(zip(conv_out, filter_size)):
             self.add_module(f"block_{i}", ConvBlock3D(
                 self.out_features, features, kernel, use_batchnorm,
-                dropout_p, bn_torch_stats, device))
+                dropout_p, bn_torch_stats, device, dtype))
             self.out_features = features
             self.n_blocks = i + 1
 

@@ -36,10 +36,17 @@ class AnatCNN(nn.Module):
                  bn_torch_stats: bool = False,
                  maxpool_impl: str = "xla",
                  input_key: str = "mri",
+                 dtype=torch.float32,
+                 remat: bool = False,
                  device=None,
                  generator: torch.Generator | None = None):
         """``generator`` draws the initial weights (torch's global RNG when
-        None); it must live on ``device``. ``fused_bn`` picks the backbone's
+        None); it must live on ``device``. ``dtype`` is the compute dtype
+        (JAX's ``dtype``): the input is cast to it and every layer computes
+        in it, while parameters and BatchNorm statistics stay float32 and
+        the logits return as float32; ``torch.bfloat16`` runs the JAX
+        package's bf16 configuration. ``remat`` recomputes the residual
+        blocks' activations in the backward pass. ``fused_bn`` picks the backbone's
         BatchNorm (``models.layers.batch_norm``); ``bn_torch_stats`` gives
         backbone and head torch's running statistics and overrides it.
         ``maxpool_impl`` picks the stem pool's backward (``"xla"``, ``"sf"``
@@ -54,14 +61,15 @@ class AnatCNN(nn.Module):
         self.n_classes = n_classes
         self.freeze_backbone = freeze_backbone
         self.input_key = input_key
+        self.dtype = dtype
         self.backbone = MedicalNetResNet3D(
             resnet_depth, dilated, device=device,
             fused_bn="torch_stats" if bn_torch_stats else fused_bn,
-            maxpool_impl=maxpool_impl)
+            maxpool_impl=maxpool_impl, dtype=dtype, remat=remat)
         self.head = ClassifierHead3D(
             FEATURE_WIDTH[resnet_depth], n_classes, conv_out, filter_size,
             linear_out, batchnorm_begin, batchnorm_conv, batchnorm_dense,
-            trailing_relu, bn_torch_stats, device=device)
+            trailing_relu, bn_torch_stats, device=device, dtype=dtype)
         reset_parameters(self, generator)
 
     @classmethod
@@ -79,7 +87,7 @@ class AnatCNN(nn.Module):
         x = batch[self.input_key]
         if x.ndim == 4:
             x = x.unsqueeze(1)  # (B, D, H, W) -> NCDHW
-        fmap = self.backbone(x.to(torch.float32))
+        fmap = self.backbone(x.to(self.dtype))
         if self.freeze_backbone:
             # torch's requires_grad=False in the reference; JAX's
             # stop_gradient: no backbone dgrad or wgrad work is done.

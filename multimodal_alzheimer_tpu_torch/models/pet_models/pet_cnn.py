@@ -26,6 +26,7 @@ from torch import nn
 from multimodal_alzheimer_tpu_torch.models.layers import (
     ConvTower3D,
     Dropout,
+    Linear,
     global_avg_pool,
     reset_parameters,
 )
@@ -41,24 +42,31 @@ class SmallPETCNN(nn.Module):
                  dropout_dense_p: Optional[float] = None,
                  input_key: str = "pet1451",
                  bn_torch_stats: bool = False,
+                 dtype=torch.float32,
                  device=None,
                  generator: torch.Generator | None = None):
         """``linear_out`` 0 (or falsy) leaves out the hidden Linear and the
         dense dropout. ``generator`` draws the initial weights (torch's
-        global RNG when None); it must live on ``device``."""
+        global RNG when None); it must live on ``device``. ``dtype`` is the
+        compute dtype: the input is cast to it, the embeddings stay in it
+        and the logits return as float32, as in JAX."""
         super().__init__()
         self.n_classes = n_classes
         self.input_key = input_key
+        self.dtype = dtype
         self.convs = ConvTower3D(1, conv_out, filter_size, batchnorm,
-                                 dropout_conv_p, bn_torch_stats, device)
+                                 dropout_conv_p, bn_torch_stats, device,
+                                 dtype)
         width = self.convs.out_features
         self.dense_dropout = self.hidden = None
         if linear_out:
             if dropout_dense_p is not None:
                 self.dense_dropout = Dropout(dropout_dense_p)
-            self.hidden = nn.Linear(width, linear_out, device=device)
+            self.hidden = Linear(width, linear_out, device=device,
+                                 compute_dtype=dtype)
             width = linear_out
-        self.cls = nn.Linear(width, n_classes, device=device)
+        self.cls = Linear(width, n_classes, device=device,
+                          compute_dtype=dtype)
         reset_parameters(self, generator)
 
     @classmethod
@@ -80,7 +88,7 @@ class SmallPETCNN(nn.Module):
         x = batch[self.input_key]
         if x.ndim == 4:
             x = x.unsqueeze(1)  # (B, D, H, W) -> NCDHW
-        h = global_avg_pool(self.convs(x.to(torch.float32)))
+        h = global_avg_pool(self.convs(x.to(self.dtype)))
         if self.dense_dropout is not None:
             h = self.dense_dropout(h)
         embeddings = {"gap": h}

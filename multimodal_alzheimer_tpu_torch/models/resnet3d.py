@@ -22,6 +22,13 @@ pool's backward, as the JAX ``_max_pool_stem`` does: ``"xla"`` (the default)
 is ``F.max_pool3d`` with torch's own backward; ``"sf"`` and ``"wf"``, JAX's
 hand-written first-max backwards, both run ``ops.hopper_maxpool.max_pool3d_pl``,
 whose backward is the Hopper kernel K8. Train mode follows ``module.train()``.
+
+``dtype`` is the compute dtype (JAX's ``dtype``): convolutions cast input
+and float32 weights to it, as ``flax.linen.Conv`` does, and every BatchNorm
+computes as ``models.layers`` describes. ``remat`` recomputes each residual
+block's forward in the backward pass (``torch.utils.checkpoint``; JAX's
+``nn.remat``), trading operations for activation memory; the recomputation
+leaves the BatchNorm running statistics as one forward left them.
 """
 
 from __future__ import annotations
@@ -29,8 +36,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from multimodal_alzheimer_tpu_torch.models.layers import batch_norm
+from multimodal_alzheimer_tpu_torch.models import layers
+from multimodal_alzheimer_tpu_torch.models.layers import Conv3d, batch_norm
 from multimodal_alzheimer_tpu_torch.ops.hopper_maxpool import max_pool3d_pl
 
 BLOCK_CONFIGS = {
@@ -45,27 +54,29 @@ MAXPOOL_IMPLS = ("xla", "sf", "wf")
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
-          dilation: int = 1, device=None) -> nn.Conv3d:
-    return nn.Conv3d(cin, cout, kernel, stride=stride,
-                     padding=dilation * (kernel - 1) // 2, dilation=dilation,
-                     bias=False, device=device)
+          dilation: int = 1, device=None, dtype=torch.float32) -> Conv3d:
+    return Conv3d(cin, cout, kernel, stride=stride,
+                  padding=dilation * (kernel - 1) // 2, dilation=dilation,
+                  bias=False, device=device, compute_dtype=dtype)
 
 
 class BasicBlock3D(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, device=None, fused_bn=False):
+                 dilation: int = 1, device=None, fused_bn=False,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, dilation, device)
-        self.bn1 = batch_norm(planes, fused_bn, device)
-        self.conv2 = _conv(planes, planes, 3, 1, dilation, device)
-        self.bn2 = batch_norm(planes, fused_bn, device)
+        self.conv1 = _conv(inplanes, planes, 3, stride, dilation, device,
+                           dtype)
+        self.bn1 = batch_norm(planes, fused_bn, device, dtype)
+        self.conv2 = _conv(planes, planes, 3, 1, dilation, device, dtype)
+        self.bn2 = batch_norm(planes, fused_bn, device, dtype)
         self.downsample_conv = self.downsample_bn = None
         if stride != 1 or inplanes != planes:
             self.downsample_conv = _conv(inplanes, planes, 1, stride,
-                                         device=device)
-            self.downsample_bn = batch_norm(planes, fused_bn, device)
+                                         device=device, dtype=dtype)
+            self.downsample_bn = batch_norm(planes, fused_bn, device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -80,20 +91,22 @@ class Bottleneck3D(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, device=None, fused_bn=False):
+                 dilation: int = 1, device=None, fused_bn=False,
+                 dtype=torch.float32):
         super().__init__()
         out_ch = planes * self.expansion
-        self.conv1 = _conv(inplanes, planes, 1, device=device)
-        self.bn1 = batch_norm(planes, fused_bn, device)
-        self.conv2 = _conv(planes, planes, 3, stride, dilation, device)
-        self.bn2 = batch_norm(planes, fused_bn, device)
-        self.conv3 = _conv(planes, out_ch, 1, device=device)
-        self.bn3 = batch_norm(out_ch, fused_bn, device)
+        self.conv1 = _conv(inplanes, planes, 1, device=device, dtype=dtype)
+        self.bn1 = batch_norm(planes, fused_bn, device, dtype)
+        self.conv2 = _conv(planes, planes, 3, stride, dilation, device,
+                           dtype)
+        self.bn2 = batch_norm(planes, fused_bn, device, dtype)
+        self.conv3 = _conv(planes, out_ch, 1, device=device, dtype=dtype)
+        self.bn3 = batch_norm(out_ch, fused_bn, device, dtype)
         self.downsample_conv = self.downsample_bn = None
         if stride != 1 or inplanes != out_ch:
             self.downsample_conv = _conv(inplanes, out_ch, 1, stride,
-                                         device=device)
-            self.downsample_bn = batch_norm(out_ch, fused_bn, device)
+                                         device=device, dtype=dtype)
+            self.downsample_bn = batch_norm(out_ch, fused_bn, device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -114,16 +127,18 @@ class MedicalNetResNet3D(nn.Module):
     """
 
     def __init__(self, depth: int = 18, dilated: bool = True, device=None,
-                 fused_bn=False, maxpool_impl: str = "xla"):
+                 fused_bn=False, maxpool_impl: str = "xla",
+                 dtype=torch.float32, remat: bool = False):
         super().__init__()
         if maxpool_impl not in MAXPOOL_IMPLS:
             raise ValueError(f"maxpool_impl must be one of {MAXPOOL_IMPLS}, "
                              f"got {maxpool_impl!r}")
         self.maxpool_impl = maxpool_impl
+        self.remat = remat
         block_kind, layout = BLOCK_CONFIGS[depth]
         block = BasicBlock3D if block_kind == "basic" else Bottleneck3D
-        self.conv1 = _conv(1, 64, 7, stride=2, device=device)
-        self.bn1 = batch_norm(64, fused_bn, device)
+        self.conv1 = _conv(1, 64, 7, stride=2, device=device, dtype=dtype)
+        self.bn1 = batch_norm(64, fused_bn, device, dtype)
         if dilated:  # (planes, stride, dilation) per Med3D resnet.py
             specs = [(64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4)]
         else:
@@ -135,7 +150,8 @@ class MedicalNetResNet3D(nn.Module):
                 name = f"layer{li}_block{bi}"
                 self.add_module(name, block(inplanes, planes,
                                             stride if bi == 0 else 1,
-                                            dilation, device, fused_bn))
+                                            dilation, device, fused_bn,
+                                            dtype))
                 self.block_names.append(name)
                 inplanes = planes * block.expansion
 
@@ -146,5 +162,25 @@ class MedicalNetResNet3D(nn.Module):
         else:
             x = max_pool3d_pl(x)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if self.remat and self.training and torch.is_grad_enabled():
+                x = _rematerialised(block, x)
+            else:
+                x = block(x)
         return x
+
+
+def _rematerialised(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)``, its activations recomputed in the backward pass. The
+    first run updates the BatchNorm running statistics and the recomputation
+    does not: flax's functional remat changes no state the second time."""
+    runs = []
+
+    def run(inp):
+        runs.append(None)
+        if len(runs) == 1:
+            return block(inp)
+        with layers.no_tracking():
+            return block(inp)
+
+    return checkpoint(run, x, use_reentrant=False)

@@ -23,10 +23,28 @@ SOURCES = (_PACKAGE / "csrc" / "minmax_norm.cu",
            _PACKAGE / "csrc" / "batch_norm.cu",
            _PACKAGE / "csrc" / "zscore_norm.cu",
            _PACKAGE / "csrc" / "maxpool_bwd.cu")
+HEADERS = (_PACKAGE / "csrc" / "scan_cluster.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+
+
+class Levels(ctypes.Structure):
+    """``struct Levels`` of csrc/minmax_norm.cu: up to 8 quantile levels,
+    passed by value in the launch arguments."""
+
+    MAX = 8
+    _fields_ = [("q", ctypes.c_float * MAX), ("count", ctypes.c_int32)]
+
+    @classmethod
+    def of(cls, qs) -> "Levels":
+        """The levels ``qs`` cast to float32, as ``torch.tensor(qs,
+        dtype=torch.float32)`` casts them."""
+        if not 1 <= len(qs) <= cls.MAX:
+            raise ValueError(f"minmax_select takes 1 to {cls.MAX} quantile "
+                             f"levels, got {len(qs)}")
+        return cls((ctypes.c_float * cls.MAX)(*qs), len(qs))
 
 
 def _nvcc() -> str:
@@ -42,7 +60,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     digest.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libport_kernels-{digest.hexdigest()[:16]}.so"
@@ -98,29 +116,31 @@ def library() -> ctypes.CDLL:
     """The built library with every entry point's signature declared."""
     lib = ctypes.CDLL(str(build()))
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.minmax_select_cluster_blocks.argtypes = [i64]
+    lib.minmax_select_cluster_blocks.restype = i64
     lib.minmax_select_workspace_words.argtypes = [i64, i64, i64]
     lib.minmax_select_workspace_words.restype = i64
-    lib.minmax_select.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr, ptr,
-                                  i64, ptr]
+    lib.minmax_select_active_clusters.argtypes = [i64, i64]
+    lib.minmax_select_active_clusters.restype = ctypes.c_int
+    lib.minmax_select.argtypes = [ptr, ptr, Levels, i64, i64, ptr, ptr, i64,
+                                  ptr]
     lib.minmax_select.restype = ctypes.c_int
     lib.minmax_apply.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]
     lib.minmax_apply.restype = ctypes.c_int
     lib.minmax_error_string.argtypes = [ctypes.c_int]
     lib.minmax_error_string.restype = ctypes.c_char_p
-    lib.bn_stats.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr]
+    lib.bn_stats.argtypes = [ptr, i64, i64, i64, i64, ptr, i64, ptr]
     lib.bn_stats.restype = ctypes.c_int
-    lib.bn_apply.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+    lib.bn_apply.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
                              i64, ptr]
     lib.bn_apply.restype = ctypes.c_int
-    lib.bn_grad_sum.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr, i64,
-                                ptr]
+    lib.bn_grad_sum.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i64, i64, ptr,
+                                i64, ptr]
     lib.bn_grad_sum.restype = ctypes.c_int
-    lib.bn_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
-                          i64, ptr]
+    lib.bn_dx.argtypes = [ptr, ptr, i64, ptr, ptr, ptr, ptr, ptr, i64, i64,
+                          i64, i64, ptr]
     lib.bn_dx.restype = ctypes.c_int
-    lib.zscore_workspace_bytes.argtypes = [i64, i64]
-    lib.zscore_workspace_bytes.restype = i64
-    lib.zscore_norm.argtypes = [ptr, ptr, ptr, i64, i64, ptr, i64, ptr]
+    lib.zscore_norm.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     lib.zscore_norm.restype = ctypes.c_int
     lib.maxpool_bwd_slab.argtypes = [i64, i64, i64, i64]
     lib.maxpool_bwd_slab.restype = i64

@@ -11,9 +11,14 @@ in ``csrc/batch_norm.cu`` do the work on the card:
 They take activations of shape (B, C, ...) with channels on axis 1, the
 model's NCDHW layout, viewed as (B, C, S) rows without a copy. JAX's
 functions take (N, C) with channels last; the statistics and gradients are
-the same. Each wrapper takes the plain PyTorch version for CPU tensors only.
-For a CUDA tensor it launches the kernel or raises (float32, contiguous, one
-device). Every kernel launch adds one to ``LAUNCHES[name]``.
+the same. x and g are float32 or bfloat16 (the model's compute dtype); the
+statistics, scale, bias and sums are float32. As in the Pallas bodies,
+every function reads x and g in their dtype, computes in float32 and
+returns y and dx in x's dtype, rounded once. Each wrapper takes the plain
+PyTorch version for CPU tensors only. For a CUDA tensor it launches the
+kernel or raises (x and g float32 or bfloat16 and of one dtype, the rest
+float32, contiguous, one device). Every kernel launch adds one to
+``LAUNCHES[name]``.
 
 ``batch_norm_train`` (forward K4 then K5, backward K6 then K7) and
 ``lane_packed_stats`` (K4, with the closed-form statistics VJP) are the
@@ -47,49 +52,72 @@ def _per_channel(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(1, -1, 1)
 
 
-def _kernel_operands(x: torch.Tensor, *tensors: torch.Tensor) -> None:
-    """Raise on anything the kernels do not take."""
-    for t in (x,) + tensors:
+# dtype codes of the C entry points (csrc/batch_norm.cu)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel_operands(data, stats=()) -> int:
+    """Raise on anything the kernels do not take; return the dtype code.
+    ``data``: the activations (x, and g where there is one), float32 or
+    bfloat16, of one dtype; ``stats``: the per-channel operands, float32."""
+    x = data[0]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the BatchNorm kernels take float32 or bfloat16 "
+                        f"activations, got {x.dtype}")
+    for t in data[1:]:
+        if t.dtype != x.dtype:
+            raise TypeError(f"activations of dtypes {x.dtype} and {t.dtype}")
+    for t in stats:
         if t.dtype != torch.float32:
-            raise TypeError(f"the BatchNorm kernels take float32, got "
-                            f"{t.dtype}")
+            raise TypeError(f"the BatchNorm kernels take float32 statistics, "
+                            f"got {t.dtype}")
+    for t in tuple(data) + tuple(stats):
         if t.device != x.device:
             raise ValueError(f"operands on {x.device} and {t.device}")
         if not t.is_contiguous():
             raise ValueError("the BatchNorm kernels take contiguous tensors")
+    return _DTYPES[x.dtype]
 
 
 # ---------------------------------------------------------------- plain --
 
 
 def bn_stats_plain(x3: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``bn_stats`` on (B, C, S): (2, C) [sum; sum x^2]."""
+    """Plain version of ``bn_stats`` on (B, C, S): (2, C) float32 [sum;
+    sum x^2]."""
+    x3 = x3.float()
     return torch.stack([x3.sum(dim=(0, 2)), (x3 * x3).sum(dim=(0, 2))])
 
 
 def bn_apply_plain(x3, mean, inv, scale, bias) -> torch.Tensor:
-    """Plain version of ``bn_apply`` on (B, C, S)."""
+    """Plain version of ``bn_apply`` on (B, C, S), in x's dtype."""
     c = _per_channel
-    return ((x3 - c(mean)) * c(inv)) * c(scale) + c(bias)
+    y = ((x3.float() - c(mean)) * c(inv)) * c(scale) + c(bias)
+    return y.to(x3.dtype)
 
 
 def bn_grad_sum_plain(g3, x3, mean, inv) -> torch.Tensor:
-    """Plain version of ``bn_grad_sum``: (2, C) [sum g; sum g * xhat]."""
-    xhat = (x3 - _per_channel(mean)) * _per_channel(inv)
+    """Plain version of ``bn_grad_sum``: (2, C) float32 [sum g; sum g *
+    xhat]."""
+    g3 = g3.float()
+    xhat = (x3.float() - _per_channel(mean)) * _per_channel(inv)
     return torch.stack([g3.sum(dim=(0, 2)), (g3 * xhat).sum(dim=(0, 2))])
 
 
 def bn_dx_plain(g3, x3, mean, inv, scale, red) -> torch.Tensor:
-    """Plain version of ``bn_dx``; ``red`` is (2, C) [sum g; sum g xhat]/N."""
+    """Plain version of ``bn_dx`` in x's dtype; ``red`` is (2, C) [sum g;
+    sum g xhat]/N."""
     c = _per_channel
-    xhat = (x3 - c(mean)) * c(inv)
-    return c(scale * inv) * ((g3 - c(red[0])) - xhat * c(red[1]))
+    xhat = (x3.float() - c(mean)) * c(inv)
+    dx = c(scale * inv) * ((g3.float() - c(red[0])) - xhat * c(red[1]))
+    return dx.to(x3.dtype)
 
 
 # ------------------------------------------------------------- wrappers --
 
 
-def _reduce_kernel(name: str, x3: torch.Tensor, *extra) -> torch.Tensor:
+def _reduce_kernel(name: str, dtype: int, x3: torch.Tensor,
+                   *extra) -> torch.Tensor:
     """``bn_stats`` (no extra operands) or ``bn_grad_sum`` (g, mean, inv):
     one launch, no workspace."""
     lib = _native.library()
@@ -97,13 +125,14 @@ def _reduce_kernel(name: str, x3: torch.Tensor, *extra) -> torch.Tensor:
     device = x3.device
     sums = torch.empty((2, c), dtype=torch.float32, device=device)
     if name == "bn_stats":
-        code = lib.bn_stats(x3.data_ptr(), b, c, s, sums.data_ptr(),
+        code = lib.bn_stats(x3.data_ptr(), dtype, b, c, s, sums.data_ptr(),
                             device.index, _native.stream(device))
     else:
         g3, mean, inv = extra
-        code = lib.bn_grad_sum(g3.data_ptr(), x3.data_ptr(), mean.data_ptr(),
-                               inv.data_ptr(), b, c, s, sums.data_ptr(),
-                               device.index, _native.stream(device))
+        code = lib.bn_grad_sum(g3.data_ptr(), x3.data_ptr(), dtype,
+                               mean.data_ptr(), inv.data_ptr(), b, c, s,
+                               sums.data_ptr(), device.index,
+                               _native.stream(device))
     _native.check(code, name)
     LAUNCHES[name] += 1
     return sums
@@ -114,21 +143,21 @@ def bn_stats(x: torch.Tensor) -> torch.Tensor:
     x3 = _rows(x)
     if not _native.on_cuda(x3):
         return bn_stats_plain(x3)
-    _kernel_operands(x3)
-    return _reduce_kernel("bn_stats", x3)
+    return _reduce_kernel("bn_stats", _kernel_operands((x3,)), x3)
 
 
 def bn_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
              scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """``((x - mean) * inv) * scale + bias`` with (C,) operands, x's shape."""
+    """``((x - mean) * inv) * scale + bias`` with (C,) operands, x's shape
+    and dtype."""
     x3 = _rows(x)
     if not _native.on_cuda(x3):
         return bn_apply_plain(x3, mean, inv, scale, bias).reshape(x.shape)
-    _kernel_operands(x3, mean, inv, scale, bias)
+    dtype = _kernel_operands((x3,), (mean, inv, scale, bias))
     lib = _native.library()
     b, c, s = x3.shape
     y = torch.empty_like(x3)
-    code = lib.bn_apply(x3.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+    code = lib.bn_apply(x3.data_ptr(), dtype, mean.data_ptr(), inv.data_ptr(),
                         scale.data_ptr(), bias.data_ptr(), y.data_ptr(), b, c,
                         s, x3.device.index, _native.stream(x3.device))
     _native.check(code, "bn_apply")
@@ -142,22 +171,23 @@ def bn_grad_sum(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     g3, x3 = _rows(g), _rows(x)
     if not _native.on_cuda(x3):
         return bn_grad_sum_plain(g3, x3, mean, inv)
-    _kernel_operands(x3, g3, mean, inv)
-    return _reduce_kernel("bn_grad_sum", x3, g3, mean, inv)
+    dtype = _kernel_operands((x3, g3), (mean, inv))
+    return _reduce_kernel("bn_grad_sum", dtype, x3, g3, mean, inv)
 
 
 def bn_dx(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
           inv: torch.Tensor, scale: torch.Tensor,
           red: torch.Tensor) -> torch.Tensor:
-    """``(scale * inv) * ((g - red[0]) - xhat * red[1])``, x's shape."""
+    """``(scale * inv) * ((g - red[0]) - xhat * red[1])``, x's shape and
+    dtype."""
     g3, x3 = _rows(g), _rows(x)
     if not _native.on_cuda(x3):
         return bn_dx_plain(g3, x3, mean, inv, scale, red).reshape(x.shape)
-    _kernel_operands(x3, g3, mean, inv, scale, red)
+    dtype = _kernel_operands((x3, g3), (mean, inv, scale, red))
     lib = _native.library()
     b, c, s = x3.shape
     dx = torch.empty_like(x3)
-    code = lib.bn_dx(g3.data_ptr(), x3.data_ptr(), mean.data_ptr(),
+    code = lib.bn_dx(g3.data_ptr(), x3.data_ptr(), dtype, mean.data_ptr(),
                      inv.data_ptr(), scale.data_ptr(), red.data_ptr(),
                      dx.data_ptr(), b, c, s, x3.device.index,
                      _native.stream(x3.device))
@@ -221,9 +251,10 @@ class _LanePackedStats(torch.autograd.Function):
         x, mean = ctx.saved_tensors
         n = _count(x)
         c = _per_channel
-        # d mean/dx = 1/N; d var/dx = 2 (x - mean) / N (biased variance)
-        dx = c(gmean / n) + c((2.0 / n) * gvar) * (_rows(x) - c(mean))
-        return dx.reshape(x.shape)
+        # d mean/dx = 1/N; d var/dx = 2 (x - mean) / N (biased variance), in
+        # float32, returned in x's dtype
+        dx = c(gmean / n) + c((2.0 / n) * gvar) * (_rows(x).float() - c(mean))
+        return dx.reshape(x.shape).to(x.dtype)
 
 
 def lane_packed_stats(x: torch.Tensor):

@@ -5,21 +5,26 @@ Counterpart of ``multimodal_alzheimer_tpu/ops/pallas_norm.py``'s
 ``per_scan_zscore``. Three kernels do the work on the card:
 
 * ``minmax_select`` (``csrc/minmax_norm.cu``): exact per-scan order
-  statistics by an 8-bit digit radix select (the TPU's
-  ``_minmax_select_kernel``);
+  statistics by an 8-bit digit radix select over keys held in one
+  thread-block cluster per scan (the TPU's ``_minmax_select_kernel``);
 * ``minmax_apply`` (same file): ``clamp((x - qmin) / (qmax - qmin), 0, 1) *
   mask`` (the TPU's ``_minmax_apply_kernel``);
 * ``zscore`` (``csrc/zscore_norm.cu``): ``(x - mean) / std * mask`` with the
-  mean and Bessel-corrected std of each scan's ``{x*mask != 0}`` (the TPU's
-  ``_zscore_stream_kernel``).
+  mean and Bessel-corrected std of each scan's ``{x*mask != 0}``, one
+  thread-block cluster per scan (the TPU's ``_zscore_stream_kernel``).
 
 Each wrapper takes the plain PyTorch version for CPU tensors only. For a CUDA
 tensor it launches the kernel or raises; no other device is accepted. Every
 kernel launch adds one to ``LAUNCHES[name]``, so a run can show that its
-requests went through the kernels.
+requests went through the kernels. On the card the wrappers only enqueue
+work: the quantile levels travel by value in the launch arguments, and the
+interpolation takes them from a tensor made once per device by a fill
+kernel, so no call copies from host memory or waits for the card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,8 +35,6 @@ from multimodal_alzheimer_tpu_torch.ops.quantile import (
 )
 
 LAUNCHES = {"minmax_select": 0, "minmax_apply": 0, "zscore": 0}
-
-_MAX_QS = 8  # kMaxTargets in csrc/minmax_norm.cu
 
 
 def reset_launches() -> None:
@@ -57,22 +60,32 @@ def order_stats_plain(vol: torch.Tensor, mask: torch.Tensor,
     return order_stats_rows(vol * mask, qs)
 
 
+@functools.cache
+def levels_tensor(qs: tuple[float, ...], device: torch.device):
+    """(Q,) float32 ``qs`` on ``device``, made once by fill kernels (no
+    copy from host memory); equal to ``torch.tensor(qs, dtype=float32)``."""
+    return torch.stack([torch.full((), q, dtype=torch.float32, device=device)
+                        for q in qs])
+
+
 def _order_stats_kernel(vol: torch.Tensor, mask: torch.Tensor,
-                        qs: torch.Tensor):
+                        qs: tuple[float, ...]):
+    """One launch with no workspace for a scan that 16 blocks' shared memory
+    holds (``minmax_select_cluster_blocks(N) > 0``: N up to about 3.7
+    million voxels, 91x109x91 is 902,629), else the device-memory route
+    with its workspace. The route depends on N alone."""
     lib = _native.library()
     b, n = vol.shape
-    n_qs = qs.numel()
-    if not 1 <= n_qs <= _MAX_QS:
-        raise ValueError(f"minmax_select takes 1 to {_MAX_QS} quantile "
-                         f"levels, got {n_qs}")
+    levels = _native.Levels.of(qs)
     device = vol.device
-    work = torch.empty(lib.minmax_select_workspace_words(b, n, n_qs),
-                       dtype=torch.int32, device=device)
-    out = torch.empty((b, 1 + 2 * n_qs), dtype=torch.int32, device=device)
+    words = lib.minmax_select_workspace_words(b, n, len(qs))
+    work = (torch.empty(words, dtype=torch.int32, device=device)
+            if words else None)
+    out = torch.empty((b, 1 + 2 * len(qs)), dtype=torch.int32, device=device)
     code = lib.minmax_select(
-        vol.data_ptr(), mask.data_ptr(), qs.data_ptr(), b, n, n_qs,
-        work.data_ptr(), out.data_ptr(), device.index,
-        _native.stream(device))
+        vol.data_ptr(), mask.data_ptr(), levels, b, n,
+        work.data_ptr() if work is not None else None, out.data_ptr(),
+        device.index, _native.stream(device))
     _native.check(code, "minmax_select")
     LAUNCHES["minmax_select"] += 1
     return (out[:, 0].to(torch.int64), _decode_keys(out[:, 1::2]),
@@ -90,14 +103,15 @@ def order_stats(volume: torch.Tensor, mask: torch.Tensor,
                 qs: tuple[float, ...]):
     """Per-scan ``(n, v_lo, v_hi)`` order statistics of ``{x*mask != 0}``.
 
-    ``qs`` are formed in Python double and cast to float32, as in JAX.
-    Returns the (B,) int64 valid counts and two (B, Q) float32 tensors.
+    ``qs`` (1 to 8 levels) are formed in Python double and cast to float32,
+    as in JAX. Returns the (B,) int64 valid counts and two (B, Q) float32
+    tensors. A scan with no valid voxel gives +inf for both statistics.
     """
     vol, msk = _rows(volume, mask)
-    qs_t = torch.tensor(qs, dtype=torch.float32, device=vol.device)
+    qs = tuple(qs)
     if _native.on_cuda(vol):
-        return _order_stats_kernel(vol, msk, qs_t)
-    return order_stats_plain(vol, msk, qs_t)
+        return _order_stats_kernel(vol, msk, qs)
+    return order_stats_plain(vol, msk, levels_tensor(qs, vol.device))
 
 
 def batched_masked_quantiles(volume: torch.Tensor, mask: torch.Tensor,
@@ -109,8 +123,7 @@ def batched_masked_quantiles(volume: torch.Tensor, mask: torch.Tensor,
     meaningful result (a scan with none gives NaN).
     """
     n, v_lo, v_hi = order_stats(volume, mask, qs)
-    qs_t = torch.tensor(qs, dtype=torch.float32, device=v_lo.device)
-    return interpolate(n, v_lo, v_hi, qs_t)
+    return interpolate(n, v_lo, v_hi, levels_tensor(tuple(qs), v_lo.device))
 
 
 def minmax_apply_plain(volume: torch.Tensor, mask: torch.Tensor,
@@ -177,15 +190,13 @@ def zscore_plain(vol: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _zscore_kernel(vol: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """One launch, no workspace: a cluster of 16 blocks per scan."""
     lib = _native.library()
     b, n = vol.shape
     device = vol.device
-    work = torch.empty(lib.zscore_workspace_bytes(b, n), dtype=torch.uint8,
-                       device=device)
     out = torch.empty_like(vol)
     code = lib.zscore_norm(vol.data_ptr(), mask.data_ptr(), out.data_ptr(), b,
-                           n, work.data_ptr(), device.index,
-                           _native.stream(device))
+                           n, device.index, _native.stream(device))
     _native.check(code, "zscore_norm")
     LAUNCHES["zscore"] += 1
     return out

@@ -1,17 +1,24 @@
-"""Device times of the BatchNorm kernels (K4-K7) and the stem max-pool
-backward (K8), with their plain versions and torch's call for the same
-function, at the shapes of the flagship ResNet-18 train path.
+"""Device times of the per-scan normalisation kernels (K1 select, K3
+z-score), the BatchNorm kernels (K4-K7, float32 and bfloat16) and the stem
+max-pool backward (K8), with their plain versions and torch's call for the
+same function where there is one, at the shapes of the flagship ResNet-18
+serving and train paths.
 
     python3 multimodal_alzheimer_tpu_torch/tools/kernel_times.py \
-        [--root DIR] [--label NAME] [--out FILE]
+        [--root DIR] [--label NAME] [--out FILE] [--kernels K,...] \
+        [--bn-dtypes float32,bfloat16]
 
 It imports ``multimodal_alzheimer_tpu_torch`` from ``--root`` (default: the
 checkout that holds this file) and calls only its public wrappers
-(``hopper_bn.bn_*``, ``hopper_maxpool.max_pool3d_backward``), so one command
+(``hopper_norm.order_stats``, ``hopper_norm.per_scan_zscore``,
+``hopper_bn.bn_*``, ``hopper_maxpool.max_pool3d_backward``), so one command
 on one card can time two checkouts' kernels in turns: A, B, B, A, each in a
 process of its own. It prints one line per kernel, shape and dtype, then the
 card's name and power limit, and writes the rows as JSON to ``--out``.
-``chip_smoke.py`` takes its BatchNorm and K8 times from the same functions.
+``chip_smoke.py`` takes its kernel times from the same functions. A
+checkout whose ``order_stats`` waits for the card (its levels copied from
+host memory, before ``hopper_norm.levels_tensor``) cannot be queued behind
+a spin; its K1 is timed on the launch alone.
 
 Two figures per call:
 
@@ -58,6 +65,11 @@ BN_PER_STEP = {"stem": 1, "layer1": 4, "layer2": 5, "layer3": 5,
                "layer4": 5}
 BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_sum", "bn_dx")
 BN_EPS = 1e-5
+# The per-scan normalisation at the serving rungs and the train batch.
+GRID = (91, 109, 91)
+NORM_BATCHES = (8, 32)
+NORM_KERNELS = ("minmax_select", "zscore")
+QS = (0.99, 0.01)
 # The stem pool's input at 91x109x91, batch 8 (NCDHW).
 STEM = (8, 64, 46, 55, 46)
 # One H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s f32 outside the tensor cores,
@@ -139,16 +151,76 @@ def bound(nbytes: float, flops: float) -> tuple:
                                                           "operations")
 
 
-def bn_bounds(shape) -> dict:
-    """Per kernel: each input read once, each output written once (4-byte
-    floats), and its f32 operations per element."""
+def bn_bounds(shape, item: int = 4) -> dict:
+    """Per kernel: each input read once, each output written once
+    (activations of ``item`` bytes, float32 (C,) vectors), and its f32
+    operations per element."""
     elems = float(np.prod(shape))
     c = shape[1]
     #        (full tensors moved, (C,) vectors moved, flops per element)
     counts = {"bn_stats": (1, 2, 3), "bn_apply": (2, 4, 4),
               "bn_grad_sum": (2, 4, 5), "bn_dx": (3, 5, 6)}
-    return {k: bound(4 * (t * elems + v * c), f * elems)
+    return {k: bound(item * t * elems + 4 * v * c, f * elems)
             for k, (t, v, f) in counts.items()}
+
+
+def norm_bounds(batch: int, n: int) -> dict:
+    """K1: volume and mask read once, (B, 1 + 2Q) words written, one
+    multiply per voxel; K3: volume and mask read, the output written, four
+    f32 operations per voxel (its double sums are 3 more on 34 TFLOP/s, far
+    below the bytes either way)."""
+    voxels = float(batch * n)
+    return {"minmax_select": bound(8 * voxels + 4 * batch * (1 + 2 * len(QS)),
+                                   voxels),
+            "zscore": bound(12 * voxels, 4 * voxels)}
+
+
+def norm_operands(batch: int, generator, device):
+    """The flagship entry recipe: N(900, 400) volumes, masks > 0.35."""
+    shape = (batch,) + GRID
+    vol = torch.randn(shape, generator=generator, device=device) * 400 + 900
+    mask = (torch.rand(shape, generator=generator, device=device)
+            > 0.35).to(torch.float32)
+    return vol, mask
+
+
+def time_norm(batch: int, generator, device,
+              kernels=NORM_KERNELS) -> dict:
+    """K1 (``order_stats``, the whole call) and K3 (``per_scan_zscore``) at
+    (batch, 91x109x91): device and per-call ms, the plain version's ms and
+    the bound; no library call computes either function."""
+    from multimodal_alzheimer_tpu_torch.ops import hopper_norm
+
+    vol, mask = norm_operands(batch, generator, device)
+    copies = [(vol, mask)] + [(vol.clone(), mask.clone()) for _ in range(
+        n_copies(8 * vol.numel()) - 1)]
+    b = batch
+    qs_t = torch.tensor(QS, dtype=torch.float32, device=device)
+    if hasattr(hopper_norm, "levels_tensor"):
+        select = [lambda v=v, m=m: hopper_norm.order_stats(v, m, QS)
+                  for v, m in copies]
+    else:  # the wrapper waits for the card: time the launch alone
+        select = [lambda v=v, m=m: hopper_norm._order_stats_kernel(
+            v.reshape(b, -1), m.reshape(b, -1), qs_t) for v, m in copies]
+    calls = {
+        "minmax_select": (select, [lambda: hopper_norm.order_stats_plain(
+            vol.reshape(b, -1), mask.reshape(b, -1), qs_t)]),
+        "zscore": ([lambda v=v, m=m: hopper_norm.per_scan_zscore(v, m)
+                    for v, m in copies],
+                   [lambda: hopper_norm.zscore_plain(
+                       vol.reshape(b, -1), mask.reshape(b, -1))]),
+    }
+    bounds = norm_bounds(batch, int(np.prod(GRID)))
+    out = {}
+    for name in kernels:
+        kernel, plain = calls[name]
+        out[name] = {"ms": device_ms(kernel), "call_ms": call_ms(kernel),
+                     "plain_ms": device_ms(plain, launches=5, reps=3,
+                                           spin=False),
+                     "library_ms": None, "library_call_ms": None,
+                     "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1]}
+    return out
 
 
 def pool_bound(shape, dtype, winners=None) -> tuple:
@@ -168,13 +240,15 @@ def pool_bound(shape, dtype, winners=None) -> tuple:
     return bound(item * (2 * n_in + 2 * n_out), ops)
 
 
-def bn_operands(shape, generator, device):
+def bn_operands(shape, generator, device, dtype=torch.float32):
+    """x and g in ``dtype`` (the model's compute dtype), float32 scale and
+    bias."""
     c = shape[1]
     x = torch.randn(shape, generator=generator, device=device) * 2 + 0.5
     g = torch.randn(shape, generator=generator, device=device)
     scale = torch.rand(c, generator=generator, device=device) + 0.5
     bias = torch.randn(c, generator=generator, device=device)
-    return x, g, scale, bias
+    return x.to(dtype), g.to(dtype), scale, bias
 
 
 def _rows3(t):
@@ -193,19 +267,19 @@ def bn_chain(x, g):
     return mean, inv, red
 
 
-def bn_calls(shape, generator, device) -> dict:
+def bn_calls(shape, generator, device, dtype=torch.float32) -> dict:
     """Per BatchNorm kernel: (kernel, plain, library) lists of calls, one
     per copy of the operands; and F.batch_norm's (forward, backward)."""
     from multimodal_alzheimer_tpu_torch.ops import hopper_bn
 
-    x, g, scale, bias = bn_operands(shape, generator, device)
+    x, g, scale, bias = bn_operands(shape, generator, device, dtype)
     mean, inv, red = bn_chain(x, g)
     n = x.numel() // shape[1]
     count = torch.tensor([n], dtype=torch.int32, device=device)
     sum_dy, sum_dy_xmu = torch.batch_norm_backward_reduce(
         g, x, mean, inv, scale, True, True, True)[:2]
     copies = [(x, g)] + [(x.clone(), g.clone()) for _ in range(
-        n_copies(2 * 4 * x.numel()) - 1)]
+        n_copies(2 * x.element_size() * x.numel()) - 1)]
 
     def each(make):
         return [make(xc, gc) for xc, gc in copies]
@@ -255,12 +329,13 @@ def bn_calls(shape, generator, device) -> dict:
     return calls
 
 
-def time_bn(shape, generator, device, kernels=BN_KERNELS) -> dict:
-    """Per BatchNorm kernel at ``shape``: device and per-call ms of the
-    kernel and the library call, the plain version's ms, and the bound;
-    and F.batch_norm's forward and backward device ms."""
-    calls = bn_calls(shape, generator, device)
-    bounds = bn_bounds(shape)
+def time_bn(shape, generator, device, kernels=BN_KERNELS,
+            dtype=torch.float32) -> dict:
+    """Per BatchNorm kernel at ``shape`` with ``dtype`` activations: device
+    and per-call ms of the kernel and the library call, the plain version's
+    ms, and the bound; and F.batch_norm's forward and backward device ms."""
+    calls = bn_calls(shape, generator, device, dtype)
+    bounds = bn_bounds(shape, torch.tensor([], dtype=dtype).element_size())
     out = {}
     for name in kernels:
         kernel, plain, library = calls[name]
@@ -328,10 +403,12 @@ def nvidia_smi() -> str:
 
 
 def row_line(label: str, what: str, r: dict) -> str:
+    library = ("none" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms (per call "
+               f"{r['library_call_ms']:.4f})")
     return (f"[{label}] {what}: kernel {r['ms']:.4f} ms (per call "
             f"{r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms (per call {r['library_call_ms']:.4f})"
-            f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{library}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def main() -> int:
@@ -341,11 +418,14 @@ def main() -> int:
                         help="checkout whose port to import")
     parser.add_argument("--label", default="kernels")
     parser.add_argument("--out", default=None, help="JSON file to write")
-    parser.add_argument("--kernels", default=",".join(BN_KERNELS
-                                                      + ("maxpool_bwd",)),
-                        help="comma-separated kernels to time")
+    parser.add_argument("--kernels", default=",".join(
+        NORM_KERNELS + BN_KERNELS + ("maxpool_bwd",)),
+        help="comma-separated kernels to time")
+    parser.add_argument("--bn-dtypes", default="float32,bfloat16",
+                        help="activation dtypes of the BatchNorm kernels")
     args = parser.parse_args()
     chosen = args.kernels.split(",")
+    bn_dtypes = [getattr(torch, d) for d in args.bn_dtypes.split(",")]
     if not torch.cuda.is_available():
         print("kernel_times: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -357,14 +437,23 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(5)
     rows = []
-    bn = tuple(k for k in BN_KERNELS if k in chosen)
-    for name, shape in BN_SHAPES.items() if bn else ():
-        times = time_bn(shape, gen, device, bn)
-        for kernel in bn:
-            rows.append({"kernel": kernel, "shape": name, "dims": shape,
-                         **times[kernel]})
-            print(row_line(args.label, f"{kernel} {name} {shape}",
+    norm = tuple(k for k in NORM_KERNELS if k in chosen)
+    for batch in NORM_BATCHES if norm else ():
+        times = time_norm(batch, gen, device, norm)
+        for kernel in norm:
+            rows.append({"kernel": kernel, "shape": f"B={batch}",
+                         "dims": (batch,) + GRID, **times[kernel]})
+            print(row_line(args.label, f"{kernel} B={batch} {GRID}",
                            times[kernel]), flush=True)
+    bn = tuple(k for k in BN_KERNELS if k in chosen)
+    for dtype in bn_dtypes if bn else ():
+        for name, shape in BN_SHAPES.items():
+            times = time_bn(shape, gen, device, bn, dtype)
+            for kernel in bn:
+                rows.append({"kernel": kernel, "shape": name, "dims": shape,
+                             "dtype": str(dtype), **times[kernel]})
+                print(row_line(args.label, f"{kernel} {name} {shape} "
+                               f"{dtype}", times[kernel]), flush=True)
     for dtype in (torch.float32, torch.bfloat16) if "maxpool_bwd" in chosen \
             else ():
         r = time_pool(*pool_operands(STEM, dtype, gen, device))

@@ -163,3 +163,34 @@ def test_model_weights_are_cut_at_two_deviations():
             fan_in = p[0].numel()
             bound = 2.0 * np.sqrt(1.0 / fan_in) / 0.87962566103423978
             assert float(p.detach().abs().max()) <= bound * (1 + 1e-6), name
+
+
+@pytest.mark.parametrize("fused_bn", [False, "full", "torch_stats"])
+def test_remat_matches_no_remat(fused_bn):
+    """``remat`` recomputes each residual block in the backward pass
+    (JAX's ``nn.remat``): the same loss, gradients and running statistics
+    as without it. The recomputation must not update the BatchNorm running
+    statistics a second time, which torch.utils.checkpoint would do."""
+    hp = {"n_classes": 3, "resnet_depth": 10, "linear_out": (8,)}
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(2,) + (12, 14, 12)).astype(np.float32))
+    runs = []
+    for remat in (False, True):
+        model = AnatCNN.from_hparams(hp, fused_bn=fused_bn, remat=remat,
+                                     generator=torch.Generator().manual_seed(3))
+        model.train()
+        out = model({"mri": x})
+        (out["logits"] * torch.arange(1.0, 4.0)).sum().backward()
+        runs.append((out["logits"].detach(),
+                     {k: p.grad.clone() for k, p in model.named_parameters()},
+                     {k: v.clone() for k, v in model.state_dict().items()
+                      if "running" in k}))
+    (l0, g0, s0), (l1, g1, s1) = runs
+    torch.testing.assert_close(l1, l0, rtol=0, atol=0)
+    assert g0.keys() == g1.keys() and s0.keys() == s1.keys()
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], rtol=1e-6, atol=1e-7,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    for k in s0:
+        torch.testing.assert_close(s1[k], s0[k], rtol=0, atol=0,
+                                   msg=lambda m, k=k: f"{k}: {m}")

@@ -6,8 +6,10 @@ False. Run them on a machine with an H100 and the CUDA toolkit; there
 
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
 
-Order statistics must be equal; the min-max apply within 1e-6 absolute
-(both are exact by construction, so any difference is a fault). The z-score
+Order statistics must be equal, bit for bit (NaN included); the min-max
+apply within 1e-6 absolute (both are exact by construction, so any
+difference is a fault). The select (K1) and the z-score (K3) at 91x109x91
+are one launch with no workspace, and enqueue without waiting for the card. The z-score
 within 1e-5 * (1 + |plain|) with NaN where the plain version has NaN (the
 kernel's statistics are summed in double in another order). The
 BatchNorm kernels: the elementwise ones (apply, dx) equal to their plain
@@ -15,9 +17,13 @@ versions given the same inputs; the per-channel sums within 1e-6 of the sum
 of the magnitudes of what is added (the order of summation differs). The
 max-pool backward (K8) equal to its plain version, bit for bit, in float32
 and bfloat16: both add in the same order with one rounding per add. The
-one-launch reductions (K4, K6) and K8 allocate their output and nothing
-else; K4 and K6 give the same bits on every call.
+BatchNorm kernels take bfloat16 activations too, held to their plain
+versions (float32 arithmetic, one rounding) the same way. The one-launch
+reductions (K4, K6) and K8 allocate their output and nothing else; K4 and
+K6 give the same bits on every call.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -27,6 +33,7 @@ from multimodal_alzheimer_tpu_torch.data.preprocess import (
     make_device_preprocess,
 )
 from multimodal_alzheimer_tpu_torch.ops import (
+    _native,
     hopper_bn,
     hopper_maxpool,
     hopper_norm,
@@ -68,18 +75,116 @@ def _plain_stats(vol, mask, qs):
                                          mask.reshape(b, -1), qs_t)
 
 
-@pytest.mark.parametrize("shape", [GRID, (19, 23, 17)])
-@pytest.mark.parametrize("kind", ["normal", "duplicates"])
-@pytest.mark.parametrize("qs", [(0.99, 0.01), (1.0, 0.0), (0.5,)])
-def test_select_equals_plain(device, shape, kind, qs):
-    vol, mask = _scans(kind, 3, shape, seed=1, device=device)
+def _bits_equal(a, b):
+    """Equal bit for bit (NaN included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _check_select(vol, mask, qs):
     before = hopper_norm.LAUNCHES["minmax_select"]
     n, lo, hi = hopper_norm.order_stats(vol, mask, qs)
     torch.cuda.synchronize()
     assert hopper_norm.LAUNCHES["minmax_select"] == before + 1
     n_p, lo_p, hi_p = _plain_stats(vol, mask, qs)
     assert torch.equal(n, n_p)
-    assert torch.equal(lo, lo_p) and torch.equal(hi, hi_p)
+    assert _bits_equal(lo, lo_p) and _bits_equal(hi, hi_p)
+
+
+@pytest.mark.parametrize("shape", [GRID, (19, 23, 17)])
+@pytest.mark.parametrize("kind", ["normal", "duplicates"])
+@pytest.mark.parametrize("qs", [(0.99, 0.01), (1.0, 0.0), (0.5,)])
+def test_select_equals_plain(device, shape, kind, qs):
+    vol, mask = _scans(kind, 3, shape, seed=1, device=device)
+    _check_select(vol, mask, qs)
+
+
+@pytest.mark.parametrize("n_qs", range(1, 9))
+@pytest.mark.parametrize("shape", [GRID, (19, 23, 17)])
+def test_select_takes_one_to_eight_levels(device, shape, n_qs):
+    """Levels in groups of up to three per pass at 91x109x91 (the shared
+    memory beside the keys), four at the ragged shape: each group's digits
+    and neighbours are its own."""
+    vol, mask = _scans("duplicates" if n_qs % 2 else "normal", 2, shape,
+                       seed=20 + n_qs, device=device)
+    qs = tuple(float(q) for q in np.linspace(0.0, 1.0, n_qs + 2)[1:-1])
+    _check_select(vol, mask, qs[::-1])
+
+
+def test_select_with_nan_and_an_empty_scan(device):
+    """NaN voxels are valid and sort last, as the plain sort puts them; a
+    scan with no valid voxel gives +inf for both statistics, as the plain
+    sort of an all-invalid row does."""
+    vol, mask = _scans("normal", 4, GRID, seed=21, device=device)
+    vol.view(4, -1)[1, ::5000] = float("nan")
+    vol.view(4, -1)[3] = float("nan")
+    mask[2] = 0.0
+    _check_select(vol, mask, (0.99, 0.01, 1.0, 0.0))
+    n, lo, hi = hopper_norm.order_stats(vol, mask, (0.99, 0.01))
+    assert int(n[2]) == 0 and bool(torch.isposinf(lo[2]).all())
+    assert bool(torch.isposinf(hi[2]).all())
+
+
+def test_select_is_one_launch_without_a_workspace(device):
+    """At 91x109x91 a scan's keys fit one cluster of 16 blocks: the C entry
+    needs no workspace, allocates nothing and writes the same bits as the
+    plain version; the wrapper counts one launch."""
+    lib = _native.library()
+    b, n = 3, int(np.prod(GRID))
+    assert lib.minmax_select_cluster_blocks(n) == 16
+    assert lib.minmax_select_workspace_words(b, n, 2) == 0
+    vol, mask = _scans("normal", b, GRID, seed=22, device=device)
+    qs = (0.99, 0.01)
+    out = torch.empty((b, 5), dtype=torch.int32, device=device)
+    levels = _native.Levels.of(qs)
+
+    def call():
+        return lib.minmax_select(vol.data_ptr(), mask.data_ptr(), levels, b,
+                                 n, None, out.data_ptr(), vol.device.index,
+                                 _native.stream(device))
+
+    code, allocated = _allocations(call)
+    assert code == 0 and allocated == 0
+    torch.cuda.synchronize()
+    n_p, lo_p, hi_p = _plain_stats(vol, mask, qs)
+    n_k, lo_k, hi_k = hopper_norm.order_stats(vol, mask, qs)
+    assert torch.equal(out[:, 0].long(), n_p)
+    assert _bits_equal(lo_k, lo_p) and _bits_equal(hi_k, hi_p)
+    assert _bits_equal(hopper_norm._decode_keys(out[:, 1::2]), lo_p)
+    assert _bits_equal(hopper_norm._decode_keys(out[:, 2::2]), hi_p)
+
+
+def test_select_large_scans_take_the_device_memory_route(device):
+    """A scan of a million voxels does not fit one cluster: the route is
+    the workspace one, chosen from N, and as exact."""
+    lib = _native.library()
+    shape = (100, 100, 100)
+    assert lib.minmax_select_cluster_blocks(10 ** 6) == 0
+    assert lib.minmax_select_workspace_words(2, 10 ** 6, 2) > 0
+    for kind in ("normal", "duplicates"):
+        vol, mask = _scans(kind, 2, shape, seed=23, device=device)
+        _check_select(vol, mask, (0.99, 0.01))
+
+
+def test_select_and_minmax_do_not_wait_for_the_card(device):
+    """order_stats and per_scan_minmax only enqueue: both return while a
+    spin kernel queued before them still runs (no copy from host memory,
+    no synchronisation)."""
+    vol, mask = _scans("normal", 8, GRID, seed=24, device=device)
+    want = hopper_norm.per_scan_minmax(vol, mask, 0.99)  # builds, warms up
+    stats = hopper_norm.order_stats(vol, mask, (0.99, 0.01))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(5e8))  # about a quarter of a second
+    start = time.perf_counter()
+    got_stats = hopper_norm.order_stats(vol, mask, (0.99, 0.01))
+    got = hopper_norm.per_scan_minmax(vol, mask, 0.99)
+    host_s = time.perf_counter() - start
+    assert not torch.cuda.current_stream().query(), host_s
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_stats[0], stats[0])
+    assert _bits_equal(got_stats[1], stats[1])
+    assert _bits_equal(got_stats[2], stats[2])
 
 
 def test_select_survives_a_scan_with_no_valid_voxel(device):
@@ -89,9 +194,7 @@ def test_select_survives_a_scan_with_no_valid_voxel(device):
     torch.cuda.synchronize()
     n_p, lo_p, hi_p = _plain_stats(vol, mask, (0.99, 0.01))
     assert int(n[2]) == 0
-    keep = torch.tensor([0, 1, 3], device=device)
-    assert torch.equal(lo[keep], lo_p[keep]) and torch.equal(hi[keep],
-                                                              hi_p[keep])
+    assert torch.equal(lo, lo_p) and torch.equal(hi, hi_p)
 
 
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
@@ -187,6 +290,51 @@ def test_zscore_matches_plain(device, shape, batch, std):
     torch.cuda.synchronize()
     assert hopper_norm.LAUNCHES["zscore"] == before + 1
     _check_zscore(got, _zscore_plain(vol, mask))
+
+
+def test_zscore_is_one_launch_without_a_workspace(device):
+    """The z-score is one cluster launch: the C entry takes no workspace and
+    allocates nothing; two calls give the same bits."""
+    lib = _native.library()
+    b, n = 8, int(np.prod(GRID))
+    vol, mask = _scans("normal", b, GRID, seed=25, device=device)
+    out = torch.empty_like(vol)
+
+    def call():
+        return lib.zscore_norm(vol.data_ptr(), mask.data_ptr(),
+                               out.data_ptr(), b, n, vol.device.index,
+                               _native.stream(device))
+
+    code, allocated = _allocations(call)
+    assert code == 0 and allocated == 0
+    again = hopper_norm.per_scan_zscore(vol, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out, hopper_norm.per_scan_zscore(vol, mask))
+    _check_zscore(out, _zscore_plain(vol, mask))
+
+
+def test_zscore_mask_other_than_zero_and_one(device):
+    """A mask holding values other than 0 and 1 (here 0.5 and -0.0) is read
+    again for the output, as the plain version multiplies by it."""
+    vol, mask = _scans("normal", 2, GRID, seed=26, device=device)
+    mask.view(2, -1)[0, ::7] = 0.5
+    mask.view(2, -1)[1, ::11] = -0.0
+    got = hopper_norm.per_scan_zscore(vol, mask)
+    want = _zscore_plain(vol, mask)
+    torch.cuda.synchronize()
+    _check_zscore(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5), (100, 100, 100)],
+                         ids=["30", "1e6"])
+def test_zscore_tiny_and_large_scans(device, shape):
+    """Thirty voxels (most of the cluster's 16 blocks get none) and a
+    million: the same one launch, as exact."""
+    vol, mask = _scans("normal", 3, shape, seed=27, device=device)
+    _check_zscore(hopper_norm.per_scan_zscore(vol, mask),
+                  _zscore_plain(vol, mask))
 
 
 def test_zscore_degenerate_scans(device):
@@ -374,6 +522,78 @@ def test_bn_kernels_on_a_misaligned_view(device):
     assert torch.equal(hopper_bn.bn_dx(g, x, c, c, c, red),
                        hopper_bn.bn_dx_plain(g3, x3, c, c, c,
                                              red).reshape(shape))
+
+
+BF16_SHAPES = {k: BN_SHAPES[k] for k in
+               ("stem", "layer1", "layer2", "layer3", "layer4", "odd")}
+
+
+def _bf16_operands(shape, device, seed=0, offset=0):
+    """bf16 x and g; ``offset`` elements into a larger buffer, so the
+    operands start that many bf16 elements past a 16-byte boundary."""
+    x, g, scale, bias = _bn_operands(shape, device, seed)
+    n = x.numel()
+    xs = torch.empty(n + offset, dtype=torch.bfloat16, device=device)
+    gs = torch.empty(n + offset, dtype=torch.bfloat16, device=device)
+    xs[offset:] = x.reshape(-1)
+    gs[offset:] = g.reshape(-1)
+    return (xs[offset:].view(shape), gs[offset:].view(shape), scale, bias)
+
+
+def _check_bn_bf16(x, g, scale, bias):
+    x3, g3 = _rows(x), _rows(g)
+    xf, gf = x3.float(), g3.float()
+    sums = hopper_bn.bn_stats(x)
+    _check_sums(sums, hopper_bn.bn_stats_plain(x3),
+                torch.stack([xf.abs().sum((0, 2)), (xf * xf).sum((0, 2))]))
+    n = x.numel() // x.shape[1]
+    mean = sums[0] / n
+    inv = torch.rsqrt(sums[1] / n - mean * mean + 1e-5)
+    y = hopper_bn.bn_apply(x, mean, inv, scale, bias)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, hopper_bn.bn_apply_plain(x3, mean, inv, scale,
+                                                   bias).reshape(x.shape))
+    red_sums = hopper_bn.bn_grad_sum(g, x, mean, inv)
+    xhat = (xf - mean[None, :, None]) * inv[None, :, None]
+    _check_sums(red_sums, hopper_bn.bn_grad_sum_plain(g3, x3, mean, inv),
+                torch.stack([gf.abs().sum((0, 2)),
+                             (gf * xhat).abs().sum((0, 2))]))
+    red = red_sums / n
+    dx = hopper_bn.bn_dx(g, x, mean, inv, scale, red)
+    assert dx.dtype == torch.bfloat16
+    assert torch.equal(dx, hopper_bn.bn_dx_plain(g3, x3, mean, inv, scale,
+                                                 red).reshape(x.shape))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", sorted(BF16_SHAPES))
+def test_bn_kernels_match_plain_in_bfloat16(device, name):
+    """bf16 activations: sums within 1e-6 of the sum of magnitudes of the
+    bf16 values (both add the same values in f32, in other orders), apply
+    and dx equal (f32 arithmetic, one rounding to bf16). At the stem a bf16
+    row is 232,760 bytes, so every other row starts off a 16-byte
+    boundary."""
+    before = dict(hopper_bn.LAUNCHES)
+    _check_bn_bf16(*_bf16_operands(BF16_SHAPES[name], device, seed=11))
+    assert {k: hopper_bn.LAUNCHES[k] - before[k] for k in before} == \
+        dict.fromkeys(before, 1)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 4])
+def test_bn_kernels_in_bfloat16_off_a_16_byte_boundary(device, offset):
+    """bf16 operands 2, 6 and 8 bytes past a 16-byte boundary: element
+    heads and tails around the 16-byte chunks of every row."""
+    _check_bn_bf16(*_bf16_operands(BN_SHAPES["layer1"], device, seed=12,
+                                   offset=offset))
+
+
+def test_bn_kernels_refuse_mixed_activation_dtypes(device):
+    x = torch.randn(2, 4, 27, device=device)
+    c = torch.ones(4, device=device)
+    with pytest.raises(TypeError, match="dtypes"):
+        hopper_bn.bn_grad_sum(x.bfloat16(), x, c, c)
+    with pytest.raises(TypeError, match="float32 statistics"):
+        hopper_bn.bn_apply(x.bfloat16(), c.bfloat16(), c, c, c)
 
 
 @pytest.mark.parametrize("name", ["stem", "layer4"])

@@ -124,3 +124,51 @@ def test_zscore_takes_no_other_device():
     vol = torch.empty((2,) + SHAPE, device="meta")
     with pytest.raises(ValueError, match="meta"):
         hopper_norm.per_scan_zscore(vol, vol)
+
+
+# K3 (csrc/zscore_norm.cu, zscore_kernel) walked in numpy: one cluster of
+# 16 blocks per scan, each block's stretch, its partial, the merge over the
+# cluster in rank order, the apply over each stretch.
+CLUSTER_BLOCKS = 16
+
+
+def _walk_cluster(vol, mask):
+    b, n = vol.shape[0], vol[0].size
+    per = (-(-n // CLUSTER_BLOCKS) + 3) // 4 * 4
+    vols, masks = vol.reshape(b, n), mask.reshape(b, n)
+    out = np.empty((b, n), np.float32)
+    for s in range(b):
+        vals = (vols[s] * masks[s]).astype(np.float64)
+        stretches = [(min(r * per, n), min(min(r * per, n) + per, n))
+                     for r in range(CLUSTER_BLOCKS)]
+        assert sum(hi - lo for lo, hi in stretches) == n  # each voxel once
+        parts = []
+        for lo, hi in stretches:
+            x = vals[lo:hi]
+            ok = x != 0
+            parts.append((ok.sum(), x[ok].sum(), (x[ok] ** 2).sum()))
+        c = a = q = 0.0
+        for pc, pa, pq in parts:  # rank order
+            c, a, q = c + pc, a + pa, q + pq
+        mean = a / c if c else np.nan
+        var = max((q - a * mean) / max(c - 1.0, 1.0), 0.0)
+        for lo, hi in stretches:
+            out[s, lo:hi] = ((vols[s, lo:hi] - np.float32(mean))
+                             / np.float32(np.sqrt(var)) * masks[s, lo:hi])
+    return out.reshape(vol.shape)
+
+
+@pytest.mark.parametrize("batch,shape", [(1, (2, 3, 5)), (3, (7, 5, 3)),
+                                         (4, SHAPE), (2, (31, 29, 23))])
+def test_cluster_walk_matches_plain(batch, shape):
+    """N from 30 (most blocks get no voxel) to 20677."""
+    vol, mask = _scans(400.0, batch=batch, seed=batch, shape=shape)
+    if batch > 2:
+        mask[1] = 0.0
+    got = _walk_cluster(vol, mask)
+    want = hopper_norm.zscore_plain(
+        torch.from_numpy(vol.reshape(batch, -1)),
+        torch.from_numpy(mask.reshape(batch, -1))).numpy().reshape(vol.shape)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-5, atol=1e-5)
