@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: MRI serving, training and
-the entry points from NIfTI files on disk, and the PET family with the stem
-max-pool backward kernel.
+the entry points from NIfTI files on disk, the PET family with the stem
+max-pool backward kernel, TabPFN and the stage-2 fusions.
 
     python3 chip_smoke.py
 
@@ -84,11 +84,34 @@ Phases, each printing its lines:
  16. the PET entry points on phase 15's split: train_pet_cnn.train and
      train_pet_resnet_cnn.train for one epoch each and test_pet_cnn.main()
      on the best train_pet_cnn checkpoint, with finite metrics, the
-     checkpoints loaded back, and the PET training rows counted by class.
+     checkpoints loaded back, and the PET training rows counted by class;
+ 17. TabPFN at the width of tabpfn's published checkpoint (12 layers,
+     emsize 512, nhid 1024, 100 features) on random weights, 1000 train and
+     200 test rows of 9 features and 3 classes, 4 members: the port's
+     predict_proba and embed on the card against a replica of the reference
+     module built here from nn.TransformerEncoder (converted with
+     convert_state_dict) and against the port on the CPU, both f32 with
+     TF32 off, within 1e-4 of max(1, |ref|); bf16 against f32 (probabilities
+     within 1e-2, the tap within 5e-2 of its largest value); the ms of
+     fit + predict_proba + embed;
+ 18. the full-width TabularMRIFusion train step (ResNet-18 tower with
+     fused_bn="full", TabularMLP (256, 1024), batch 8 of raw scans min-max
+     normalised in the step) in f32 and bf16, frozen and unfrozen: K1 1, K2
+     1, K4 and K5 20 each, K6 and K7 0 frozen and 20 unfrozen per step,
+     finite loss, nonzero head gradients, frozen tower parameters unchanged
+     while every running statistic moves; step ms; then one step fed
+     phase 17's TabPFN embeddings as 'tabular_embedding';
+ 19. one full-width step each of AnatPETFusion and PETTabularFusion;
+ 20. on phase 15's split: train_tabular.train and test_tab.main() (the MLP
+     checkpoint, and a depth-2 random-weight TabPFN checkpoint refit in
+     context), the three stage-2 train() from the train_anat, train_pet_cnn
+     and tabular checkpoints (K2 once per train and validation batch in the
+     MRI ones; frozen towers kept) and their test mains.
 The kernels line before the last lists every kernel with the launches of
 the path that ran it, its error against its plain version, its device time,
 per-call time, plain and library time and bound; K4-K7 also per shape and
-in bfloat16 (launches from the bf16 "full" step). Any failed check raises,
+in bfloat16 (launches from the bf16 "full" step); K1-K7 also the f32
+fusion step's launches, frozen and unfrozen ("launches_fusion"). Any failed check raises,
 so the script exits non-zero without printing its last line,
 {"ok": true, "device": {...}}. It needs one card and imports the
 port only, and neither pandas, yaml nor the plotting packages: no confusion
@@ -102,6 +125,7 @@ import copy
 import glob
 import json
 import math
+import operator
 import os
 import statistics
 import subprocess
@@ -125,12 +149,30 @@ from multimodal_alzheimer_tpu_torch.data.synthetic import (
 from multimodal_alzheimer_tpu_torch.inference import (
     harness,
     test_anat_cnn,
+    test_anat_pet_fusion,
+    test_mri_tab_fusion,
     test_pet_cnn,
+    test_pet_tab_fusion,
+    test_tab,
 )
 from multimodal_alzheimer_tpu_torch.inference.predictor import Predictor
 from multimodal_alzheimer_tpu_torch.inference.server import BatchingServer
 from multimodal_alzheimer_tpu_torch.losses.classification import (
     make_criterion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models import (
+    train_anat_pet_fusion,
+    train_mrt_tabular_fusion,
+    train_pet_tabular_fusion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.anat_pet_fusion import (
+    AnatPETFusion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.pet_tabular_fusion import (
+    PETTabularFusion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.tabular_mri_fusion import (
+    TabularMRIFusion,
 )
 from multimodal_alzheimer_tpu_torch.models.layers import FusedBatchNorm
 from multimodal_alzheimer_tpu_torch.models.mri_models import train_anat_cnn
@@ -144,6 +186,18 @@ from multimodal_alzheimer_tpu_torch.models.pet_models.pet_cnn import (
 )
 from multimodal_alzheimer_tpu_torch.models.pet_models.pet_resnet_cnn import (
     PETResNetCNN,
+)
+from multimodal_alzheimer_tpu_torch.models.tabular_models import train_tabular
+from multimodal_alzheimer_tpu_torch.models.tabular_models.tabpfn import (
+    TabPFNClassifier,
+    TabPFNTransformer,
+    _preprocess,
+    convert_state_dict,
+    model_from_state_dict,
+)
+from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
+    TabularMLP,
+    compute_feature_stats,
 )
 from multimodal_alzheimer_tpu_torch.ops import (
     _native,
@@ -175,10 +229,14 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     time_norm,
     time_pool,
 )
-from multimodal_alzheimer_tpu_torch.train.checkpoint import load_checkpoint
+from multimodal_alzheimer_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
 from multimodal_alzheimer_tpu_torch.train.driver import (
     attach_class_weights,
     build_datasets,
+    fusion_optimizer,
     run_training,
 )
 from multimodal_alzheimer_tpu_torch.train.logging import ExperimentLogger
@@ -192,6 +250,7 @@ from multimodal_alzheimer_tpu_torch.train.state import (
     TrainState,
     make_train_step,
 )
+from multimodal_alzheimer_tpu_torch.utils.path_config import load_path_config
 from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
 
 GRID = (91, 109, 91)
@@ -294,6 +353,40 @@ PET_TRIAL = {"learning_rate": 1e-4, "conv_out": "(8, 16, 32)",
              "linear_out": 64, "batch_size": 8, "dropout_conv": True,
              "dropout_conv_p": 0.1, "dropout_dense": True,
              "dropout_dense_p": 0.3, "fl_gamma": None}
+
+# TabPFN at the width of tabpfn's published prior-fitted checkpoint (the
+# JAX defaults, tabpfn.py:111-117), on a seeded table of 1000 train and 200
+# test rows of 9 features and 3 classes, 4 ensemble members (the fusion's,
+# train_mrt_tabular_fusion.py:1-3).
+TABPFN_WIDTH = {"emsize": 512, "nhead": 4, "nhid": 1024, "nlayers": 12,
+                "n_out": 10, "max_features": 100}
+TABPFN_DATA = {"n_train": 1000, "n_test": 200, "n_features": 9,
+               "n_classes": 3, "ensemble_size": 4}
+# The replica's decoder[2] weights are scaled by this, so the random model's
+# class probabilities spread instead of sitting at 1/3.
+TABPFN_LOGIT_SCALE = 4.0
+# The port on the card against the replica of the reference module on the
+# card (float32, TF32 off) and against the port on the CPU: probabilities
+# and the decoder tap within TABPFN_TOL * max(1, largest |reference|), some
+# hundred float32 roundings of the largest value, which 12 post-norm
+# layers and 1200-term attention sums summed in other orders stay within.
+TABPFN_TOL = 1e-4
+# bf16 compute against f32, same weights and rows: probabilities within
+# 1e-2, the decoder tap within 5e-2 of the largest |f32 tap| (bf16 keeps 8
+# significant bits, about 4e-3 relative; twelve layers compound it).
+TABPFN_BF16_TOL = {"probs": 1e-2, "decoder": 5e-2}
+# The full-width MRI+tabular fusion step: the flagship ResNet-18 tower with
+# fused_bn="full" and the TabularMLP (256, 1024) tower, batch 8 of raw scans
+# min-max normalised in the step; frozen (lr_pretrained None) and unfrozen.
+FUSION_HPARAMS = {"n_classes": 2, "lr": 1e-3, "l2_reg": 1e-2,
+                  "loss_class_weights": [0.5, 0.5]}
+TAB_HPARAMS = {"n_classes": 2, "hidden": (256, 1024), "dropout_p": 0.0}
+# The fusion entry points on the entry split: (lr_pretrained, batch size)
+# of each. The PET+tabular loaders drop the last partial batch, and the
+# split's binary PET+tabular validation rows are 3 at 91x109x91: its batch
+# is at most as many as those rows.
+FUSION_ENTRY = {"mri_tab": (None, 8), "anat_pet": (1e-5, 8),
+                "pet_tab": (None, 3)}
 
 
 def log(msg: str) -> None:
@@ -1255,9 +1348,10 @@ def entry_split(grid=GRID):
             os.environ.pop("MMALZ_DATA_DIR", None)
 
 
-def phase_entry_points(device, root) -> dict:
+def phase_entry_points(device, root) -> tuple:
     """train_anat, a z-score run_training and test_anat_cnn.main() on the
-    split in ``root`` (the CWD); returns each path's launch counts."""
+    split in ``root`` (the CWD); returns each path's launch counts and the
+    train_anat checkpoint."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     launches = {}
@@ -1357,7 +1451,7 @@ def phase_entry_points(device, root) -> dict:
         f"{metrics['test_f1_epoch_boot']:.4f} +- "
         f"{metrics['test_f1_epoch_ci']:.4f}), confusion counts "
         f"{counts}, launches {launches['test']}")
-    return launches
+    return launches, best[0]
 
 
 def phase_maxpool(device, shape=STEM) -> dict:
@@ -1510,10 +1604,10 @@ def phase_small_pet_step(device, grid=GRID, timed_steps: int = 3) -> float:
     return ms
 
 
-def phase_pet_entry_points(device, root) -> dict:
+def phase_pet_entry_points(device, root) -> tuple:
     """train_pet_cnn.train, train_pet_resnet_cnn.train and
     test_pet_cnn.main() on the split in ``root`` (the CWD); returns each
-    one's seconds."""
+    one's seconds and the train_pet_cnn checkpoint."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     hp = train_pet_cnn.sample_hparams(FixedTrial(PET_TRIAL), n_classes=2)
@@ -1577,6 +1671,482 @@ def phase_pet_entry_points(device, root) -> dict:
         f"{seconds['test_pet_cnn']:.2f} s, test loss "
         f"{metrics['test_loss_epoch']:.6f}, F1 {metrics['test_f1_epoch']:.4f}"
         f", confusion counts {confusion}")
+    return seconds, best["train_pet_cnn"][0]
+
+
+class ReferenceTabPFN(torch.nn.Module):
+    """Replica of the tabpfn TransformerModel whose ``model[2]`` state dict
+    the reference saves (tabular_models/dl_approach.py:44), built from
+    torch's own modules as tests/test_tabpfn.py:25 builds it: Linear
+    ``encoder`` and ``y_encoder``, a ``transformer_encoder`` of post-norm
+    GELU layers under the PFN mask, the ``decoder`` Sequential; one
+    sequence, sequence-first."""
+
+    def __init__(self, emsize, nhead, nhid, nlayers, n_out, max_features):
+        super().__init__()
+        nn = torch.nn
+        self.encoder = nn.Linear(max_features, emsize)
+        self.y_encoder = nn.Linear(1, emsize)
+        layer = nn.TransformerEncoderLayer(emsize, nhead, nhid, dropout=0.0,
+                                           activation="gelu")
+        self.transformer_encoder = nn.TransformerEncoder(
+            layer, nlayers, enable_nested_tensor=False)
+        self.decoder = nn.Sequential(nn.Linear(emsize, nhid), nn.GELU(),
+                                     nn.Linear(nhid, n_out))
+
+    def forward(self, x, y_train, n_train: int):
+        """(the test rows' logits, their ``decoder[0]`` activations)"""
+        src = self.encoder(x)
+        src = torch.cat([src[:n_train] + self.y_encoder(y_train[:, None]),
+                         src[n_train:]])
+        cols = torch.arange(x.shape[0], device=x.device)
+        allowed = (cols[None, :] < n_train) | (cols[None, :] == cols[:, None])
+        mask = torch.zeros(allowed.shape, device=x.device).masked_fill(
+            ~allowed, float("-inf"))
+        out = self.transformer_encoder(src.unsqueeze(1), mask=mask)
+        dec = self.decoder[0](out.squeeze(1)[n_train:])
+        return self.decoder[2](self.decoder[1](dec)), dec
+
+
+def tabpfn_table(seed: int):
+    """A seeded table: (x_train, y_train, x_test, y_test), features with a
+    class signal, one of them on an age-like scale."""
+    d = TABPFN_DATA
+    n_train = d["n_train"]
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, d["n_classes"], n_train + d["n_test"])
+    x = rng.normal(size=(len(y), d["n_features"])) + 0.5 * y[:, None]
+    x[:, 0] = 70.0 + 8.0 * x[:, 0]
+    x = x.astype(np.float32)
+    return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+
+
+def reference_ensemble(replica, clf, x_test, device):
+    """The members' mean probabilities and decoder tap through the replica,
+    one call per member as the reference loops them (dl_approach.py:71-78),
+    with the classifier's rotations and preprocessing."""
+    x_all = torch.cat([clf.x_train, torch.from_numpy(x_test).to(device)])
+    n_train, n_used = clf.x_train.shape[0], x_all.shape[1]
+    n_c = len(clf.classes_)
+    probs, decs = [], []
+    with torch.inference_mode():
+        for c, f in zip(clf.class_shifts.tolist(),
+                        clf.feature_shifts.tolist()):
+            cols = (torch.arange(n_used, device=device) + f) % n_used
+            xs = _preprocess(x_all[:, cols], n_train, n_used,
+                             TABPFN_WIDTH["max_features"])
+            logits, dec = replica(xs, (clf.y_train + c) % n_c, n_train)
+            p = torch.softmax(logits[:, :n_c], dim=-1)
+            probs.append(p[:, (torch.arange(n_c, device=device) + c) % n_c])
+            decs.append(dec)
+    return (torch.stack(probs).mean(0).cpu().numpy(),
+            torch.stack(decs).mean(0).cpu().numpy())
+
+
+def _gap(got, want) -> float:
+    """max |got - want| / max(1, max |want|)"""
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / max(1.0, float(np.abs(want).max())))
+
+
+def phase_tabpfn(device, timed_runs: int = 3) -> dict:
+    """TabPFN at its published width on random weights: the port's
+    classifier on the card against the replica of the reference module and
+    against the port on the CPU (float32, TF32 off), bf16 against f32, and
+    the ms of fit + predict_proba + embed; returns the f32 embeddings."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = TABPFN_DATA
+    torch.manual_seed(SEED + 12)
+    replica = ReferenceTabPFN(**TABPFN_WIDTH)
+    with torch.no_grad():  # spread the class probabilities
+        replica.decoder[2].weight.mul_(TABPFN_LOGIT_SCALE)
+    converted = convert_state_dict(replica.state_dict())
+    replica = replica.to(device).eval()
+    x_tr, y_tr, x_te, y_te = tabpfn_table(SEED + 13)
+    runs = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        clf = TabPFNClassifier(
+            state_dict=converted,
+            model=model_from_state_dict(converted, dtype=dtype),
+            ensemble_size=d["ensemble_size"], device=device)
+        times = []
+        for _ in range(timed_runs + 1):  # the first one warms up
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            clf.fit(x_tr, y_tr)
+            probs = clf.predict_proba(x_te)
+            emb = clf.embed(x_te)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        runs[name] = (clf, probs, emb, statistics.median(times[1:]) * 1e3)
+    clf, probs, emb, ms = runs["f32"]
+    check(probs.shape == (d["n_test"], d["n_classes"])
+          and emb.shape == (d["n_test"], TABPFN_WIDTH["nhid"])
+          and np.isfinite(probs).all() and np.isfinite(emb).all(),
+          f"TabPFN outputs {probs.shape} {emb.shape}, finite")
+    check(np.abs(probs.sum(-1) - 1.0).max() < 1e-5, "probabilities sum to 1")
+    gaps = {}
+    ref_probs, ref_dec = reference_ensemble(replica, clf, x_te, device)
+    gaps["replica probs"] = _gap(probs, ref_probs)
+    gaps["replica decoder"] = _gap(emb, ref_dec)
+    cpu = TabPFNClassifier(state_dict=converted,
+                           model=model_from_state_dict(converted),
+                           ensemble_size=d["ensemble_size"],
+                           device="cpu").fit(x_tr, y_tr)
+    start = time.perf_counter()
+    cpu_probs, cpu_emb = cpu.predict_proba(x_te), cpu.embed(x_te)
+    cpu_s = time.perf_counter() - start
+    gaps["cpu probs"] = _gap(probs, cpu_probs)
+    gaps["cpu decoder"] = _gap(emb, cpu_emb)
+    for what, gap in gaps.items():
+        check(gap <= TABPFN_TOL, f"TabPFN {what}: {gap:.3g} > {TABPFN_TOL}")
+    _, bf_probs, bf_emb, bf_ms = runs["bf16"]
+    bf_gap = {"probs": float(np.abs(bf_probs - probs).max()),
+              "decoder": float(np.abs(bf_emb - emb).max()
+                               / np.abs(emb).max())}
+    for what, gap in bf_gap.items():
+        check(np.isfinite(gap) and gap <= TABPFN_BF16_TOL[what],
+              f"TabPFN bf16 {what} {gap:.3g} > {TABPFN_BF16_TOL[what]}")
+    accuracy = float((clf.classes_[probs.argmax(1)] == y_te).mean())
+    log(f"[tabpfn] {TABPFN_WIDTH}, {d}: fit + predict_proba + embed median "
+        f"{ms:.2f} ms f32, {bf_ms:.2f} ms bf16 (of {timed_runs} after a "
+        f"warm-up); against the replica and the CPU (relative to max(1, "
+        f"|ref|), tolerance {TABPFN_TOL}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f"; bf16 against f32: probs {bf_gap['probs']:.3g}, decoder "
+        f"{bf_gap['decoder']:.3g} of max |tap| (tolerance {TABPFN_BF16_TOL}"
+        f"); CPU predict_proba + embed {cpu_s:.2f} s; winning probability "
+        f"{probs.max(1).min():.3f} to {probs.max(1).max():.3f}, test "
+        f"accuracy {accuracy:.3f} (random weights)")
+    return {"embed": emb, "ms": ms, "bf16_ms": bf_ms}
+
+
+def fusion_batch(modalities, grid, seed: int, device) -> tuple:
+    """(a batch of 8 raw samples of both classes on the device, feature
+    statistics of its tabular rows or None)"""
+    data = make_labeled_volumes(8, tuple(grid), n_classes=2, seed=seed,
+                                modalities=modalities)
+    data["label"] = (np.arange(8) % 2).astype(np.int32)
+    stats = (compute_feature_stats(data["tabular"])
+             if "tabular" in data else None)
+    return {k: torch.from_numpy(v).to(device) for k, v in data.items()}, stats
+
+
+def _tower_changes(before: dict, after: dict, towers) -> tuple:
+    """(parameters kept, parameters in all, running statistics moved,
+    running statistics in all) of the towers' state dict entries."""
+    keys = [k for k in before if k.split(".")[0] in towers]
+    stats = [k for k in keys if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in keys if k not in stats]
+    return (sum(torch.equal(after[k], before[k]) for k in params),
+            len(params),
+            sum(not torch.equal(after[k], before[k]) for k in stats),
+            len(stats))
+
+
+def phase_fusion_step(device, embeddings, grid=GRID,
+                      timed_steps: int = 3) -> dict:
+    """The full-width TabularMRIFusion train step (ResNet-18 tower with
+    fused_bn="full", TabularMLP (256, 1024), batch 8 of raw scans min-max
+    normalised in the step) in f32 and bf16, frozen and unfrozen, with its
+    launch counts, then one step fed phase 1's TabPFN embeddings; returns
+    the f32 steps' launch counts."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, (mean, std) = fusion_batch(("mri", "tabular"), grid, SEED + 14,
+                                      device)
+    tab_hp = dict(TAB_HPARAMS, feature_mean=mean, feature_std=std)
+    preprocess = make_device_preprocess(normalize_mri=MINMAX,
+                                        quantile=QUANTILE)
+    heads = train_mrt_tabular_fusion.HEAD_NAMES
+    towers = ("mri_model", "tab_model")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for frozen in (True, False):
+            hp = dict(FUSION_HPARAMS, lr_pretrained=None if frozen else 1e-5)
+            gen = make_generator(SEED)
+            model = TabularMRIFusion(
+                2, AnatCNN.from_hparams(TRAIN_HPARAMS, fused_bn="full",
+                                        freeze_backbone=False, dtype=dtype,
+                                        generator=gen),
+                TabularMLP.from_hparams(tab_hp, dtype=dtype, generator=gen),
+                freeze_towers=frozen, dtype=dtype, generator=gen).to(device)
+            optimizer = fusion_optimizer(hp, heads, model)
+            step = make_train_step(model, make_criterion(hp), optimizer,
+                                   preprocess)
+            state = TrainState(model, optimizer)
+            before = {k: v.clone() for k, v in model.state_dict().items()}
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            state, aux = step(state, batch)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            loss = aux["loss"].item()
+            backward = 0 if frozen else BN_LAYERS
+            want = {"minmax_select": 1, "minmax_apply": 1, "zscore": 0,
+                    "maxpool_bwd": 0, "bn_stats": BN_LAYERS,
+                    "bn_apply": BN_LAYERS, "bn_grad_sum": backward,
+                    "bn_dx": backward}
+            what = (f"TabularMRIFusion {str(dtype)[6:]} "
+                    f"{'frozen' if frozen else 'unfrozen'}")
+            check(launches == want, f"{what} launches {launches} == {want}")
+            check(np.isfinite(loss), f"{what}: finite loss {loss}")
+            head_norms = [p.grad.norm().item()
+                          for n, p in model.named_parameters()
+                          if n.split(".")[0] in heads]
+            check(all(np.isfinite(v) and v > 0 for v in head_norms),
+                  f"{what}: nonzero head gradients {head_norms}")
+            kept, n_params, moved, n_stats = _tower_changes(
+                before, model.state_dict(), towers)
+            check(moved == n_stats == 2 * BN_LAYERS,
+                  f"{what}: {moved} of {n_stats} running statistics moved")
+            check(kept == n_params if frozen else kept < n_params // 10,
+                  f"{what}: {kept} of {n_params} tower parameters kept")
+            ms = _timed_steps(step, state, batch, timed_steps)
+            out[(dtype, frozen)] = launches
+            log(f"[fusion step] {what}, batch 8 at {grid}: loss {loss}, "
+                f"median {ms:.2f} ms over {timed_steps} steps, launches "
+                f"{launches}; tower parameters kept {kept}/{n_params}, "
+                f"running statistics moved {moved}/{n_stats}")
+            if dtype == torch.float32 and frozen:
+                emb = torch.from_numpy(embeddings[:8]).to(device)
+                captured = {}
+                hook = model.tab_model.register_forward_hook(
+                    lambda m, args, result: captured.update(
+                        decoder=result["embeddings"]["decoder"]))
+                reset_launch_counts()
+                state, aux = step(state, dict(batch, tabular_embedding=emb))
+                torch.cuda.synchronize()
+                hook.remove()
+                check(torch.equal(captured["decoder"], emb),
+                      "the TabPFN embeddings are the tabular tap")
+                check(np.isfinite(aux["loss"].item())
+                      and launch_counts() == want,
+                      f"the embedding step: loss {aux['loss'].item()}, "
+                      f"launches {launch_counts()}")
+                log(f"[fusion step] the same step fed TabPFN's 1024-d "
+                    f"embeddings (tabular_embedding): loss "
+                    f"{aux['loss'].item()}, launches {launch_counts()}")
+            del model, optimizer, step, state, aux, before
+    return {"frozen": out[(torch.float32, True)],
+            "unfrozen": out[(torch.float32, False)]}
+
+
+def phase_fusion_pair_steps(device, grid=GRID, timed_steps: int = 3) -> dict:
+    """One full-width step each of AnatPETFusion (ResNet-18 and SmallPETCNN
+    towers unfrozen, min-max and PET z-score in the step) and
+    PETTabularFusion (towers frozen, simple_dim_red); returns the step
+    ms."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pet_hp = train_pet_cnn.sample_hparams(FixedTrial(PET_TRIAL), n_classes=2)
+    zero = dict.fromkeys(launch_counts(), 0)
+    out = {}
+    for name in ("anat_pet", "pet_tab"):
+        gen = make_generator(SEED)
+        if name == "anat_pet":
+            batch, _ = fusion_batch(("mri", "pet1451"), grid, SEED + 15,
+                                    device)
+            hp = dict(FUSION_HPARAMS, lr_pretrained=1e-5)
+            model = AnatPETFusion.from_hparams(hp, pet_hp, TRAIN_HPARAMS,
+                                               generator=gen)
+            preprocess = make_device_preprocess(PET_NORM, MINMAX, QUANTILE)
+            heads = train_anat_pet_fusion.HEAD_NAMES
+            want = dict(zero, minmax_select=1, minmax_apply=1)
+        else:
+            batch, (mean, std) = fusion_batch(("pet1451", "tabular"), grid,
+                                              SEED + 16, device)
+            hp = dict(FUSION_HPARAMS, lr_pretrained=None,
+                      simple_dim_red=True)
+            model = PETTabularFusion.from_hparams(
+                hp, pet_hp, dict(TAB_HPARAMS, feature_mean=mean,
+                                 feature_std=std), generator=gen)
+            preprocess = make_device_preprocess(normalize_pet=PET_NORM)
+            heads = train_pet_tabular_fusion.HEAD_NAMES
+            want = zero
+        model.to(device)
+        optimizer = fusion_optimizer(hp, heads, model)
+        step = make_train_step(model, make_criterion(hp), optimizer,
+                               preprocess, make_generator(SEED, device))
+        state = TrainState(model, optimizer)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        loss = aux["loss"].item()
+        check(np.isfinite(loss) and launches == want,
+              f"{name} step: loss {loss}, launches {launches} == {want}")
+        out[name] = _timed_steps(step, state, batch, timed_steps)
+        log(f"[fusion step] {type(model).__name__} "
+            f"({'unfrozen' if hp['lr_pretrained'] else 'frozen'}), batch 8 "
+            f"at {grid}: loss {loss}, median {out[name]:.2f} ms over "
+            f"{timed_steps} steps, launches {launches}")
+        del model, optimizer, step, state, aux
+    return out
+
+
+# A fixed trial for train_tabular.sample_hparams: the (256, 1024) MLP.
+TAB_TRIAL = {"lr": 1e-3, "batch_size": 16, "hidden": "(256, 1024)",
+             "dropout_p": 0.1, "l2_reg": 1e-3, "fl_gamma": None}
+
+
+def _fusion_trial(lr_pretrained) -> FixedTrial:
+    return FixedTrial({"lr": 1e-3, "freeze": lr_pretrained is None,
+                       "lr_pretrained": lr_pretrained, "batch_size": 8,
+                       "l2_reg": 1e-2, "fl_gamma": None,
+                       "simple_dim_red": True})
+
+
+def phase_fusion_entry_points(device, root, mri_checkpoint: str,
+                              pet_checkpoint: str) -> dict:
+    """train_tabular.train and test_tab.main() (the MLP checkpoint and a
+    random-weight TabPFN checkpoint at depth 2, refit in context), the
+    three stage-2 train() from the MRI, PET and tabular checkpoints, and
+    their test mains, on the split in ``root`` (the CWD); returns each
+    one's seconds."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    zero = dict.fromkeys(launch_counts(), 0)
+    seconds = {}
+
+    hp = train_tabular.sample_hparams(FixedTrial(TAB_TRIAL), n_classes=2)
+    hp["max_epochs"] = 1
+    reset_launch_counts()
+    start = time.perf_counter()
+    last = train_tabular.train(hp, "chip_smoke_tabular",
+                               log_confusion_images=False, device=device)
+    torch.cuda.synchronize()
+    seconds["train_tabular"] = time.perf_counter() - start
+    run_dir = os.path.join(root, train_tabular.LOG_DIRECTORY,
+                           "chip_smoke_tabular", "version_0")
+    record = _epoch_record(run_dir)
+    check(record["val_loss_epoch"] == last and launch_counts() == zero,
+          f"train_tabular: val loss returned, launches {launch_counts()}")
+    tab_checkpoint = sorted(glob.glob(os.path.join(run_dir, "checkpoints",
+                                                   "*val_loss=*")))[0]
+    _load_back(tab_checkpoint, model_cls=TabularMLP)
+    tabpfn_checkpoint = os.path.join(root, "tabpfn_depth2")
+    save_checkpoint(tabpfn_checkpoint, TabPFNTransformer(
+        **dict(TABPFN_WIDTH, nlayers=2),
+        generator=make_generator(SEED)).state_dict(), {})
+    with open("path_config.yaml", "w") as f:
+        f.write("relative:\n"
+                "  test_set_csv: 'data/test_path_data_labels.csv'\n"
+                "  train_set_csv: 'data/train_path_data_labels.csv'\n"
+                f"tabular_mlp_2_class: '{tab_checkpoint}'\n"
+                f"tabpfn_2_class: '{tabpfn_checkpoint}'\n")
+    start = time.perf_counter()
+    results = test_tab.main(confusion_pngs=False, device=device)
+    torch.cuda.synchronize()
+    seconds["test_tab"] = time.perf_counter() - start
+    check(set(results) == {"tabular_mlp_2_class", "tabpfn_2_class"}
+          and all(np.isfinite(v) for r in results.values()
+                  for k, v in r.items() if k != "tabular_baseline_F1"),
+          f"finite test_tab metrics {results}")
+    log(f"[fusion entry] train_tabular.train: 1 epoch of "
+        f"{len(build_datasets(hp, ['tabular'])[0])} train rows at batch "
+        f"{hp['batch_size']}, {seconds['train_tabular']:.2f} "
+        f"s, val loss {last:.6f}; test_tab.main() {seconds['test_tab']:.2f} "
+        f"s: MLP F1 {results['tabular_mlp_2_class']['test_f1_epoch']:.4f}, "
+        f"TabPFN (depth 2, random weights, refit on the train split) F1 "
+        f"{results['tabpfn_2_class']['test_f1_epoch']:.4f}")
+
+    paths = {"path_mri": mri_checkpoint, "path_pet": pet_checkpoint,
+             "path_tabular": tab_checkpoint}
+    stage2 = (("mri_tab", train_mrt_tabular_fusion, test_mri_tab_fusion,
+               ("path_mri", "path_tabular"), ["tabular", "t1w"]),
+              ("anat_pet", train_anat_pet_fusion, test_anat_pet_fusion,
+               ("path_pet", "path_mri"), ["pet1451", "t1w"]),
+              ("pet_tab", train_pet_tabular_fusion, test_pet_tab_fusion,
+               ("path_pet", "path_tabular"), ["pet1451", "tabular"]))
+    best = {}
+    for name, module, tester, keys, modalities in stage2:
+        lr_pretrained, batch = FUSION_ENTRY[name]
+        hp = module.sample_hparams(_fusion_trial(lr_pretrained), n_classes=2,
+                                   **{k: paths[k] for k in keys})
+        trainset, valset = build_datasets(dict(hp, n_classes=2), modalities)
+        check(not np.isnan(trainset.get_label_distribution()[0]).any(),
+              f"{name}: both classes in the training rows")
+        count = _batches
+        if name == "pet_tab":  # its loaders drop the last partial batch
+            batch, count = min(batch, len(valset)), operator.floordiv
+        hp.update(max_epochs=1, batch_size=batch)
+        steps, val_batches = count(len(trainset), batch), count(len(valset),
+                                                                batch)
+        reset_launch_counts()
+        start = time.perf_counter()
+        last = module.train(hp, f"chip_smoke_{name}",
+                            log_confusion_images=False, device=device)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        launches = launch_counts()
+        want = (dict(zero, minmax_apply=steps + val_batches)
+                if "t1w" in modalities else zero)
+        check(launches == want, f"{name} launches {launches} == {want}")
+        run_dir = os.path.join(root, module.LOG_DIRECTORY,
+                               f"chip_smoke_{name}", "version_0")
+        record = _epoch_record(run_dir)
+        check(record["val_loss_epoch"] == last, "val loss returned")
+        found = sorted(glob.glob(os.path.join(run_dir, "checkpoints",
+                                              "*val_loss=*")))
+        check(len(found) == 1, f"one val-loss checkpoint: {found}")
+        best[name] = found[0]
+        model, state_dict = tester.load_fusion(found[0])[:2]
+        model.load_state_dict(state_dict)
+        kept = []
+        for key in keys:
+            tower = {"path_mri": "mri_model", "path_pet": "pet_model",
+                     "path_tabular": "tab_model"}[key]
+            stage1, _, _ = load_checkpoint(paths[key])
+            kept.append(all(torch.equal(state_dict[f"{tower}.{k}"], v)
+                            for k, v in stage1.items()
+                            if "running" not in k))
+        check(all(kept) == (lr_pretrained is None),
+              f"{name}: tower parameters kept {kept}, lr_pretrained "
+              f"{lr_pretrained}")
+        log(f"[fusion entry] {module.__name__.rsplit('.', 1)[1]}.train "
+            f"({'frozen' if lr_pretrained is None else 'unfrozen'}): 1 "
+            f"epoch of {len(trainset)} train + {len(valset)} val rows at "
+            f"batch {batch}, {seconds[name]:.2f} s in all, epoch "
+            f"{record['epoch_time_s']:.2f} s, val loss {last:.6f}, launches "
+            f"{launches}")
+
+    with open("path_config.yaml", "w") as f:
+        f.write("relative:\n"
+                "  test_set_csv: 'data/test_path_data_labels.csv'\n"
+                f"mri_tab_2_class: '{best['mri_tab']}'\n"
+                f"pet_mri_2_class: '{best['anat_pet']}'\n"
+                f"pet_tab_2_class: '{best['pet_tab']}'\n")
+    n_test = len(harness.build_testset({"n_classes": 2}))
+    check(n_test > 0, "the paired three-modality test set has rows")
+    for name, _, tester, keys, modalities in stage2:
+        key = {"mri_tab": "mri_tab_2_class", "anat_pet": "pet_mri_2_class",
+               "pet_tab": "pet_tab_2_class"}[name]
+        batch = load_checkpoint(best[name])[1]["batch_size"]
+        reset_launch_counts()
+        start = time.perf_counter()
+        metrics = tester.main(confusion_pngs=False, device=device)[key]
+        torch.cuda.synchronize()
+        seconds[f"test_{name}"] = time.perf_counter() - start
+        launches = launch_counts()
+        want = (dict(zero, minmax_apply=_batches(n_test, batch))
+                if "t1w" in modalities else zero)
+        check(all(np.isfinite(v) for v in metrics.values())
+              and launches == want,
+              f"{key}: finite metrics {metrics}, launches {launches} == "
+              f"{want}")
+        with open(os.path.join("lightning_logs", f"test_set_{key}",
+                               "version_0", "confusion_matrix.json")) as f:
+            counts = json.load(f)["counts"]
+        check(sum(map(sum, counts)) == n_test,
+              f"confusion counts {counts} over {n_test} test rows")
+        log(f"[fusion entry] {tester.__name__.rsplit('.', 1)[1]}.main(): "
+            f"{n_test} paired test rows in {seconds[f'test_{name}']:.2f} s, "
+            f"test loss {metrics['test_loss_epoch']:.6f}, F1 "
+            f"{metrics['test_f1_epoch']:.4f}, launches {launches}")
     return seconds
 
 
@@ -1607,9 +2177,14 @@ def main() -> int:
     pool = phase_maxpool(device)
     pet_step = phase_pet_step(device)
     phase_small_pet_step(device)
+    tabpfn = phase_tabpfn(device)
+    fusion_launches = phase_fusion_step(device, tabpfn["embed"])
+    phase_fusion_pair_steps(device)
     with entry_split() as root:
-        entry_launches = phase_entry_points(device, root)
-        phase_pet_entry_points(device, root)
+        entry_launches, mri_checkpoint = phase_entry_points(device, root)
+        _, pet_checkpoint = phase_pet_entry_points(device, root)
+        phase_fusion_entry_points(device, root, mri_checkpoint,
+                                  pet_checkpoint)
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
     norm_bound = norm_bounds(8, int(np.prod(GRID)))
@@ -1625,6 +2200,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], "batch": 8,
+            "launches_fusion": {k: v[name] for k, v in
+                                fusion_launches.items()},
             "shape": [8, int(np.prod(GRID))], "ms": ms, "call_ms": per_call,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
@@ -1633,6 +2210,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": fit_launches[name],
+            "launches_fusion": {k: v[name] for k, v in
+                                fusion_launches.items()},
             "max_abs_err": err[name], "batch": 8,
             "shape": list(BN_SHAPES["stem"]),
             **{k: bn_times["stem"][name][k] for k in keys},

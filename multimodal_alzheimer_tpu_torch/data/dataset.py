@@ -1,6 +1,6 @@
 """MultiModalDataset: manifest CSV -> paired multimodal samples, no pandas.
 
-Port of ``multimodal_alzheimer_tpu/data/dataset.py:40-330`` (reference:
+Port of ``multimodal_alzheimer_tpu/data/dataset.py:40-380`` (reference:
 pkg/utils/dataloader.py:21-344) with the same constructor and semantics.
 ``__getitem__`` returns RAW volumes (and the brain mask under
 ``per_scan_norm``); normalisation runs on the device inside the step
@@ -294,3 +294,45 @@ class MultiModalDataset:
         counts = np.array([labels.count(k) or np.nan for k in order],
                           dtype=np.float64)
         return counts, counts / max(len(labels), 1)
+
+
+class TabularEmbeddingDataset:
+    """A dataset whose samples also carry a precomputed 'tabular_embedding'.
+
+    The reference's stage-2/3 fusions run the frozen TabPFN inside every
+    training step for its decoder activations (tabular_mri_fusion.py:58-76,
+    requires_grad=False at :29). A frozen model on a fixed row gives a
+    constant, so it is computed once per row and served as the
+    'tabular_embedding' batch key, which ``TabularMLP`` passes through to
+    the fusion heads exactly.
+
+    ``from_tabpfn`` takes a fitted ``TabPFNClassifier``; the constructor
+    any (len(base), d) array. Every other attribute (device preprocess,
+    label distribution, ``rows``) is the base dataset's.
+    """
+
+    def __init__(self, base, embeddings):
+        embeddings = np.asarray(embeddings, np.float32)
+        if len(embeddings) != len(base):
+            raise ValueError(
+                f"{len(embeddings)} embeddings for {len(base)} samples")
+        self.base = base
+        self.embeddings = embeddings
+
+    @classmethod
+    def from_tabpfn(cls, base, classifier) -> "TabularEmbeddingDataset":
+        x = np.stack([base[i]["tabular"] for i in range(len(base))])
+        return cls(base, classifier.embed(x.astype(np.float32)))
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        sample = dict(self.base[index])
+        sample["tabular_embedding"] = self.embeddings[index]
+        return sample
+
+    def __getattr__(self, name):
+        if name == "base":  # before __init__ ran (e.g. unpickling)
+            raise AttributeError(name)
+        return getattr(self.base, name)

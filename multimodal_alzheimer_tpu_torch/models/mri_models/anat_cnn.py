@@ -59,6 +59,7 @@ class AnatCNN(nn.Module):
             raise ValueError(
                 "hparams['resnet_depth'] is not in [10, 18, 34, 50]")
         self.n_classes = n_classes
+        self.feature_width = FEATURE_WIDTH[resnet_depth]  # backbone_gap's
         self.freeze_backbone = freeze_backbone
         self.input_key = input_key
         self.dtype = dtype

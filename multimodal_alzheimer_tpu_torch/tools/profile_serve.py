@@ -92,14 +92,16 @@ def union_ms(intervals) -> float:
     return total / 1e3
 
 
-def breakdown(trace: dict, calls: int) -> dict:
-    """Per-call host span, device busy time and time by kind."""
+def breakdown(trace: dict, calls: int, span: str = SPAN,
+              classify=kind) -> dict:
+    """Per-call host span, device busy time and time by kind
+    (``classify`` of each device event), over the ``span`` annotations."""
     events = trace["traceEvents"]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("name") == SPAN and e.get("cat") ==
+                   if e.get("name") == span and e.get("cat") ==
                    "user_annotation")
     if len(spans) != calls:
-        raise RuntimeError(f"found {len(spans)} '{SPAN}' spans, "
+        raise RuntimeError(f"found {len(spans)} '{span}' spans, "
                            f"expected {calls}")
     device = [e for e in events if e.get("cat") in DEVICE_CATS
               and "dur" in e]
@@ -113,7 +115,7 @@ def breakdown(trace: dict, calls: int) -> dict:
         host_ms.append((e - s) / 1e3)
         busy_ms.append(union_ms((a, b) for a, b, _ in inside))
         for a, b, d in inside:
-            k = kind(d)
+            k = classify(d)
             by_kind[k] = by_kind.get(k, 0.0) + (b - a) / 1e3
             by_name[d["name"]] = by_name.get(d["name"], 0.0) + (b - a) / 1e3
     kind_total = sum(by_kind.values())

@@ -9,6 +9,10 @@ reference's behaviours (SURVEY.md §5):
     outside config (``save_hyperparameters``, base_model.py:14).
 A checkpoint directory holds ``state.pt`` (the model's ``state_dict``),
 ``hparams.json`` and, when given, ``metrics.json``.
+
+``graft_params`` (``checkpoint.py:197``) loads stage-1 checkpoints into a
+fusion model's towers by submodule prefix. The stage-3 tower-duplicate
+helpers and the train-state resume wait for their slices.
 """
 
 from __future__ import annotations
@@ -116,3 +120,52 @@ class TopKCheckpointManager:
     @property
     def best_value(self) -> Optional[float]:
         return self.entries[0][0] if self.entries else None
+
+
+def graft_params(target: dict, grafts: dict) -> dict:
+    """Load pretrained submodule state dicts into a fusion model's.
+
+    Args:
+      target: the fusion model's ``state_dict``.
+      grafts: submodule path (e.g. 'pet_model'; nested with '/' or '.', e.g.
+        'model_anat_pet/pet_model') -> that submodule's ``state_dict`` from
+        a stage-1 checkpoint.
+
+    Returns a new state dict with those entries replaced. The entries under
+    each prefix must match the graft's names and shapes exactly; a mismatch
+    raises (the wiring faults the reference's ``load_state_dict`` would
+    mis-map quietly).
+    """
+    out = dict(target)
+    for sub_path, source in grafts.items():
+        prefix = sub_path.replace("/", ".") + "."
+        node = {k[len(prefix):]: v for k, v in out.items()
+                if k.startswith(prefix)}
+        if not node:
+            if _tree_size(source) == 0:
+                continue
+            raise ValueError(
+                f"{sub_path} not in the target state dict (have: "
+                f"{sorted({k.split('.')[0] for k in out})})")
+        _check_same_structure(node, source, sub_path)
+        for key, value in source.items():
+            out[prefix + key] = value
+    return out
+
+
+def _tree_size(state_dict: dict) -> int:
+    return len(state_dict)
+
+
+def _check_same_structure(a: dict, b: dict, where: str) -> None:
+    """Raise unless ``a`` and ``b`` have the same keys and shapes."""
+    if set(a) != set(b):
+        raise ValueError(
+            f"graft structure mismatch at {where}:\n"
+            f"  only in target: {sorted(set(a) - set(b))}\n"
+            f"  only in source: {sorted(set(b) - set(a))}")
+    for key in sorted(a):
+        if tuple(a[key].shape) != tuple(b[key].shape):
+            raise ValueError(
+                f"graft shape mismatch at {where}.{key}: "
+                f"{tuple(a[key].shape)} vs {tuple(b[key].shape)}")

@@ -4,7 +4,8 @@ Port of ``multimodal_alzheimer_tpu/train/driver.py:29-141``: the reference's
 per-script template once (reference: train_pet_cnn.py:121-205): seed ->
 datasets and loaders -> class weights ``1 - normalised frequency`` -> model
 -> logger -> Trainer (EarlyStopping, two top-k checkpoint managers, LR
-plateau) -> fit -> last validation loss.
+plateau) -> fit -> last validation loss; and the fusion stages' optimizer
+groups and dataset normalisation from the stage-1 checkpoints.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import os
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from multimodal_alzheimer_tpu_torch.data.dataset import MultiModalDataset
 from multimodal_alzheimer_tpu_torch.data.pipeline import DataLoader
@@ -21,7 +23,11 @@ from multimodal_alzheimer_tpu_torch.losses.classification import (
 )
 from multimodal_alzheimer_tpu_torch.train.logging import ExperimentLogger
 from multimodal_alzheimer_tpu_torch.train.loop import Trainer
-from multimodal_alzheimer_tpu_torch.train.optim import single_lr_optimizer
+from multimodal_alzheimer_tpu_torch.train.optim import (
+    FROZEN,
+    build_optimizer,
+    single_lr_optimizer,
+)
 from multimodal_alzheimer_tpu_torch.utils.seeding import seed_everything
 
 
@@ -66,6 +72,43 @@ def attach_class_weights(hparams: dict, trainset: MultiModalDataset) -> None:
     weights = 1.0 - np.nan_to_num(weight_normalized, nan=0.0)
     hparams["loss_class_weights"] = weights.tolist()
     hparams["loss_class_weights_human_readable"] = weights.tolist()
+
+
+def fusion_optimizer(hparams: dict, head_names: tuple,
+                     model: torch.nn.Module) -> torch.optim.Adam:
+    """Fusion-stage Adam over ``model`` (anat_pet_fusion.py:94-118): the
+    submodules named in ``head_names`` (the new fusion and reduce layers)
+    train at ``lr``; the loaded earlier-stage towers are frozen unless
+    ``lr_pretrained`` is set, and then train at it."""
+    lr_pretrained = hparams.get("lr_pretrained")
+
+    def label(path):
+        if path and path[0] in head_names:
+            return "head"
+        return "pretrained" if lr_pretrained else FROZEN
+
+    return build_optimizer(
+        {"head": hparams["lr"],
+         "pretrained": lr_pretrained if lr_pretrained else None},
+        label, model, l2_reg=hparams.get("l2_reg", 0.0))
+
+
+def stage1_normalizations(pet_hparams: Optional[dict] = None,
+                          mri_hparams: Optional[dict] = None):
+    """(normalize_pet, normalize_mri, quantile) of the datasets of a fusion
+    stage, from its stage-1 checkpoints' hparams
+    (train_anat_pet_fusion.py:154-171): the PET z-score constants, and the
+    per-scan min-max at the MRI checkpoint's ``norm_percentile``."""
+    normalize_pet = None
+    normalize_mri = None
+    quantile = 0.99
+    if pet_hparams is not None:
+        normalize_pet = {"mean": float(pet_hparams["norm_mean"]),
+                         "std": float(pet_hparams["norm_std"])}
+    if mri_hparams is not None:
+        normalize_mri = {"per_scan_norm": "min_max"}
+        quantile = float(mri_hparams.get("norm_percentile", 0.99))
+    return normalize_pet, normalize_mri, quantile
 
 
 def run_training(model, hparams: dict, trainset, valset,

@@ -39,6 +39,16 @@ def _set_learning_rates(optimizer: torch.optim.Optimizer,
         group["lr"] = group.setdefault("base_lr", group["lr"]) * lr_scale
 
 
+def _zero_unreached_grads(optimizer: torch.optim.Optimizer) -> None:
+    """A trained parameter the loss does not reach (a fusion tower's own
+    classifier) gets a zero gradient, which optax's chain sees in JAX, so
+    the L2 term still moves it; torch's Adam would skip a ``None``."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def make_train_step(model: torch.nn.Module, criterion: Callable,
                     optimizer: torch.optim.Optimizer,
                     preprocess: Optional[Callable] = None,
@@ -63,6 +73,7 @@ def make_train_step(model: torch.nn.Module, criterion: Callable,
         out = model(batch)
         loss = criterion(out["logits"], batch["label"])
         loss.backward()
+        _zero_unreached_grads(optimizer)
         optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach(),

@@ -21,8 +21,15 @@ def random_flax_variables(model, volume_shape, seed, input_key="mri"):
     ``input_key``) with non-trivial BN statistics and a positive classifier
     bias (keeps the trailing ReLU off its floor)."""
     example = {input_key: jnp.zeros((1,) + tuple(volume_shape), jnp.float32)}
+    return random_variables(model, seed, example, train=False)
+
+
+def random_variables(model, seed, *args, **kwargs):
+    """``random_flax_variables`` for any flax model, whose ``init`` takes
+    ``args`` and ``kwargs`` (e.g. a fusion's batch dict of 'mri', 'pet1451'
+    and 'tabular', or TabPFN's sequence, labels and train count)."""
     shapes = jax.eval_shape(
-        lambda b: model.init(jax.random.PRNGKey(0), b, train=False), example)
+        lambda: model.init(jax.random.PRNGKey(0), *args, **kwargs))
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
