@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: MRI serving, training and
 the entry points from NIfTI files on disk, the PET family with the stem
-max-pool backward kernel, TabPFN and the stage-2 fusions.
+max-pool backward kernel, TabPFN, the stage-2 fusions, stage 3 and the two
+fusion baselines.
 
     python3 chip_smoke.py
 
@@ -106,12 +107,38 @@ Phases, each printing its lines:
      checkpoint, and a depth-2 random-weight TabPFN checkpoint refit in
      context), the three stage-2 train() from the train_anat, train_pet_cnn
      and tabular checkpoints (K2 once per train and validation batch in the
-     MRI ones; frozen towers kept) and their test mains.
+     MRI ones; frozen towers kept) and their test mains;
+ 21. the full-width AllModalitiesFusion step (two ResNet-18 MRI towers with
+     fused_bn="full", SmallPETCNN at its defaults, TabularMLP (256, 1024),
+     batch 8 of raw scans normalised in the step) in f32 and bf16: frozen,
+     so the towers are shared (K1 1, K2 1, K4/K5 20, K6/K7 0; its eval
+     logits within 1e-6 of max(1, |logit|) of the unshared model's on the
+     same synced weights; tower parameters kept, the canonical MRI tower's
+     statistics moved, the duplicate's not), and towers trained, unshared
+     (K4-K7 40 each); step ms;
+ 22. one step each of PETMRIEarlyFusion at BEST_HPARAMS (batch 64) under the
+     per-scan min-max (K1 and K2 once) and the all-scan z-score (no kernel)
+     and PETMRIFeatureMapFusion at BEST_MAXOUT_HPARAMS (batch 32) in maxout
+     and concatenate, f32 and bf16: finite loss and gradients, step ms;
+ 23. on phase 15's split: a frozen train_anat_pet_fusion run, then one epoch
+     of train_all_modalities_fusion.train over the three frozen stage-2
+     checkpoints (shared towers; the checkpoint loads back through
+     test_all_mod_fusion.load_fusion, duplicate towers equal to their
+     canonical copies, running statistics moved), of
+     train_early_fusion.train under both MRI normalisations and of
+     train_anat_pet_featuremapfusion.train in maxout and concatenate (K2
+     once per train and validation batch where the MRI takes the min-max),
+     and the four test mains (test_all_mod_fusion,
+     test_early_fusion_samenorm, test_early_fusion_differentnorm,
+     test_featuremap_fusion) on a registry naming those checkpoints.
 The kernels line before the last lists every kernel with the launches of
 the path that ran it, its error against its plain version, its device time,
 per-call time, plain and library time and bound; K4-K7 also per shape and
 in bfloat16 (launches from the bf16 "full" step); K1-K7 also the f32
-fusion step's launches, frozen and unfrozen ("launches_fusion"). Any failed check raises,
+fusion step's launches, frozen and unfrozen ("launches_fusion"), the f32
+stage-3 step's, frozen and towers trained ("launches_stage3"), and the f32
+early-fusion step's under both normalisations ("launches_early_fusion").
+Any failed check raises,
 so the script exits non-zero without printing its last line,
 {"ok": true, "device": {...}}. It needs one card and imports the
 port only, and neither pandas, yaml nor the plotting packages: no confusion
@@ -148,8 +175,12 @@ from multimodal_alzheimer_tpu_torch.data.synthetic import (
 )
 from multimodal_alzheimer_tpu_torch.inference import (
     harness,
+    test_all_mod_fusion,
     test_anat_cnn,
     test_anat_pet_fusion,
+    test_early_fusion_differentnorm,
+    test_early_fusion_samenorm,
+    test_featuremap_fusion,
     test_mri_tab_fusion,
     test_pet_cnn,
     test_pet_tab_fusion,
@@ -161,12 +192,21 @@ from multimodal_alzheimer_tpu_torch.losses.classification import (
     make_criterion,
 )
 from multimodal_alzheimer_tpu_torch.models.fusion_models import (
+    train_all_modalities_fusion,
+    train_anat_pet_featuremapfusion,
     train_anat_pet_fusion,
+    train_early_fusion,
     train_mrt_tabular_fusion,
     train_pet_tabular_fusion,
 )
 from multimodal_alzheimer_tpu_torch.models.fusion_models.anat_pet_fusion import (
     AnatPETFusion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.early_fusion import (
+    PETMRIEarlyFusion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.featuremap_fusion import (
+    PETMRIFeatureMapFusion,
 )
 from multimodal_alzheimer_tpu_torch.models.fusion_models.pet_tabular_fusion import (
     PETTabularFusion,
@@ -197,7 +237,6 @@ from multimodal_alzheimer_tpu_torch.models.tabular_models.tabpfn import (
 )
 from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
     TabularMLP,
-    compute_feature_stats,
 )
 from multimodal_alzheimer_tpu_torch.ops import (
     _native,
@@ -229,7 +268,26 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     time_norm,
     time_pool,
 )
+from multimodal_alzheimer_tpu_torch.tools.cases import (
+    BASELINES,
+    FUSION_HPARAMS,
+    GRID,
+    MINMAX,
+    PET_NORM,
+    QUANTILE,
+    SEED,
+    STAGE3_REGIMES,
+    TAB_HPARAMS,
+    baseline_batch,
+    baseline_case,
+    raw_batch,
+    stage3_batch,
+    stage3_model,
+    stage3_preprocess,
+)
 from multimodal_alzheimer_tpu_torch.train.checkpoint import (
+    TOWER_DUPLICATES,
+    assert_tower_duplicates_equal,
     load_checkpoint,
     save_checkpoint,
 )
@@ -250,13 +308,8 @@ from multimodal_alzheimer_tpu_torch.train.state import (
     TrainState,
     make_train_step,
 )
-from multimodal_alzheimer_tpu_torch.utils.path_config import load_path_config
 from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
 
-GRID = (91, 109, 91)
-SEED = 0
-QUANTILE = 0.99
-MINMAX = {"per_scan_norm": "min_max"}
 ZSCORE = {"per_scan_norm": "normalize"}
 CSRC = "multimodal_alzheimer_tpu_torch/csrc/"
 SOURCE = {"minmax_select": CSRC + "minmax_norm.cu",
@@ -340,8 +393,6 @@ TRIAL = {"lr": 1e-3, "freeze": False, "lr_pretrained": 1e-5,
 # credited windows). At most 8 adds per element on each side, each rounding
 # by at most 2^-24 (float32) or 2^-9 (bfloat16) of that sum.
 POOL_LIBRARY_TOL = {torch.float32: 1e-6, torch.bfloat16: 1.0 / 32}
-# The PET z-score constants of both PET entry points.
-PET_NORM = {"mean": 0.5145, "std": 0.5383}
 PET_RESNET_HPARAMS = {"n_classes": 2, "resnet_depth": 18, "linear_out": (),
                       "lr": 1e-3, "lr_pretrained": 1e-5, "l2_reg": 1e-2,
                       "batch_size": 8}
@@ -375,12 +426,6 @@ TABPFN_TOL = 1e-4
 # 1e-2, the decoder tap within 5e-2 of the largest |f32 tap| (bf16 keeps 8
 # significant bits, about 4e-3 relative; twelve layers compound it).
 TABPFN_BF16_TOL = {"probs": 1e-2, "decoder": 5e-2}
-# The full-width MRI+tabular fusion step: the flagship ResNet-18 tower with
-# fused_bn="full" and the TabularMLP (256, 1024) tower, batch 8 of raw scans
-# min-max normalised in the step; frozen (lr_pretrained None) and unfrozen.
-FUSION_HPARAMS = {"n_classes": 2, "lr": 1e-3, "l2_reg": 1e-2,
-                  "loss_class_weights": [0.5, 0.5]}
-TAB_HPARAMS = {"n_classes": 2, "hidden": (256, 1024), "dropout_p": 0.0}
 # The fusion entry points on the entry split: (lr_pretrained, batch size)
 # of each. The PET+tabular loaders drop the last partial batch, and the
 # split's binary PET+tabular validation rows are 3 at 91x109x91: its batch
@@ -1823,17 +1868,6 @@ def phase_tabpfn(device, timed_runs: int = 3) -> dict:
     return {"embed": emb, "ms": ms, "bf16_ms": bf_ms}
 
 
-def fusion_batch(modalities, grid, seed: int, device) -> tuple:
-    """(a batch of 8 raw samples of both classes on the device, feature
-    statistics of its tabular rows or None)"""
-    data = make_labeled_volumes(8, tuple(grid), n_classes=2, seed=seed,
-                                modalities=modalities)
-    data["label"] = (np.arange(8) % 2).astype(np.int32)
-    stats = (compute_feature_stats(data["tabular"])
-             if "tabular" in data else None)
-    return {k: torch.from_numpy(v).to(device) for k, v in data.items()}, stats
-
-
 def _tower_changes(before: dict, after: dict, towers) -> tuple:
     """(parameters kept, parameters in all, running statistics moved,
     running statistics in all) of the towers' state dict entries."""
@@ -1855,7 +1889,7 @@ def phase_fusion_step(device, embeddings, grid=GRID,
     the f32 steps' launch counts."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    batch, (mean, std) = fusion_batch(("mri", "tabular"), grid, SEED + 14,
+    batch, (mean, std) = raw_batch(("mri", "tabular"), grid, SEED + 14,
                                       device)
     tab_hp = dict(TAB_HPARAMS, feature_mean=mean, feature_std=std)
     preprocess = make_device_preprocess(normalize_mri=MINMAX,
@@ -1947,7 +1981,7 @@ def phase_fusion_pair_steps(device, grid=GRID, timed_steps: int = 3) -> dict:
     for name in ("anat_pet", "pet_tab"):
         gen = make_generator(SEED)
         if name == "anat_pet":
-            batch, _ = fusion_batch(("mri", "pet1451"), grid, SEED + 15,
+            batch, _ = raw_batch(("mri", "pet1451"), grid, SEED + 15,
                                     device)
             hp = dict(FUSION_HPARAMS, lr_pretrained=1e-5)
             model = AnatPETFusion.from_hparams(hp, pet_hp, TRAIN_HPARAMS,
@@ -1956,7 +1990,7 @@ def phase_fusion_pair_steps(device, grid=GRID, timed_steps: int = 3) -> dict:
             heads = train_anat_pet_fusion.HEAD_NAMES
             want = dict(zero, minmax_select=1, minmax_apply=1)
         else:
-            batch, (mean, std) = fusion_batch(("pet1451", "tabular"), grid,
+            batch, (mean, std) = raw_batch(("pet1451", "tabular"), grid,
                                               SEED + 16, device)
             hp = dict(FUSION_HPARAMS, lr_pretrained=None,
                       simple_dim_red=True)
@@ -2001,12 +2035,13 @@ def _fusion_trial(lr_pretrained) -> FixedTrial:
 
 
 def phase_fusion_entry_points(device, root, mri_checkpoint: str,
-                              pet_checkpoint: str) -> dict:
+                              pet_checkpoint: str) -> tuple:
     """train_tabular.train and test_tab.main() (the MLP checkpoint and a
     random-weight TabPFN checkpoint at depth 2, refit in context), the
     three stage-2 train() from the MRI, PET and tabular checkpoints, and
     their test mains, on the split in ``root`` (the CWD); returns each
-    one's seconds."""
+    one's seconds and the checkpoints ('path_tabular' and each stage-2
+    one's name)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     zero = dict.fromkeys(launch_counts(), 0)
@@ -2147,6 +2182,323 @@ def phase_fusion_entry_points(device, root, mri_checkpoint: str,
             f"{n_test} paired test rows in {seconds[f'test_{name}']:.2f} s, "
             f"test loss {metrics['test_loss_epoch']:.6f}, F1 "
             f"{metrics['test_f1_epoch']:.4f}, launches {launches}")
+    return seconds, dict(best, path_tabular=tab_checkpoint)
+
+
+# Stage 3 at full width: AllModalitiesFusion over the flagship ResNet-18 MRI
+# towers (dilated, fused_bn="full"), SmallPETCNN at its defaults and the
+# TabularMLP (256, 1024) towers, batch 8 of raw scans normalised in the
+# step. "frozen": every stage-2 model and stage 3 frozen, so the towers are
+# shared; "trained": lr_pretrained at stage 2 and stage 3, unshared, both
+# MRI towers trained.
+# Shared against unshared eval logits on the same synced weights: the same
+# kernels on the same inputs, so equal unless cuDNN picks another
+# algorithm; held within 1e-6 of max(1, largest |logit|).
+SHARE_TOL = 1e-6
+
+
+def phase_stage3_step(device, grid=GRID, timed_steps: int = 3) -> dict:
+    """The full-width stage-3 train step in f32 and bf16, frozen (shared
+    towers; first its eval logits against the unshared model's on the same
+    weights) and towers trained, with launch counts and the tower
+    parameters and statistics that moved; returns the f32 steps' launch
+    counts."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, (mean, std) = stage3_batch(device, grid)
+    tab_hp = dict(TAB_HPARAMS, feature_mean=mean, feature_std=std)
+    preprocess = stage3_preprocess()
+    heads = train_all_modalities_fusion.HEAD_NAMES
+    zero = dict.fromkeys(launch_counts(), 0)
+    towers = tuple(p + "." for pair in TOWER_DUPLICATES for p in pair)
+    duplicates = tuple(d + "." for _, d in TOWER_DUPLICATES)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for regime, lr_pretrained in STAGE3_REGIMES.items():
+            frozen = lr_pretrained is None
+            what = f"AllModalitiesFusion {str(dtype)[6:]} {regime}"
+            hp = dict(FUSION_HPARAMS, lr_pretrained=lr_pretrained)
+            model = stage3_model(dtype, lr_pretrained, tab_hp,
+                                 device=device)
+            check(model.share_towers == frozen and model.freeze_towers
+                  == frozen, f"{what}: share_towers {model.share_towers}")
+            if frozen:
+                twin = stage3_model(dtype, None, tab_hp, share_towers=False,
+                                    device=device)
+                with torch.inference_mode():
+                    x = preprocess(batch)
+                    got = model.eval()(x)["logits"]
+                    want = twin.eval()(x)["logits"]
+                gap = (got - want).abs().max().item()
+                tol = SHARE_TOL * max(1.0, want.abs().max().item())
+                check(gap <= tol, f"{what}: shared logits {gap} from the "
+                      f"unshared model's (tolerance {tol})")
+                log(f"[stage3 step] {what}: shared eval logits against "
+                    f"the unshared model on the same synced weights: max "
+                    f"abs err {gap:.3g} (tolerance {tol:.3g})")
+                del twin, x, got, want
+            optimizer = fusion_optimizer(hp, heads, model)
+            step = make_train_step(model, make_criterion(hp), optimizer,
+                                   preprocess)
+            state = TrainState(model, optimizer)
+            before = {k: v.clone() for k, v in model.state_dict().items()}
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            state, aux = step(state, batch)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            loss = aux["loss"].item()
+            n_fwd = BN_LAYERS * (1 if frozen else 2)
+            n_bwd = 0 if frozen else 2 * BN_LAYERS
+            want = dict(zero, minmax_select=1, minmax_apply=1,
+                        bn_stats=n_fwd, bn_apply=n_fwd, bn_grad_sum=n_bwd,
+                        bn_dx=n_bwd)
+            check(launches == want, f"{what} launches {launches} == {want}")
+            check(np.isfinite(loss), f"{what}: finite loss {loss}")
+            head_norms = [p.grad.norm().item()
+                          for n, p in model.named_parameters()
+                          if n.split(".")[0] in heads]
+            check(all(np.isfinite(v) and v > 0 for v in head_norms),
+                  f"{what}: nonzero head gradients {head_norms}")
+            after = model.state_dict()
+            keys = [k for k in before if k.startswith(towers)]
+            stats = [k for k in keys if "running" in k]
+            params = [k for k in keys if k not in stats]
+            kept = sum(torch.equal(after[k], before[k]) for k in params)
+            moved = {k for k in stats if not torch.equal(after[k],
+                                                         before[k])}
+            moved_dup = sum(k.startswith(duplicates) for k in moved)
+            n_dup = sum(k.startswith(duplicates) for k in stats)
+            check(len(stats) == 2 * 2 * BN_LAYERS,
+                  f"{what}: running statistics of two MRI towers")
+            if frozen:
+                check(kept == len(params) and moved_dup == 0
+                      and len(moved) == len(stats) - n_dup,
+                      f"{what}: {kept} of {len(params)} tower parameters "
+                      f"kept, {len(moved)} statistics moved, {moved_dup} "
+                      f"of them in duplicate towers")
+            else:
+                check(kept < len(params) // 10 and len(moved) == len(stats),
+                      f"{what}: {kept} of {len(params)} tower parameters "
+                      f"kept, {len(moved)} of {len(stats)} statistics moved")
+            ms = _timed_steps(step, state, batch, timed_steps)
+            out[(dtype, regime)] = launches
+            log(f"[stage3 step] {what} (share_towers "
+                f"{model.share_towers}), batch 8 at {grid}: loss {loss}, "
+                f"median {ms:.2f} ms over {timed_steps} steps, launches "
+                f"{launches}; tower parameters kept {kept}/{len(params)}, "
+                f"running statistics moved {len(moved)}/{len(stats)} "
+                f"({moved_dup} in duplicate towers)")
+            del model, optimizer, step, state, aux, before, after
+    return {regime: out[(torch.float32, regime)]
+            for regime in STAGE3_REGIMES}
+
+
+def phase_baseline_steps(device, grid=GRID, timed_steps: int = 2) -> dict:
+    """One train step each of early fusion at BEST_HPARAMS (batch 64) under
+    the per-scan min-max (K1 and K2 once) and the all-scan z-score (no
+    kernel), and feature-map fusion at BEST_MAXOUT_HPARAMS (batch 32) in
+    maxout and concatenate, in f32 and bf16, raw scans normalised in the
+    step; returns the f32 early-fusion steps' launch counts."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    zero = dict.fromkeys(launch_counts(), 0)
+    batch_max = baseline_batch(device, grid)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (model_cls, _, _, k12) in BASELINES.items():
+            model, hp, preprocess = baseline_case(name, dtype, device)
+            n = hp["batch_size"]
+            batch = {k: v[:n] for k, v in batch_max.items()}
+            what = f"{model_cls.__name__} {name.split()[1]} {str(dtype)[6:]}"
+            optimizer = single_lr_optimizer(model, hp["lr"])
+            step = make_train_step(model, make_criterion(hp), optimizer,
+                                   preprocess, make_generator(SEED, device))
+            state = TrainState(model, optimizer)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            start = time.perf_counter()
+            state, aux = step(state, batch)
+            loss = aux["loss"].item()
+            first_s = time.perf_counter() - start
+            launches = launch_counts()
+            want = dict(zero, minmax_select=k12, minmax_apply=k12)
+            check(launches == want, f"{what} launches {launches} == {want}")
+            norms = [p.grad.norm().item() for p in model.parameters()]
+            check(np.isfinite(loss) and all(np.isfinite(norms))
+                  and norms[-1] > 0, f"{what}: finite loss {loss} and "
+                  f"gradients, nonzero at the classifier")
+            ms = _timed_steps(step, state, batch, timed_steps)
+            if dtype == torch.float32 and model_cls is PETMRIEarlyFusion:
+                out[name.split()[1]] = launches
+            log(f"[baseline step] {what}, batch {n} at {grid}: loss {loss}, "
+                f"first step {first_s:.3f} s, then median {ms:.2f} ms over "
+                f"{timed_steps} steps ({n / ms * 1e3:.1f} train volumes/s), "
+                f"launches {launches}")
+            del model, optimizer, step, state, aux
+    return out
+
+
+def _entry_run(root, name: str, module, hp: dict, want: dict,
+               device) -> tuple:
+    """``module.train(hp)`` for one epoch on the split in ``root``, its
+    launches checked against ``want``; returns (checkpoint, seconds, epoch
+    record, launches)."""
+    reset_launch_counts()
+    start = time.perf_counter()
+    last = module.train(dict(hp, max_epochs=1), f"chip_smoke_{name}",
+                        log_confusion_images=False, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    check(launches == want, f"{name} launches {launches} == {want}")
+    run_dir = os.path.join(root, module.LOG_DIRECTORY, f"chip_smoke_{name}",
+                           "version_0")
+    record = _epoch_record(run_dir)
+    check(record["val_loss_epoch"] == last, "val loss returned")
+    found = sorted(glob.glob(os.path.join(run_dir, "checkpoints",
+                                          "*val_loss=*")))
+    check(len(found) == 1, f"one val-loss checkpoint: {found}")
+    return found[0], seconds, record, launches
+
+
+def phase_stage3_entry_points(device, root, mri_checkpoint: str,
+                              pet_checkpoint: str, stage2: dict) -> dict:
+    """On the split in ``root`` (the CWD): a frozen PET+MRI stage-2 run, so
+    that all three stage-2 checkpoints freeze their towers; then one epoch
+    of train_all_modalities_fusion.train (frozen, shared towers: its
+    checkpoint loads back through test_all_mod_fusion.load_fusion with its
+    duplicate towers equal to their canonical copies), of
+    train_early_fusion.train under both MRI normalisations and of
+    train_anat_pet_featuremapfusion.train in maxout and concatenate; then
+    the four test mains on a registry naming those checkpoints. Returns
+    each run's seconds."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    zero = dict.fromkeys(launch_counts(), 0)
+    seconds = {}
+    paths = {"path_mri": mri_checkpoint, "path_pet": pet_checkpoint,
+             "path_tabular": stage2["path_tabular"]}
+
+    def k2_per_batch(hp, modalities) -> dict:
+        trainset, valset = build_datasets(hp, modalities)
+        check(not np.isnan(trainset.get_label_distribution()[0]).any(),
+              f"both classes in the {modalities} training rows")
+        return dict(zero, minmax_apply=_batches(len(trainset),
+                                                hp["batch_size"])
+                    + _batches(len(valset), hp["batch_size"]))
+
+    hp = train_anat_pet_fusion.sample_hparams(
+        _fusion_trial(None), n_classes=2, path_pet=pet_checkpoint,
+        path_mri=mri_checkpoint)
+    anat_pet, seconds["anat_pet_frozen"], _, _ = _entry_run(
+        root, "anat_pet_frozen", train_anat_pet_fusion, hp,
+        k2_per_batch(hp, ["pet1451", "t1w"]), device)
+    hp = train_all_modalities_fusion.sample_hparams(
+        _fusion_trial(None), n_classes=2, path_anat_pet=anat_pet,
+        path_anat_tab=stage2["mri_tab"], path_pet_tab=stage2["pet_tab"],
+        **paths)
+    modalities = ["pet1451", "t1w", "tabular"]
+    rows = [len(d) for d in build_datasets(hp, modalities)]
+    stage3, seconds["stage3"], record, launches = _entry_run(
+        root, "stage3", train_all_modalities_fusion, hp,
+        k2_per_batch(hp, modalities), device)
+    model, state_dict = test_all_mod_fusion.load_fusion(stage3)[:2]
+    model.load_state_dict(state_dict)
+    check(model.share_towers and model.freeze_towers,
+          "the frozen stage-3 checkpoint shares its towers")
+    assert_tower_duplicates_equal(state_dict)
+    mri_sd = load_checkpoint(mri_checkpoint)[0]
+    moved = {k: not torch.equal(state_dict[f"{dup}.{k}"], v)
+             for dup in ("model_anat_pet.mri_model",
+                         "model_anat_tab.mri_model")
+             for k, v in mri_sd.items()}
+    check(all(v == ("running" in k) for k, v in moved.items()),
+          "both MRI tower copies: the stage-1 parameters kept, the running "
+          "statistics moved and synced")
+    log(f"[stage3 entry] train_all_modalities_fusion.train (frozen, shared "
+        f"towers): 1 epoch of {rows[0]} train + {rows[1]} val rows at batch "
+        f"{hp['batch_size']}, {seconds['stage3']:.2f} s in all, epoch "
+        f"{record['epoch_time_s']:.2f} s, val loss "
+        f"{record['val_loss_epoch']:.6f}, launches {launches}; its "
+        f"checkpoint loads back through load_fusion with the duplicate "
+        f"towers equal to their canonical copies, running statistics moved")
+
+    best = {"all_mod_2_class": stage3}
+    runs = (("early_fusion_same_norm_2_class", "early_samenorm",
+             train_early_fusion, train_early_fusion.BEST_HPARAMS, False,
+             PETMRIEarlyFusion),
+            ("early_fusion_different_norm_2_class", "early_differentnorm",
+             train_early_fusion,
+             dict(train_early_fusion.BEST_HPARAMS,
+                  mri_norm_style="per_scan", norm_percentile=QUANTILE),
+             True, PETMRIEarlyFusion),
+            ("featuremap_fusion_maxout_2_class", "featuremap_maxout",
+             train_anat_pet_featuremapfusion,
+             train_anat_pet_featuremapfusion.BEST_MAXOUT_HPARAMS, False,
+             PETMRIFeatureMapFusion),
+            ("featuremap_fusion_concat_2_class", "featuremap_concat",
+             train_anat_pet_featuremapfusion,
+             dict(train_anat_pet_featuremapfusion.BEST_MAXOUT_HPARAMS,
+                  fusion_mode="concatenate"), False, PETMRIFeatureMapFusion))
+    for key, name, module, hp, minmax, model_cls in runs:
+        want = (k2_per_batch(hp, ["pet1451", "t1w"]) if minmax else zero)
+        best[key], seconds[name], record, launches = _entry_run(
+            root, name, module, hp, want, device)
+        _load_back(best[key], model_cls=model_cls)
+        log(f"[stage3 entry] {module.__name__.rsplit('.', 1)[1]}.train "
+            f"({name.split('_', 1)[1]}): 1 epoch at batch "
+            f"{hp['batch_size']}, {seconds[name]:.2f} s in all, epoch "
+            f"{record['epoch_time_s']:.2f} s, val loss "
+            f"{record['val_loss_epoch']:.6f}, launches {launches}")
+
+    with open("path_config.yaml", "w") as f:
+        f.write("relative:\n"
+                "  test_set_csv: 'data/test_path_data_labels.csv'\n"
+                + "".join(f"{k}: '{v}'\n" for k, v in best.items()))
+    n_test = len(harness.build_testset({"n_classes": 2}))
+    check(n_test > 0, "the paired three-modality test set has rows")
+    mains = ((test_all_mod_fusion, {"all_mod_2_class":
+                                    "test_set_all_mod_2_class"}, 8),
+             (test_early_fusion_samenorm, {
+                 "early_fusion_same_norm_2_class":
+                     "test_set_early_fusion_samenorm"}, None),
+             (test_early_fusion_differentnorm, {
+                 "early_fusion_different_norm_2_class":
+                     "test_set_early_fusion_differentnorm"},
+              train_early_fusion.BEST_HPARAMS["batch_size"]),
+             (test_featuremap_fusion, {
+                 "featuremap_fusion_maxout_2_class": "test_set_fmf_maxout",
+                 "featuremap_fusion_concat_2_class": "test_set_fmf_concat"},
+              None))
+    for tester, keys, k2_batch in mains:
+        name = tester.__name__.rsplit(".", 1)[1]
+        reset_launch_counts()
+        start = time.perf_counter()
+        results = tester.main(confusion_pngs=False, device=device)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        launches = launch_counts()
+        want = (dict(zero, minmax_apply=_batches(n_test, k2_batch))
+                if k2_batch else zero)
+        check(set(results) == set(keys) and launches == want,
+              f"{name}: results for {sorted(results)}, launches {launches} "
+              f"== {want}")
+        for key, experiment in keys.items():
+            metrics = results[key]
+            check(all(np.isfinite(v) for v in metrics.values()),
+                  f"{key}: finite metrics {metrics}")
+            with open(os.path.join("lightning_logs", experiment,
+                                   "version_0",
+                                   "confusion_matrix.json")) as f:
+                counts = json.load(f)["counts"]
+            check(sum(map(sum, counts)) == n_test,
+                  f"{key}: confusion counts {counts} over {n_test} rows")
+            log(f"[stage3 entry] {name}.main() {key}: {n_test} paired test "
+                f"rows, test loss {metrics['test_loss_epoch']:.6f}, F1 "
+                f"{metrics['test_f1_epoch']:.4f}")
+        log(f"[stage3 entry] {name}.main(): {seconds[name]:.2f} s, "
+            f"launches {launches}")
     return seconds
 
 
@@ -2180,11 +2532,15 @@ def main() -> int:
     tabpfn = phase_tabpfn(device)
     fusion_launches = phase_fusion_step(device, tabpfn["embed"])
     phase_fusion_pair_steps(device)
+    stage3_launches = phase_stage3_step(device)
+    early_launches = phase_baseline_steps(device)
     with entry_split() as root:
         entry_launches, mri_checkpoint = phase_entry_points(device, root)
         _, pet_checkpoint = phase_pet_entry_points(device, root)
-        phase_fusion_entry_points(device, root, mri_checkpoint,
-                                  pet_checkpoint)
+        _, stage2 = phase_fusion_entry_points(device, root, mri_checkpoint,
+                                              pet_checkpoint)
+        phase_stage3_entry_points(device, root, mri_checkpoint,
+                                  pet_checkpoint, stage2)
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
     norm_bound = norm_bounds(8, int(np.prod(GRID)))
@@ -2202,6 +2558,10 @@ def main() -> int:
             "max_abs_err": err[name], "batch": 8,
             "launches_fusion": {k: v[name] for k, v in
                                 fusion_launches.items()},
+            "launches_stage3": {k: v[name] for k, v in
+                                stage3_launches.items()},
+            "launches_early_fusion": {k: v[name] for k, v in
+                                      early_launches.items()},
             "shape": [8, int(np.prod(GRID))], "ms": ms, "call_ms": per_call,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
@@ -2212,6 +2572,10 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": fit_launches[name],
             "launches_fusion": {k: v[name] for k, v in
                                 fusion_launches.items()},
+            "launches_stage3": {k: v[name] for k, v in
+                                stage3_launches.items()},
+            "launches_early_fusion": {k: v[name] for k, v in
+                                      early_launches.items()},
             "max_abs_err": err[name], "batch": 8,
             "shape": list(BN_SHAPES["stem"]),
             **{k: bn_times["stem"][name][k] for k in keys},

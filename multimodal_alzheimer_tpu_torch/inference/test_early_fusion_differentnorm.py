@@ -1,0 +1,48 @@
+"""Evaluate early fusion under the per-scan MRI min-max (reference
+inference/test_early_fusion_differentnorm.py:16).
+
+Port of
+``multimodal_alzheimer_tpu/inference/test_early_fusion_differentnorm.py``.
+The checkpoint named ``early_fusion_different_norm_2_class`` in
+``path_config.yaml`` is a checkpoint directory of the port; the PET z-score
+constants and the min-max percentile (``norm_percentile``, 0.99 when
+absent) come from its hparams.
+
+    python -m multimodal_alzheimer_tpu_torch.inference.test_early_fusion_differentnorm
+"""
+
+from __future__ import annotations
+
+from multimodal_alzheimer_tpu_torch.inference.harness import (
+    evaluate_checkpoint,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.early_fusion import (
+    PETMRIEarlyFusion,
+)
+from multimodal_alzheimer_tpu_torch.utils.path_config import load_path_config
+
+
+def _norms(hparams):
+    return ({"mean": float(hparams["norm_mean"]),
+             "std": float(hparams["norm_std"])},
+            {"per_scan_norm": "min_max"},
+            float(hparams.get("norm_percentile", 0.99)))
+
+
+def main(confusion_pngs: bool = True, device="cuda") -> dict:
+    """Evaluate the checkpoint the path registry names; returns {key:
+    metrics}."""
+    paths = load_path_config()
+    results = {}
+    key = "early_fusion_different_norm_2_class"
+    if key in paths:
+        results[key] = evaluate_checkpoint(
+            PETMRIEarlyFusion.from_hparams, str(paths[key]),
+            "test_set_early_fusion_differentnorm", normalization_from=_norms,
+            confusion_pngs=confusion_pngs, device=device)
+        print(key, results[key])
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,7 @@ Supported modes (reference dataloader.py parity):
   * MRI 'per_scan_norm'='min_max': quantile min-max into [0,1] with clamping,
     then re-masked (dataloader.py:261-270),
   * MRI 'all_scan_norm': z-score with precomputed split stats
-    (dataloader.py:274-278).
+    (dataloader.py:274-278), which ``compute_split_stats`` estimates.
 
 The batched per-scan modes (min-max and z-score) go through the Hopper
 kernels of ``ops/hopper_norm`` on CUDA tensors and through their plain
@@ -140,3 +140,26 @@ def batched_normalize_mri(volume: torch.Tensor, mask: torch.Tensor | None,
         stats = normalize_mri_cfg["all_scan_norm"]
         return zscore_normalize(volume, stats["mean"], stats["std"])
     raise ValueError(_KEYS_ERROR)
+
+
+def compute_split_stats(volumes_iter) -> tuple[float, float]:
+    """Streaming split-level mean/std over an iterable of volumes.
+
+    Port of ``ops/normalization.py:171-192`` (reference
+    pkg/utils/standardization.py:34-55): accumulates per-scan means of x
+    and x**2 in float32, then ``std = sqrt(E[mean_x2] - mean**2)`` (a
+    mean-of-means estimator, not a true pooled std, reproduced as it is:
+    the reference's published constants were computed this way). Each
+    volume is taken as float32, as JAX takes it with 64-bit mode off.
+    """
+    mean_x = torch.zeros((), dtype=torch.float32)
+    mean_x2 = torch.zeros((), dtype=torch.float32)
+    count = torch.zeros((), dtype=torch.float32)
+    for vol in volumes_iter:
+        vol = torch.as_tensor(vol).to(torch.float32)
+        mean_x = mean_x + vol.mean()
+        mean_x2 = mean_x2 + (vol * vol).mean()
+        count = count + 1
+    mean = mean_x / count
+    std = torch.sqrt(mean_x2 / count - mean * mean)
+    return float(mean), float(std)

@@ -1,5 +1,5 @@
-"""Where the time of TabPFN and of the MRI+tabular fusion step goes, on one
-NVIDIA GPU.
+"""Where the time of TabPFN, of the fusion train steps and of the fusion
+baselines' train steps goes, on one NVIDIA GPU.
 
     python3 -m multimodal_alzheimer_tpu_torch.tools.profile_paths [--out DIR]
 
@@ -14,7 +14,19 @@ or bfloat16 compute; random weights from a seed):
 * ``fusion_{frozen,unfrozen}_{f32,bf16}``: one ``TabularMRIFusion`` train
   step (ResNet-18 tower with ``fused_bn="full"``, ``TabularMLP`` (256,
   1024), batch 8 of raw 91x109x91 scans min-max normalised in the step),
-  ending in a synchronisation.
+  ending in a synchronisation;
+* ``stage3_{frozen,trained}_{f32,bf16}``: one ``AllModalitiesFusion``
+  train step (``tools/cases.stage3_model``: ResNet-18 ``"full"`` MRI
+  towers, ``SmallPETCNN`` at its defaults, ``TabularMLP`` (256, 1024);
+  frozen with shared towers, or every tower trained), batch 8 of raw scans,
+  PET z-scored and MRI min-max normalised in the step (``chip_smoke.py``'s
+  stage-3 phase, on the same case);
+* ``early_{f32,bf16}`` and ``featuremap_{f32,bf16}``: one train step of
+  the ``tools/cases.BASELINES`` cases "early differentnorm"
+  (``PETMRIEarlyFusion`` at ``BEST_HPARAMS``, batch 64, MRI min-max) and
+  "featuremap maxout" (``PETMRIFeatureMapFusion`` at
+  ``BEST_MAXOUT_HPARAMS``, batch 32, MRI all-scan z-score), as
+  ``chip_smoke.py``'s baseline phase runs them.
 
 Per case, as ``tools/profile_serve.py`` reads a trace: ``host_ms`` (the
 span of a call), ``busy_ms`` (the union of device intervals inside it),
@@ -42,7 +54,6 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from multimodal_alzheimer_tpu_torch.data.preprocess import (
     make_device_preprocess,
 )
-from multimodal_alzheimer_tpu_torch.data.synthetic import make_labeled_volumes
 from multimodal_alzheimer_tpu_torch.losses.classification import (
     make_criterion,
 )
@@ -56,13 +67,27 @@ from multimodal_alzheimer_tpu_torch.models.tabular_models.tabpfn import (
 )
 from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
     TabularMLP,
-    compute_feature_stats,
+)
+from multimodal_alzheimer_tpu_torch.tools.cases import (
+    FUSION_HPARAMS,
+    GRID,
+    MINMAX,
+    SEED,
+    STAGE3_REGIMES,
+    TAB_HPARAMS,
+    baseline_batch,
+    baseline_case,
+    raw_batch,
+    stage3_batch,
+    stage3_model,
+    stage3_preprocess,
 )
 from multimodal_alzheimer_tpu_torch.tools.profile_serve import (
     breakdown,
     nvidia_smi,
 )
 from multimodal_alzheimer_tpu_torch.train.driver import fusion_optimizer
+from multimodal_alzheimer_tpu_torch.train.optim import single_lr_optimizer
 from multimodal_alzheimer_tpu_torch.train.state import (
     TrainState,
     make_train_step,
@@ -70,8 +95,9 @@ from multimodal_alzheimer_tpu_torch.train.state import (
 from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
 
 CALLS = 3
-SEED = 0
-GRID = (91, 109, 91)
+# profiled case -> its tools/cases.BASELINES name
+BASELINE_CASES = {"early": "early differentnorm",
+                  "featuremap": "featuremap maxout"}
 SPAN = "path_call"
 GEMM_WORDS = ("gemm", "xmma", "cutlass", "conv", "fprop", "dgrad", "wgrad",
               "implicit", "winograd", "cudnn")
@@ -109,11 +135,8 @@ def tabpfn_call(dtype, device):
 
 def fusion_call(dtype, frozen: bool, device):
     """One TabularMRIFusion train step on a fixed batch of raw scans."""
-    data = make_labeled_volumes(8, GRID, n_classes=2, seed=SEED + 14,
-                                modalities=("mri", "tabular"))
-    data["label"] = (np.arange(8) % 2).astype(np.int32)
-    mean, std = compute_feature_stats(data["tabular"])
-    batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    batch, (mean, std) = raw_batch(("mri", "tabular"), GRID, SEED + 14,
+                                   device)
     gen = make_generator(SEED)
     model = TabularMRIFusion(
         2, AnatCNN(n_classes=2, resnet_depth=18, fused_bn="full",
@@ -121,14 +144,17 @@ def fusion_call(dtype, frozen: bool, device):
         TabularMLP(2, (256, 1024), feature_mean=mean, feature_std=std,
                    dtype=dtype, generator=gen),
         freeze_towers=frozen, dtype=dtype, generator=gen).to(device)
-    hp = {"n_classes": 2, "lr": 1e-3, "l2_reg": 1e-2,
-          "lr_pretrained": None if frozen else 1e-5,
-          "loss_class_weights": [0.5, 0.5]}
+    hp = dict(FUSION_HPARAMS, lr_pretrained=None if frozen else 1e-5)
     optimizer = fusion_optimizer(hp, ("reduce_tab", "stage2out", "cls2"),
                                  model)
-    step = make_train_step(model, make_criterion(hp), optimizer,
-                           make_device_preprocess(
-                               normalize_mri={"per_scan_norm": "min_max"}))
+    return _step_call(model, hp, optimizer,
+                      make_device_preprocess(normalize_mri=MINMAX), batch)
+
+
+def _step_call(model, hp: dict, optimizer, preprocess, batch,
+               dropout_generator=None):
+    step = make_train_step(model, make_criterion(hp), optimizer, preprocess,
+                           dropout_generator)
     state = TrainState(model, optimizer)
 
     def call():
@@ -136,6 +162,28 @@ def fusion_call(dtype, frozen: bool, device):
         torch.cuda.synchronize()
 
     return call
+
+
+def stage3_call(dtype, frozen: bool, device):
+    """One AllModalitiesFusion train step on a fixed batch of raw scans."""
+    batch, (mean, std) = stage3_batch(device)
+    lr_pretrained = STAGE3_REGIMES["frozen" if frozen else "trained"]
+    model = stage3_model(dtype, lr_pretrained,
+                         dict(TAB_HPARAMS, feature_mean=mean,
+                              feature_std=std), device=device)
+    hp = dict(FUSION_HPARAMS, lr_pretrained=lr_pretrained)
+    return _step_call(model, hp, fusion_optimizer(hp, ("stage3out", "cls3"),
+                                                  model),
+                      stage3_preprocess(), batch)
+
+
+def baseline_call(name: str, dtype, device):
+    """One train step of the ``BASELINES`` case ``name``."""
+    model, hp, preprocess = baseline_case(name, dtype, device)
+    batch = {k: v[:hp["batch_size"]]
+             for k, v in baseline_batch(device).items()}
+    return _step_call(model, hp, single_lr_optimizer(model, hp["lr"]),
+                      preprocess, batch, make_generator(SEED, device))
 
 
 def main() -> int:
@@ -158,6 +206,12 @@ def main() -> int:
     cases += [(f"fusion_{'frozen' if f else 'unfrozen'}_{d}",
                lambda d=d, f=f: fusion_call(dtypes[d], f, device))
               for f in (True, False) for d in dtypes]
+    cases += [(f"stage3_{'frozen' if f else 'trained'}_{d}",
+               lambda d=d, f=f: stage3_call(dtypes[d], f, device))
+              for f in (True, False) for d in dtypes]
+    cases += [(f"{b}_{d}", lambda d=d, b=b: baseline_call(BASELINE_CASES[b],
+                                                          dtypes[d], device))
+              for b in BASELINE_CASES for d in dtypes]
     for name, build in cases:
         call = build()
         for _ in range(3):

@@ -11,8 +11,10 @@ A checkpoint directory holds ``state.pt`` (the model's ``state_dict``),
 ``hparams.json`` and, when given, ``metrics.json``.
 
 ``graft_params`` (``checkpoint.py:197``) loads stage-1 checkpoints into a
-fusion model's towers by submodule prefix. The stage-3 tower-duplicate
-helpers and the train-state resume wait for their slices.
+fusion model's towers by submodule prefix. ``sync_tower_duplicates`` and
+``assert_tower_duplicates_equal`` (``checkpoint.py:240-330``) keep and check
+the stage-3 fusion's duplicate tower copies. The train-state resume waits
+for its slice.
 """
 
 from __future__ import annotations
@@ -139,8 +141,7 @@ def graft_params(target: dict, grafts: dict) -> dict:
     out = dict(target)
     for sub_path, source in grafts.items():
         prefix = sub_path.replace("/", ".") + "."
-        node = {k[len(prefix):]: v for k, v in out.items()
-                if k.startswith(prefix)}
+        node = _subtree(out, sub_path)
         if not node:
             if _tree_size(source) == 0:
                 continue
@@ -151,6 +152,77 @@ def graft_params(target: dict, grafts: dict) -> dict:
         for key, value in source.items():
             out[prefix + key] = value
     return out
+
+
+# Stage-3 duplicate tower pairs (canonical, duplicate). The reference's
+# All_Modalities_Fusion holds two private copies of each stage-1 tower
+# (all_modalities_fusion.py:66-79: PET in anat_pet and pet_tab, MRI in
+# anat_pet and anat_tab, tabular in anat_tab and pet_tab); the frozen
+# grafting regime loads the same stage-1 checkpoint into both, so they are
+# identical by construction. AllModalitiesFusion.share_towers reads only
+# the canonical copy; these helpers keep and check the duplicates' parity
+# at the checkpoint level, over parameters and BatchNorm buffers alike.
+TOWER_DUPLICATES = (
+    ("model_anat_pet.pet_model", "model_pet_tab.pet_model"),
+    ("model_anat_pet.mri_model", "model_anat_tab.mri_model"),
+    ("model_anat_tab.tab_model", "model_pet_tab.tab_model"),
+)
+
+
+def _subtree(state_dict: dict, path: str) -> dict:
+    """The entries under submodule ``path`` ('/' or '.' separated), keyed
+    by their names below it."""
+    prefix = path.replace("/", ".") + "."
+    return {k[len(prefix):]: v for k, v in state_dict.items()
+            if k.startswith(prefix)}
+
+
+def sync_tower_duplicates(state_dict: dict) -> dict:
+    """A new state dict with each canonical tower copied over its duplicate.
+
+    Used when training and saving with ``share_towers=True``: the shared
+    forward only visits (and only updates the BatchNorm statistics of) the
+    canonical copies, so saved checkpoints sync the duplicates to stay
+    bit-identical to the reference's unshared regime, where both copies see
+    the same batches and update identically. The copies are real copies
+    (clones), not aliases of the canonical tensors. A pair absent from the
+    state dict is passed over; a duplicate whose names or shapes differ
+    from its canonical's raises.
+    """
+    out = dict(state_dict)
+    for canonical, duplicate in TOWER_DUPLICATES:
+        src = _subtree(out, canonical)
+        dst = _subtree(out, duplicate)
+        if not src or not dst:
+            continue
+        _check_same_structure(dst, src, duplicate)
+        prefix = duplicate.replace("/", ".") + "."
+        for key, value in src.items():
+            out[prefix + key] = value.detach().clone()
+    return out
+
+
+def assert_tower_duplicates_equal(state_dict: dict) -> None:
+    """Raise if any duplicate tower entry differs from its canonical.
+
+    Guard before enabling ``share_towers`` on a restored checkpoint: a
+    checkpoint whose stage-2 sub-models trained their towers unfrozen holds
+    genuinely different duplicates, and sharing would silently change its
+    predictions.
+    """
+    for canonical, duplicate in TOWER_DUPLICATES:
+        src = _subtree(state_dict, canonical)
+        dst = _subtree(state_dict, duplicate)
+        if not src or not dst:
+            continue
+        _check_same_structure(dst, src, duplicate)
+        for key in sorted(src):
+            if not torch.equal(src[key].cpu(), dst[key].cpu()):
+                raise ValueError(
+                    f"tower duplicate mismatch: {duplicate}.{key} differs "
+                    f"from its canonical {canonical} copy — this checkpoint "
+                    "was not trained/grafted in the frozen regime; "
+                    "share_towers would change its outputs")
 
 
 def _tree_size(state_dict: dict) -> int:

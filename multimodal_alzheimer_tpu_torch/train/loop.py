@@ -7,7 +7,9 @@ TensorBoard logging with confusion-matrix images, EarlyStopping on
 ``val_loss_epoch``, two top-k checkpoint managers (val_loss min, val_f1
 max), ReduceLROnPlateau on ``val_loss_epoch``, and a ``val_loss`` history
 whose last entry is the HPO objective (ValidationLossTracker,
-train_pet_cnn.py:17-29). ``test`` adds bootstrap F1 and MCC with CIs,
+train_pet_cnn.py:17-29). A model with ``share_towers`` (the stage-3
+fusion) has its duplicate towers synced in every checkpoint it saves.
+``test`` adds bootstrap F1 and MCC with CIs,
 writes the confusion counts to ``confusion_matrix.json`` and, when the
 caller asks for them, the three confusion-matrix PNGs (base_model.py:135-217).
 
@@ -38,6 +40,7 @@ from multimodal_alzheimer_tpu_torch.metrics.classification import (
 )
 from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     TopKCheckpointManager,
+    sync_tower_duplicates,
 )
 from multimodal_alzheimer_tpu_torch.train.logging import ExperimentLogger
 from multimodal_alzheimer_tpu_torch.train.optim import (
@@ -167,9 +170,17 @@ class Trainer:
             if self.logger is not None:
                 self.logger.log_scalars(scalars, epoch)
 
-            for manager in self.ckpt_managers:
-                manager.consider(epoch, val_metrics, state.state_dict(),
-                                 self.hparams)
+            if self.ckpt_managers:
+                state_dict = state.state_dict()
+                if getattr(self.model, "share_towers", False):
+                    # the shared forward only updates the canonical towers'
+                    # BatchNorm statistics; saved checkpoints mirror them to
+                    # the duplicates, as the unshared (reference) regime
+                    # would have updated both
+                    state_dict = sync_tower_duplicates(state_dict)
+                for manager in self.ckpt_managers:
+                    manager.consider(epoch, val_metrics, state_dict,
+                                     self.hparams)
 
             if plateau is not None:
                 state.lr_scale = plateau.step(val_metrics["val_loss_epoch"])

@@ -59,7 +59,7 @@ from multimodal_alzheimer_tpu_torch.models.pet_models.pet_resnet_cnn import (
     PETResNetCNN,
 )
 from multimodal_alzheimer_tpu_torch.ops import hopper_bn
-from torch_port_helpers import random_flax_variables
+from torch_port_helpers import dist, random_flax_variables
 
 SHAPE = (12, 14, 12)
 BF16_ULP = 2.0 ** -8
@@ -86,17 +86,12 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setattr(pallas_bn, "INTERPRET", True)
 
 
-def _dist(a, b) -> float:
-    return float(np.abs(np.asarray(a, np.float64)
-                        - np.asarray(b, np.float64)).max())
-
-
 def _within(port, jax_bf16, jax_f32, what, scalar=False):
     """|port bf16 - JAX f32| <= 2 |JAX bf16 - JAX f32| (largest entries)."""
-    ref = _dist(jax_bf16, jax_f32)
+    ref = dist(jax_bf16, jax_f32)
     if scalar:
         ref = max(ref, BF16_ULP * abs(float(jax_f32)))
-    got = _dist(port, jax_f32)
+    got = dist(port, jax_f32)
     assert got <= 2 * ref, f"{what}: {got:.3g} from JAX f32, JAX bf16 " \
                            f"{ref:.3g}"
     return ref

@@ -85,7 +85,14 @@ from multimodal_alzheimer_tpu_torch.train.state import (
     TrainState,
     make_train_step,
 )
-from torch_port_helpers import Trial, random_variables, run_unfused
+from torch_port_helpers import (
+    Trial,
+    adam_mu,
+    dist,
+    flat,
+    random_variables,
+    run_unfused,
+)
 
 SHAPE = (12, 14, 12)
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)
@@ -170,11 +177,6 @@ def _inputs(modalities, seed, n=4):
     return {k: out[k].astype(np.float32) for k in modalities}
 
 
-def _dist(a, b) -> float:
-    return float(np.abs(np.asarray(a, np.float64)
-                        - np.asarray(b, np.float64)).max())
-
-
 EVAL_CASES = [(name, "float32") for name in sorted(FUSIONS)] + [
     (name, "bfloat16") for name in ("anat_pet-3", "mri_tab",
                                     "pet_tab-simple")]
@@ -205,30 +207,14 @@ def test_fusion_matches_jax(setups, name, dtype):
             np.testing.assert_allclose(g, np.asarray(w32), **MODEL_TOL,
                                        err_msg=what)
         else:
-            ref = _dist(np.asarray(w16, np.float32), w32)
-            assert _dist(g, w32) <= 2 * ref, (what, _dist(g, w32), ref)
-
-
-def _flat(tree):
-    return {tuple(k.key for k in path): np.asarray(leaf)
-            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
-
-
-def _adam_mu(opt_state):
-    """{param path: first moment} of every trained parameter."""
-    out = {}
-    for path, leaf in jax.tree_util.tree_leaves_with_path(opt_state):
-        names = [getattr(k, "name", None) for k in path]
-        if "mu" in names:
-            out[tuple(k.key for k in path[names.index("mu") + 1:])] = \
-                np.asarray(leaf)
-    return out
+            ref = dist(np.asarray(w16, np.float32), w32)
+            assert dist(g, w32) <= 2 * ref, (what, dist(g, w32), ref)
 
 
 def _port_params(model, values: dict) -> dict:
     sd = dict(model.state_dict())
     sd.update(values)
-    return _flat(flax_from_state_dict(sd)["params"])
+    return flat(flax_from_state_dict(sd)["params"])
 
 
 def _train_batch(modalities, n_classes, seed=0):
@@ -272,7 +258,7 @@ def test_train_step_matches_jax(name, frozen):
     state, aux = run_unfused(
         step, JaxTrainState.create(variables, optimizer),
         {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
-    want_params, want_mu = _flat(state.params), _adam_mu(state.opt_state)
+    want_params, want_mu = flat(state.params), adam_mu(state.opt_state)
 
     port_opt = driver.fusion_optimizer(hp, port_train.HEAD_NAMES, port)
     port_step = make_train_step(port, make_criterion(hp), port_opt,
@@ -284,10 +270,10 @@ def test_train_step_matches_jax(name, frozen):
                                rtol=LOSS_RTOL)
     np.testing.assert_allclose(paux["logits"].numpy(),
                                np.asarray(aux["logits"]), **MODEL_TOL)
-    stats = _flat(flax_from_state_dict(port.state_dict())["batch_stats"])
-    before_stats = _flat(variables["batch_stats"])
-    assert set(stats) == set(_flat(state.batch_stats)) and stats
-    for key, value in _flat(state.batch_stats).items():
+    stats = flat(flax_from_state_dict(port.state_dict())["batch_stats"])
+    before_stats = flat(variables["batch_stats"])
+    assert set(stats) == set(flat(state.batch_stats)) and stats
+    for key, value in flat(state.batch_stats).items():
         np.testing.assert_allclose(stats[key], value, err_msg=str(key),
                                    **STATS_TOL)
         assert not np.array_equal(value, before_stats[key]), key
@@ -308,7 +294,7 @@ def test_train_step_matches_jax(name, frozen):
         np.testing.assert_allclose(got_params[key][moved],
                                    want_params[key][moved], rtol=0,
                                    atol=PARAM_ATOL, err_msg=str(key))
-    before = _flat(variables["params"])
+    before = flat(variables["params"])
     for key, value in want_params.items():
         if key not in want_mu:  # frozen towers: no move on either side
             np.testing.assert_array_equal(value, before[key])
@@ -385,11 +371,11 @@ def test_graft_params_matches_jax(stage1):
     for key in ("cls2.weight", "reduce_tab.bias"):
         assert torch.equal(grafted[key], initial[key])
     # JAX's graft of the same trees gives the same weights
-    want = _flat(jax_checkpoint.graft_params(
+    want = flat(jax_checkpoint.graft_params(
         flax_from_state_dict(initial),
         {"mri_model": flax_from_state_dict(mri_sd),
          "tab_model": flax_from_state_dict(tab_sd)}))
-    got = _flat(flax_from_state_dict(grafted))
+    got = flat(flax_from_state_dict(grafted))
     assert set(want) == set(got)
     for key, value in want.items():
         np.testing.assert_array_equal(value, got[key], err_msg=str(key))
@@ -445,7 +431,7 @@ def test_fusion_optimizer_groups_match_jax(setups, monkeypatch, name,
     assert all(g["weight_decay"] == captured["l2_reg"] == 1e-2
                for g in optimizer.param_groups)
     jax_lr = {}
-    for path in _flat(variables["params"]):
+    for path in flat(variables["params"]):
         jax_lr[path[:-1]] = captured["group_lrs"].get(captured["label"](path))
     for n, param in port.named_parameters():
         assert lrs.get(id(param)) == jax_lr[tuple(n.split(".")[:-1])], n

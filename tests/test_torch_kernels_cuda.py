@@ -20,7 +20,9 @@ and bfloat16: both add in the same order with one rounding per add. The
 BatchNorm kernels take bfloat16 activations too, held to their plain
 versions (float32 arithmetic, one rounding) the same way. The one-launch
 reductions (K4, K6) and K8 allocate their output and nothing else; K4 and
-K6 give the same bits on every call.
+K6 give the same bits on every call. The stage-3 and early-fusion train
+steps launch the kernels their paths reach, as many times as chip_smoke.py
+expects at full width.
 """
 
 import time
@@ -31,6 +33,33 @@ import torch
 
 from multimodal_alzheimer_tpu_torch.data.preprocess import (
     make_device_preprocess,
+)
+from multimodal_alzheimer_tpu_torch.data.synthetic import make_labeled_volumes
+from multimodal_alzheimer_tpu_torch.losses.classification import (
+    make_criterion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.all_modalities_fusion import (
+    AllModalitiesFusion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.anat_pet_fusion import (
+    AnatPETFusion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.early_fusion import (
+    PETMRIEarlyFusion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.pet_tabular_fusion import (
+    PETTabularFusion,
+)
+from multimodal_alzheimer_tpu_torch.models.fusion_models.tabular_mri_fusion import (
+    TabularMRIFusion,
+)
+from multimodal_alzheimer_tpu_torch.models.layers import FusedBatchNorm
+from multimodal_alzheimer_tpu_torch.models.mri_models.anat_cnn import AnatCNN
+from multimodal_alzheimer_tpu_torch.models.pet_models.pet_cnn import (
+    SmallPETCNN,
+)
+from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
+    TabularMLP,
 )
 from multimodal_alzheimer_tpu_torch.ops import (
     _native,
@@ -43,6 +72,14 @@ from multimodal_alzheimer_tpu_torch.ops.maxpool import (
     pool_forward,
 )
 from multimodal_alzheimer_tpu_torch.ops.quantile import interpolate
+from multimodal_alzheimer_tpu_torch.train.checkpoint import (
+    sync_tower_duplicates,
+)
+from multimodal_alzheimer_tpu_torch.train.driver import fusion_optimizer
+from multimodal_alzheimer_tpu_torch.train.state import (
+    TrainState,
+    make_train_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -769,3 +806,86 @@ def test_maxpool_backward_refuses_what_it_does_not_take(device):
                                            pool_forward(big))
     assert hopper_maxpool.LAUNCHES["maxpool_bwd"] == before
 
+
+
+def _launches() -> dict:
+    return {**hopper_norm.LAUNCHES, **hopper_bn.LAUNCHES,
+            **hopper_maxpool.LAUNCHES}
+
+
+def _fusion_batch(modalities, n, device):
+    data = make_labeled_volumes(n, (32, 36, 32), n_classes=2, seed=0,
+                                modalities=modalities)
+    data["label"] = (np.arange(n) % 2).astype(np.int32)
+    return {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+
+
+@pytest.mark.parametrize("trained", [False, True],
+                         ids=["frozen-shared", "towers-trained"])
+def test_stage3_step_launches(device, trained):
+    """Stage 3 over fused_bn="full" ResNet-10 towers, raw scans: K1 and K2
+    once; frozen (shared), K4/K5 once per BatchNorm of one MRI tower and no
+    K6/K7; towers trained (unshared), K4-K7 once per BatchNorm of both."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    kw = dict(freeze_towers=not trained, device=device, generator=gen)
+
+    def mri():
+        return AnatCNN.from_hparams(
+            {"n_classes": 2, "resnet_depth": 10, "linear_out": ()},
+            fused_bn="full", device=device, generator=gen)
+
+    tab = {"n_classes": 2, "hidden": (16, 32)}
+    pet = {"n_classes": 2, "conv_out": (4, 8), "filter_size": (3, 3)}
+    model = AllModalitiesFusion(
+        2, AnatPETFusion(2, SmallPETCNN.from_hparams(pet, device=device),
+                         mri(), **kw),
+        TabularMRIFusion(2, mri(), TabularMLP.from_hparams(
+            tab, device=device), **kw),
+        PETTabularFusion(2, SmallPETCNN.from_hparams(pet, device=device),
+                         TabularMLP.from_hparams(tab, device=device), **kw),
+        freeze_towers=not trained, share_towers=not trained, device=device,
+        generator=gen)
+    model.load_state_dict(sync_tower_duplicates(model.state_dict()))
+    n_bn = sum(isinstance(m, FusedBatchNorm)
+               for m in model.model_anat_pet.mri_model.modules())
+    hp = {"n_classes": 2, "lr": 1e-3, "l2_reg": 1e-2,
+          "lr_pretrained": 1e-5 if trained else None,
+          "loss_class_weights": [0.5, 0.5]}
+    optimizer = fusion_optimizer(hp, ("stage3out", "cls3"), model)
+    step = make_train_step(
+        model, make_criterion(hp), optimizer, make_device_preprocess(
+            {"mean": 0.5, "std": 0.25}, {"per_scan_norm": "min_max"}))
+    batch = _fusion_batch(("mri", "pet1451", "tabular"), 2, device)
+    before = _launches()
+    step(TrainState(model, optimizer), batch)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _launches().items()}
+    n_fwd, n_bwd = (2 * n_bn, 2 * n_bn) if trained else (n_bn, 0)
+    assert n_bn > 0 and got == {
+        "minmax_select": 1, "minmax_apply": 1, "zscore": 0,
+        "bn_stats": n_fwd, "bn_apply": n_fwd, "bn_grad_sum": n_bwd,
+        "bn_dx": n_bwd, "maxpool_bwd": 0}, got
+
+
+@pytest.mark.parametrize("mri_norm,k12", [
+    ({"per_scan_norm": "min_max"}, 1),
+    ({"all_scan_norm": {"mean": 426.9336, "std": 1018.783}}, 0)],
+    ids=["differentnorm", "samenorm"])
+def test_early_fusion_step_launches(device, mri_norm, k12):
+    """Early fusion: the per-scan min-max runs K1 and K2 once per step; the
+    all-scan z-score is elementwise and runs no kernel."""
+    model = PETMRIEarlyFusion(2, conv_out=(4, 8), filter_size=(5, 3),
+                              device=device)
+    hp = {"n_classes": 2, "loss_class_weights": [0.5, 0.5]}
+    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step = make_train_step(model, make_criterion(hp), optimizer,
+                           make_device_preprocess({"mean": 0.5,
+                                                   "std": 0.25}, mri_norm))
+    before = _launches()
+    _, aux = step(TrainState(model, optimizer),
+                  _fusion_batch(("mri", "pet1451"), 4, device))
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _launches().items()}
+    assert np.isfinite(aux["loss"].item())
+    assert got == dict(dict.fromkeys(got, 0), minmax_select=k12,
+                       minmax_apply=k12), got

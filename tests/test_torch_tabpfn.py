@@ -45,7 +45,7 @@ from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
     TabularMLP,
 )
 from test_tabpfn import EMSIZE, NFEAT, NHEAD, NHID, NLAYERS, TorchTabPFN
-from torch_port_helpers import random_variables
+from torch_port_helpers import dist, random_variables
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 PRE_TOL = dict(rtol=2e-6, atol=2e-6)
@@ -136,11 +136,6 @@ def test_transformer_matches_jax(weights, seed):
                                **F32_TOL)
 
 
-def _dist(a, b) -> float:
-    return float(np.abs(np.asarray(a, np.float64)
-                        - np.asarray(b, np.float64)).max())
-
-
 @pytest.mark.parametrize("seed", range(2))
 def test_bf16_transformer_matches_jax(weights, seed):
     """bf16 compute, f32 params: logits and decoder tap within twice JAX's
@@ -159,8 +154,8 @@ def test_bf16_transformer_matches_jax(weights, seed):
              want[jnp.float32]["embeddings"]["decoder"],
              want[jnp.bfloat16]["embeddings"]["decoder"])):
         assert g.dtype == torch.float32 and w16.dtype == jnp.float32
-        ref = _dist(w16, w32)
-        assert _dist(g.numpy(), w32) <= 2 * ref, (name, _dist(g, w32), ref)
+        ref = dist(w16, w32)
+        assert dist(g.numpy(), w32) <= 2 * ref, (name, dist(g, w32), ref)
 
 
 @pytest.fixture(scope="module")

@@ -50,7 +50,7 @@ from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
     compute_feature_stats,
 )
 from multimodal_alzheimer_tpu_torch.train.checkpoint import load_checkpoint
-from torch_port_helpers import Trial, random_variables
+from torch_port_helpers import Trial, dist, random_variables
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 SHAPE = (6, 7, 6)  # the test split's volumes: the harness reads them
@@ -108,11 +108,6 @@ def _pair(rows, dtype=torch.float32, dropout_p=0.0, seed=0):
     return jax_models, variables, port
 
 
-def _dist(a, b) -> float:
-    return float(np.abs(np.asarray(a, np.float64)
-                        - np.asarray(b, np.float64)).max())
-
-
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 @pytest.mark.parametrize("key", ["tabular", "reference_3d",
                                  "tabular_embedding"])
@@ -152,8 +147,8 @@ def test_tabular_mlp_matches_jax(rows, dtype, key, train):
             np.testing.assert_allclose(g, np.asarray(w32), **F32_TOL,
                                        err_msg=name)
         else:
-            ref = _dist(np.asarray(w16, np.float32), w32)
-            assert _dist(g, w32) <= 2 * ref, (name, _dist(g, w32), ref)
+            ref = dist(np.asarray(w16, np.float32), w32)
+            assert dist(g, w32) <= 2 * ref, (name, dist(g, w32), ref)
 
 
 def test_dropout_follows_the_mode(rows):

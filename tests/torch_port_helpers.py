@@ -89,3 +89,27 @@ def run_unfused(fn, *args):
     compiled = jax.jit(fn).lower(*args).compile(
         {"xla_disable_hlo_passes": "fusion"})
     return compiled(*args)
+
+
+def flat(tree) -> dict:
+    """{path of names: numpy leaf} of a flax tree."""
+    return {tuple(k.key for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def adam_mu(opt_state) -> dict:
+    """{param path: Adam's first moment} of every trained parameter of an
+    optax state."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(opt_state):
+        names = [getattr(k, "name", None) for k in path]
+        if "mu" in names:
+            out[tuple(k.key for k in path[names.index("mu") + 1:])] = \
+                np.asarray(leaf)
+    return out
+
+
+def dist(a, b) -> float:
+    """Largest absolute difference, in float64."""
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
