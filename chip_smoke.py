@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: MRI serving, training and
 the entry points from NIfTI files on disk, the PET family with the stem
-max-pool backward kernel, TabPFN, the stage-2 fusions, stage 3 and the two
-fusion baselines.
+max-pool backward kernel, TabPFN, the stage-2 fusions, stage 3, the two
+fusion baselines, and the hyperparameter search (K-trial trainer, seed
+screen, shared-tower fusion search, the entry points' studies).
 
     python3 chip_smoke.py
 
@@ -130,14 +131,40 @@ Phases, each printing its lines:
      once per train and validation batch where the MRI takes the min-max),
      and the four test mains (test_all_mod_fusion,
      test_early_fusion_samenorm, test_early_fusion_differentnorm,
-     test_featuremap_fusion) on a registry naming those checkpoints.
+     test_featuremap_fusion) on a registry naming those checkpoints;
+ 24. on phase 15's split, train_anat_fast (ResNet-18 dilated=False, bf16):
+     a K=2 seed screen of 1 epoch, then 1 epoch of the checkpointed
+     continuation, which must start from the screen winner's snapshot;
+ 25. the MRI search at full width: percentile_normalizer at q=0.99 over 16
+     train + 8 val raw scans (K1 and K2 once per split, none for the
+     resident q again), then run_parallel_trials with K=2 flagship AnatCNN
+     trials (ResNet-18, dilated, f32, batch 8, 2 epochs), one with
+     lr_pretrained traced to 0.0: its backbone parameters bit for bit
+     unchanged, its running means moved, every val loss finite, each
+     trial against the same trial alone within rtol 2e-3; ms per
+     trial-epoch;
+ 26. fusion_hpo.run_frozen_fusion_trials for TabularMRIFusion: K=4 heads
+     over one ResNet-18 fused_bn="full" MRI tower and the TabularMLP (256,
+     1024) tower at full width, batch 8 of raw scans, f32 and bf16: per
+     train step K1 1, K2 1, K4/K5 20 (not 20 x K) and K6/K7 0; step ms;
+ 27. at 48x56x48 (the TPE's first proposals are ResNet-50s with 20-epoch
+     budgets): train_anat_cnn.optuna_optimization(n_trials=2, parallel=2)
+     (K1/K2 twice per percentile) and a frozen
+     train_mrt_tabular_fusion.optuna_optimization(n_trials=2, parallel=2)
+     over random-weight checkpoints (K2 alone), on a split of 114 T1w and
+     89 MRI+tabular training rows, so that every proposal's batch (up to
+     64) takes a step an epoch: each study holds 2 finite values and
+     some trial's val loss moves between epochs.
 The kernels line before the last lists every kernel with the launches of
 the path that ran it, its error against its plain version, its device time,
 per-call time, plain and library time and bound; K4-K7 also per shape and
 in bfloat16 (launches from the bf16 "full" step); K1-K7 also the f32
 fusion step's launches, frozen and unfrozen ("launches_fusion"), the f32
-stage-3 step's, frozen and towers trained ("launches_stage3"), and the f32
-early-fusion step's under both normalisations ("launches_early_fusion").
+stage-3 step's, frozen and towers trained ("launches_stage3"), the f32
+early-fusion step's under both normalisations ("launches_early_fusion"),
+and every kernel the HPO phases' launches ("launches_hpo": the seed
+screen's run, the MRI search's normalization, the shared-tower fusion
+search per train step in f32, and the two entry-point studies).
 Any failed check raises,
 so the script exits non-zero without printing its last line,
 {"ok": true, "device": {...}}. It needs one card and imports the
@@ -237,6 +264,7 @@ from multimodal_alzheimer_tpu_torch.models.tabular_models.tabpfn import (
 )
 from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
     TabularMLP,
+    compute_feature_stats,
 )
 from multimodal_alzheimer_tpu_torch.ops import (
     _native,
@@ -284,6 +312,12 @@ from multimodal_alzheimer_tpu_torch.tools.cases import (
     stage3_batch,
     stage3_model,
     stage3_preprocess,
+)
+from multimodal_alzheimer_tpu_torch.train import (
+    fusion_hpo,
+    hpo,
+    seed_screen,
+    vmap_hpo,
 )
 from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     TOWER_DUPLICATES,
@@ -1373,16 +1407,16 @@ def _batches(n: int, batch: int) -> int:
 
 
 @contextlib.contextmanager
-def entry_split(grid=GRID):
+def entry_split(grid=GRID, split=SPLIT):
     """A synthetic split at ``grid`` written by the port into a temporary
     directory, which is the CWD and ``MMALZ_DATA_DIR``'s root meanwhile."""
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as root:
         start = time.perf_counter()
         write_synthetic_split(os.path.join(root, "data"),
-                              volume_shape=tuple(grid), **SPLIT)
+                              volume_shape=tuple(grid), **split)
         n_files = len(os.listdir(os.path.join(root, "data", "images")))
-        log(f"[entry] wrote the split {SPLIT} at {grid}: {n_files} NIfTI "
+        log(f"[entry] wrote the split {split} at {grid}: {n_files} NIfTI "
             f"files in {time.perf_counter() - start:.2f} s")
         os.environ["MMALZ_DATA_DIR"] = os.path.join(root, "data")
         os.chdir(root)
@@ -2502,6 +2536,413 @@ def phase_stage3_entry_points(device, root, mri_checkpoint: str,
     return seconds
 
 
+# The HPO phases: the K-trial trainer at full width.
+HPO_TRIALS = ({"lr": 1e-3, "lr_pretrained": 1e-5, "l2_reg": 1e-2,
+               "fl_gamma": None, "trial_seed": 1},
+              {"lr": 1e-3, "lr_pretrained": None, "l2_reg": 1e-2,
+               "fl_gamma": 2, "trial_seed": 2})
+# Each trial of the K=2 run against the same trial run alone: val losses
+# within rtol 2e-3, the step floor of ROADMAP.md section C (one-ulp input
+# moves open 6e-4 of a gradient norm at full width).
+HPO_SOLO_RTOL = 2e-3
+# The entry-point phase's grid: optuna_optimization's TPE draws ResNet-50
+# and batch 32 in its first proposals with 20 epochs of budget, minutes at
+# 91x109x91 (the full-width HPO checks are the three phases before it).
+HPO_ENTRY_GRID = (48, 56, 48)
+# n_subjects (96, 8, 8) from seed 3 at that grid: 114 training T1w rows
+# and 89 MRI+tabular ones, so that the largest batch the spaces draw (64)
+# takes a step every epoch (the phase logs each bucket's batch and rows;
+# the writer draws the volumes and the manifest from one generator, so
+# the counts hold for this grid only).
+HPO_ENTRY_SPLIT = {"n_subjects": (96, 8, 8), "seed": 3}
+
+
+class _RawSplit:
+    """The quantile and device preprocess of an in-memory raw split, the
+    two things ``percentile_normalizer`` reads of a dataset."""
+
+    quantile = QUANTILE
+
+    def get_device_preprocess(self):
+        return make_device_preprocess(normalize_mri=MINMAX,
+                                      quantile=self.quantile)
+
+
+def _raw_split(n, grid, seed, modalities=("mri",)) -> dict:
+    data = make_labeled_volumes(n, tuple(grid), n_classes=2, seed=seed,
+                                modalities=modalities)
+    data["label"] = (np.arange(n) % 2).astype(np.int32)
+    return data
+
+
+def _live_init(model, generator, example, shared_example):
+    """The K-trial trainer's default init with the classifier bias at 1, as
+    ``train_model`` sets it: the trailing ReLU on the logits passes
+    gradient from the first step."""
+    trial = vmap_hpo._default_init(model, generator, example, shared_example)
+    with torch.no_grad():
+        trial.head.cls.bias.fill_(1.0)
+    return trial
+
+
+class _StepClock:
+    """Wraps a shared_fn: the host time between consecutive train-mode
+    calls of one epoch, each one train step of every trial (the card
+    synchronised at each call)."""
+
+    def __init__(self, shared_fn, steps_per_epoch: int):
+        self.shared_fn = shared_fn
+        self.per_epoch = steps_per_epoch
+        self.stamps = []
+
+    def __call__(self, carry, batch, train):
+        if train:
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+        return self.shared_fn(carry, batch, train)
+
+    def step_ms(self) -> float:
+        gaps = [(b - a) * 1e3 for i, (a, b) in enumerate(
+            zip(self.stamps, self.stamps[1:])) if (i + 1) % self.per_epoch]
+        return statistics.median(gaps)
+
+
+def phase_hpo_mri(device, grid=GRID, n_train: int = 16, n_val: int = 8,
+                  epochs: int = 2) -> dict:
+    """The MRI search at full width: percentile_normalizer at q=0.99 over a
+    raw split of 16 train + 8 val scans (K1 and K2 once per split), then
+    run_parallel_trials with K=2 flagship AnatCNN trials (ResNet-18,
+    dilated, f32) at batch 8 for 2 epochs, one with lr_pretrained traced to
+    0.0 (its backbone parameters kept bit for bit, its BatchNorm statistics
+    moved); each trial against the same trial alone. Returns the launches
+    of the normalization."""
+    torch.backends.cudnn.allow_tf32 = False
+    data = _raw_split(n_train + n_val, grid, SEED + 21)
+    train_raw = {k: v[:n_train] for k, v in data.items()}
+    val_raw = {k: v[n_train:] for k, v in data.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    normalized = train_anat_cnn.percentile_normalizer(
+        _RawSplit(), train_raw, val_raw, device)
+    train, val = normalized(QUANTILE)
+    torch.cuda.synchronize()
+    norm_launches = launch_counts()
+    want = dict(dict.fromkeys(norm_launches, 0), minmax_select=2,
+                minmax_apply=2)
+    check(norm_launches == want,
+          f"percentile_normalizer launches {norm_launches} == {want}")
+    check(normalized(QUANTILE)[0] is train and launch_counts() == want,
+          "the resident percentile is reused without a launch")
+    model = AnatCNN.from_hparams(TRAIN_HPARAMS, freeze_backbone=False)
+    hp = vmap_hpo.stack_trial_hparams(HPO_TRIALS,
+                                      extra_keys=("lr_pretrained",))
+    kwargs = dict(batch_size=8, max_epochs=epochs, patience=epochs,
+                  class_weights=[0.5, 0.5], seed=SEED,
+                  apply_fn=vmap_hpo.plain_apply, init_fn=_live_init,
+                  lr_select=train_anat_cnn.head_backbone_lr,
+                  return_state=True, device=device)
+    reset_launch_counts()
+    start = time.perf_counter()
+    last, info = vmap_hpo.run_parallel_trials(model, hp, train, val,
+                                              **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(launch_counts() == dict.fromkeys(norm_launches, 0),
+          f"no kernel inside the trials (normalised split, fused_bn=False):"
+          f" {launch_counts()}")
+    history = info["val_history"]
+    check(history.shape == (epochs, 2) and np.isfinite(history).all(),
+          f"finite val losses {history.tolist()}")
+    params, stats, _ = info["carry"]
+    init = _live_init(model, make_generator(
+        vmap_hpo.trial_generator_seed(SEED, 2, 0)), None, None).state_dict()
+    backbone = [k for k in params if k.startswith("backbone.")]
+    kept = sum(torch.equal(params[k][1].cpu(), init[k]) for k in backbone)
+    check(kept == len(backbone),
+          f"frozen trial: {kept} of {len(backbone)} backbone parameters kept")
+    head_moved = sum(not torch.equal(params[k][1].cpu(), init[k])
+                     for k in params if k.startswith("head."))
+    check(head_moved > 0, "frozen trial: its head moved")
+    bn = [k for k in stats if k.endswith("running_mean")]
+    moved = sum(not torch.equal(stats[k][1].cpu(), init[k]) for k in bn)
+    check(moved == len(bn),
+          f"frozen trial: {moved} of {len(bn)} running means moved")
+    gap = param_gap = 0.0
+    for i, row in enumerate(HPO_TRIALS):
+        _, solo = vmap_hpo.run_parallel_trials(
+            model, vmap_hpo.stack_trial_hparams(
+                [row], extra_keys=("lr_pretrained",)), train, val, **kwargs)
+        gap = max(gap, float(np.max(np.abs(
+            solo["val_history"][:, 0] - history[:, i])
+            / np.abs(history[:, i]))))
+        check(gap <= HPO_SOLO_RTOL, f"trial {i} stacked vs solo: val "
+              f"{history[:, i].tolist()} vs "
+              f"{solo['val_history'][:, 0].tolist()}")
+        param_gap = max([param_gap] + [float(
+            (params[k][i] - solo["carry"][0][k][0]).abs().max())
+            for k in params])
+    epoch_ms = seconds * 1e3 / epochs / 2
+    log(f"[hpo mri] percentile_normalizer q={QUANTILE}: {n_train} + {n_val}"
+        f" scans at {grid}, launches {norm_launches}; K=2 ResNet-18 trials"
+        f" (f32, batch 8, {epochs} epochs, {n_train // 8} steps an epoch):"
+        f" {seconds:.2f} s, {epoch_ms:.1f} ms per trial-epoch (train and "
+        f"val; PR 6: a ~200 ms f32 step), val {history.tolist()}, stop "
+        f"{info['stopped_epoch'].tolist()}; frozen trial: backbone kept "
+        f"{kept}/{len(backbone)}, running means moved {moved}/{len(bn)}; "
+        f"each trial stacked vs solo: val rel gap {gap:.3g}, largest "
+        f"parameter gap {param_gap:.3g}")
+    return norm_launches
+
+
+def phase_hpo_screen(device, root) -> dict:
+    """train_anat_fast on the entry split (91x109x91, bf16, dilated=False):
+    a K=2 seed screen of 1 epoch, then 1 epoch of the continuation, which
+    must start from the winner's snapshot; returns its launches."""
+    screens, starts = [], []
+    real_screen, real_run = seed_screen.screen_seeds, \
+        train_anat_cnn.run_training
+
+    def screen(*args, **kwargs):
+        out = real_screen(*args, **kwargs)
+        screens.append(dict(out))
+        return out
+
+    def run(model, hparams, *args, variables_transform, **kwargs):
+        starts.append(variables_transform(model.state_dict()))
+        return real_run(model, hparams, *args,
+                        variables_transform=variables_transform, **kwargs)
+
+    hp = train_anat_cnn.sample_hparams(FixedTrial())
+    hp.update(max_epochs=1, best_k_checkpoints=1)
+    seed_screen.screen_seeds, train_anat_cnn.run_training = screen, run
+    try:
+        reset_launch_counts()
+        start = time.perf_counter()
+        last, out = train_anat_cnn.train_anat_fast(
+            hp, "chip_smoke_fast", screen_k=2, screen_epochs=1,
+            log_confusion_images=False, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    finally:
+        seed_screen.screen_seeds, train_anat_cnn.run_training = \
+            real_screen, real_run
+    launches = launch_counts()
+    winner = screens[0]["winner_variables"]
+    check(np.isfinite(last) and np.isfinite(out["best_val"]).all(),
+          f"finite screen and fit: {out['best_val'].tolist()}, {last}")
+    check(set(starts[0]) == set(winner) and all(
+        torch.equal(starts[0][k], v) for k, v in winner.items()),
+        "the continuation starts from the winner's snapshot")
+    log(f"[hpo screen] train_anat_fast (ResNet-18 dilated=False, bf16, "
+        f"batch 8): screen K=2 x 1 epoch {out['screen_wall_s']} s, winner "
+        f"seed {out['winner_seed']} (best val {out['best_val'].tolist()}), "
+        f"continuation 1 epoch {out['fit_wall_s']} s from the winner's "
+        f"snapshot, val loss {last:.6f}; {seconds:.2f} s in all, launches "
+        f"{launches}")
+    return launches
+
+
+def phase_hpo_fusion(device, grid=GRID, k: int = 4, steps: int = 3,
+                     epochs: int = 2) -> dict:
+    """fusion_hpo.run_frozen_fusion_trials for TabularMRIFusion: K=4 heads
+    over one ResNet-18 fused_bn="full" MRI tower and the TabularMLP (256,
+    1024) tower at full width, batch 8 of raw scans (K1 and K2 per step,
+    bounds not memoised), f32 and bf16: per train step K1 1, K2 1, K4/K5
+    20 and K6/K7 0, not K times that; returns the f32 launches per step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = _raw_split(8 * steps + 8, grid, SEED + 22, ("mri", "tabular"))
+    train = {key: v[:8 * steps] for key, v in data.items()}
+    val = {key: v[8 * steps:] for key, v in data.items()}
+    mean, std = compute_feature_stats(train["tabular"])
+    rows = [{"lr": lr, "l2_reg": 1e-2, "fl_gamma": gamma, "trial_seed": i}
+            for i, (lr, gamma) in enumerate(((1e-3, None), (3e-3, 2),
+                                             (1e-2, None), (3e-4, 5)))][:k]
+    per_step = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = make_generator(SEED)
+        mri = AnatCNN.from_hparams(TRAIN_HPARAMS, fused_bn="full",
+                                   freeze_backbone=False, dtype=dtype,
+                                   generator=gen)
+        tab = TabularMLP.from_hparams(dict(TAB_HPARAMS, feature_mean=mean,
+                                           feature_std=std), dtype=dtype,
+                                      generator=gen)
+        head = TabularMRIFusion(2, copy.deepcopy(mri), copy.deepcopy(tab),
+                                freeze_towers=True, dtype=dtype)
+        shared_fn, carry0 = fusion_hpo.make_shared_towers_fn(
+            {"mri": mri, "tab": tab},
+            {"mri": mri.state_dict(), "tab": tab.state_dict()},
+            make_device_preprocess(normalize_mri=MINMAX, quantile=QUANTILE),
+            device)
+        clock = _StepClock(shared_fn, steps)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        start = time.perf_counter()
+        _, info = fusion_hpo.run_shared_trials(
+            head, clock, carry0, vmap_hpo.stack_trial_hparams(rows), train,
+            val, batch_size=8, max_epochs=epochs, patience=epochs,
+            class_weights=[0.5, 0.5], seed=SEED, return_state=True,
+            device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = launch_counts()
+        n_steps = steps * epochs
+        n_eval = 1 + epochs  # the shape probe and one val batch an epoch
+        want = {"minmax_select": n_steps + n_eval,
+                "minmax_apply": n_steps + n_eval, "zscore": 0,
+                "maxpool_bwd": 0, "bn_stats": BN_LAYERS * n_steps,
+                "bn_apply": BN_LAYERS * n_steps, "bn_grad_sum": 0,
+                "bn_dx": 0}
+        what = f"K={k} TabularMRIFusion heads {str(dtype)[6:]}"
+        check(launches == want, f"{what} launches {launches} == {want}")
+        check(np.isfinite(info["val_history"]).all(),
+              f"{what}: finite val losses {info['val_history'].tolist()}")
+        check(set(info["carry"][0]) == {
+            f"{m}.{p}" for m in train_mrt_tabular_fusion.HEAD_NAMES
+            for p in ("weight", "bias")}, f"{what}: only heads train")
+        step = {key: (v - (n_eval if key.startswith("minmax") else 0))
+                / n_steps for key, v in launches.items()}
+        per_step[dtype] = step
+        pr7 = {torch.float32: 49.61, torch.bfloat16: 21.47}[dtype]
+        log(f"[hpo fusion] {what}, batch 8 at {grid}, {steps} steps x "
+            f"{epochs} epochs: {seconds:.2f} s, median step "
+            f"{clock.step_ms():.2f} ms (towers once + {k} head steps; PR 7's"
+            f" single frozen TabularMRIFusion step {pr7} ms), launches per "
+            f"train step {step}, val {info['val_history'].tolist()}")
+        del head, mri, tab, shared_fn, carry0, info, clock
+    return per_step[torch.float32]
+
+
+def _frozen_study(module, n_classes, **paths):
+    """A TPE study of the port whose first two proposals are frozen (the
+    shared-tower path), found by seed."""
+    for seed in range(200):
+        study = hpo.TPEStudy(seed=seed)
+        if all(module.sample_hparams(study.ask(), n_classes=n_classes,
+                                     **paths)["lr_pretrained"] is None
+               for _ in range(2)):
+            return hpo.TPEStudy(seed=seed), seed
+    raise RuntimeError("no seed below 200 gives two frozen proposals")
+
+
+@contextlib.contextmanager
+def _recorded_buckets():
+    """Records each bucket the K-trial trainer runs: its batch size, its
+    training rows and its val history (epochs, K)."""
+    buckets, real = [], vmap_hpo.run_parallel_trials
+
+    def run(model, hp, train_data, val_data, **kwargs):
+        values, info = real(model, hp, train_data, val_data, **kwargs)
+        buckets.append((kwargs["batch_size"], len(train_data["label"]),
+                        info["val_history"]))
+        return values, info
+
+    vmap_hpo.run_parallel_trials = run
+    try:
+        yield buckets
+    finally:
+        vmap_hpo.run_parallel_trials = real
+
+
+def _shapes(buckets) -> list:
+    return [(batch, n, len(history)) for batch, n, history in buckets]
+
+
+def _check_study(what: str, study, buckets) -> list:
+    """Two finite values, every bucket a step an epoch, and some trial's
+    val loss moving between epochs (a search that trains nothing, or
+    only dead trials, holds each val loss at its init value)."""
+    values = [v for v, _ in study.trials]
+    check(len(values) == 2 and np.isfinite(values).all(),
+          f"the {what} study holds 2 finite values: {values}")
+    check(all(n >= batch for batch, n, _ in buckets),
+          f"every {what} bucket takes a step an epoch: (batch, rows, "
+          f"epochs) {_shapes(buckets)}")
+    moved = [float(np.ptp(history[np.isfinite(history[:, i]), i]))
+             for _, _, history in buckets
+             for i in range(history.shape[1])]
+    check(max(moved) > 0, f"some {what} trial's val loss moves: spreads "
+          f"{moved}")
+    return moved
+
+
+def phase_hpo_entry_points(device, grid=HPO_ENTRY_GRID) -> dict:
+    """train_anat_cnn.optuna_optimization(n_trials=2, parallel=2) and a
+    frozen train_mrt_tabular_fusion.optuna_optimization(n_trials=2,
+    parallel=2) from files on disk at HPO_ENTRY_GRID: 2 finite values
+    each, some trial's val loss moving, K1/K2 twice per percentile (train
+    and val split) in the MRI search, K2 alone (memoised bounds) in the
+    fusion search."""
+    out = {}
+    with entry_split(grid, HPO_ENTRY_SPLIT) as root:
+        reset_launch_counts()
+        start = time.perf_counter()
+        with _recorded_buckets() as buckets:
+            study = train_anat_cnn.optuna_optimization(
+                n_trials=2, parallel=2, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = launch_counts()
+        values = [v for v, _ in study.trials]
+        qs = {p["norm_percentile"] for _, p in study.trials}
+        moved = _check_study("MRI", study, buckets)
+        want = dict(dict.fromkeys(launches, 0),
+                    minmax_select=2 * len(qs), minmax_apply=2 * len(qs))
+        check(launches == want, f"MRI study launches {launches} == {want}")
+        out["mri"] = launches
+        proposals = [(p["resnet_depth"], p["batch_size"],
+                      p["norm_percentile"]) for _, p in study.trials]
+        log(f"[hpo entry] train_anat_cnn.optuna_optimization(n_trials=2, "
+            f"parallel=2) at {grid}: {seconds:.2f} s, values {values}, "
+            f"proposals {proposals} (depth, batch, q), val-loss spreads "
+            f"{moved}, buckets (batch, rows, epochs) {_shapes(buckets)}, "
+            f"launches {launches}")
+
+        mri_hp = dict(TRAIN_HPARAMS, norm_percentile=QUANTILE)
+        tab_hp = dict(TAB_HPARAMS, feature_mean=[0.0] * 9,
+                      feature_std=[1.0] * 9)
+        paths = {}
+        for name, model in (
+                ("mri_cnn_2_class", AnatCNN.from_hparams(
+                    mri_hp, generator=make_generator(SEED))),
+                ("tabular_mlp_2_class", TabularMLP.from_hparams(
+                    tab_hp, generator=make_generator(SEED)))):
+            paths[name] = os.path.join(root, name)
+            save_checkpoint(paths[name], model.state_dict(),
+                            mri_hp if name.startswith("mri") else tab_hp)
+        with open("path_config.yaml", "w") as f:
+            f.write("".join(f"{k}: '{v}'\n" for k, v in paths.items()))
+        frozen, seed = _frozen_study(
+            train_mrt_tabular_fusion, 2, path_mri=paths["mri_cnn_2_class"],
+            path_tabular=paths["tabular_mlp_2_class"])
+        real_create = hpo.create_study
+        hpo.create_study = lambda **_: frozen
+        reset_launch_counts()
+        start = time.perf_counter()
+        try:
+            with _recorded_buckets() as buckets:
+                study = train_mrt_tabular_fusion.optuna_optimization(
+                    n_trials=2, parallel=2, device=device)
+            torch.cuda.synchronize()
+        finally:
+            hpo.create_study = real_create
+        seconds = time.perf_counter() - start
+        launches = launch_counts()
+        values = [v for v, _ in study.trials]
+        moved = _check_study("fusion", study, buckets)
+        check(launches["minmax_select"] == 0 and launches["minmax_apply"] > 0
+              and all(launches[k] == 0 for k in BN_KERNELS),
+              f"fusion study launches {launches}: K2 alone")
+        out["mri_tab"] = launches
+        log(f"[hpo entry] frozen train_mrt_tabular_fusion.optuna_optimization"
+            f"(n_trials=2, parallel=2) at {grid} (TPE seed {seed}): "
+            f"{seconds:.2f} s, values {values}, batch sizes "
+            f"{[p['batch_size'] for _, p in study.trials]}, val-loss spreads"
+            f" {moved}, buckets (batch, rows, epochs) {_shapes(buckets)}, "
+            f"launches {launches}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2541,6 +2982,10 @@ def main() -> int:
                                               pet_checkpoint)
         phase_stage3_entry_points(device, root, mri_checkpoint,
                                   pet_checkpoint, stage2)
+        hpo_launches = {"screen": phase_hpo_screen(device, root)}
+    hpo_launches["mri_normalize"] = phase_hpo_mri(device)
+    hpo_launches["fusion_per_step"] = phase_hpo_fusion(device)
+    hpo_launches.update(phase_hpo_entry_points(device))
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
     norm_bound = norm_bounds(8, int(np.prod(GRID)))
@@ -2562,6 +3007,7 @@ def main() -> int:
                                 stage3_launches.items()},
             "launches_early_fusion": {k: v[name] for k, v in
                                       early_launches.items()},
+            "launches_hpo": {k: v[name] for k, v in hpo_launches.items()},
             "shape": [8, int(np.prod(GRID))], "ms": ms, "call_ms": per_call,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
@@ -2576,6 +3022,7 @@ def main() -> int:
                                 stage3_launches.items()},
             "launches_early_fusion": {k: v[name] for k, v in
                                       early_launches.items()},
+            "launches_hpo": {k: v[name] for k, v in hpo_launches.items()},
             "max_abs_err": err[name], "batch": 8,
             "shape": list(BN_SHAPES["stem"]),
             **{k: bn_times["stem"][name][k] for k in keys},
@@ -2596,6 +3043,8 @@ def main() -> int:
         "name": "maxpool_bwd", "route": "cuda", "source": SOURCE["maxpool_bwd"],
         "replaces": REPLACES["maxpool_bwd"],
         "launches": pet_step["wf"]["maxpool_bwd"], "max_abs_err": err_k8,
+        "launches_hpo": {k: v["maxpool_bwd"] for k, v in
+                         hpo_launches.items()},
         "batch": 8, "shape": list(STEM), **{k: k8[k] for k in keys},
         "bfloat16": {k: pool[torch.bfloat16][1][k] for k in keys}})
     print(nvidia_smi(), flush=True)

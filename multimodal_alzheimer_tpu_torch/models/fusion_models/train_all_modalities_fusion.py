@@ -15,16 +15,21 @@ runs K2 alone). With every stage-2 sub-model frozen the model shares its
 towers, and the ``Trainer`` syncs the duplicates in every checkpoint.
 
 ``sample_hparams`` takes any object with optuna's ``suggest_float`` and
-``suggest_categorical``; this module does not import optuna. The HPO entry
-points (``_objective``, ``optuna_optimization`` and its vectorised
-branch) are not ported.
+``suggest_categorical``; optuna is imported only by ``hpo.create_study``.
+``optuna_optimization`` is the HPO entry point: sequential, or with
+``parallel=K`` frozen proposals trained K heads at a time over one shared
+tower forward per step (``train/fusion_hpo.py``) and unfrozen ones
+sequentially.
 """
 
 from __future__ import annotations
 
+import functools
+
 from multimodal_alzheimer_tpu_torch.models.fusion_models.all_modalities_fusion import (
     AllModalitiesFusion,
 )
+from multimodal_alzheimer_tpu_torch.train import hpo
 from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     graft_params,
     load_checkpoint,
@@ -123,3 +128,66 @@ def train(hparams: dict, experiment_name: str = "",
         log_confusion_images=log_confusion_images, device=device,
         **run_kwargs)
     return last_val_loss
+
+
+def _objective(trial, device="cuda", log_confusion_images: bool = True):
+    from multimodal_alzheimer_tpu_torch.utils.path_config import (
+        load_path_config,
+    )
+
+    paths = load_path_config()
+    hparams = sample_hparams(trial, 
+        path_pet=str(paths["pet_cnn_3_class"]),
+        path_mri=str(paths["mri_cnn_3_class"]),
+        path_tabular=str(paths["tabular_mlp_3_class"]),
+        path_anat_pet=str(paths["pet_mri_3_class"]),
+        path_anat_tab=str(paths["mri_tab_3_class"]),
+        path_pet_tab=str(paths["pet_tab_3_class"]))
+    return _sequential(hparams, device, log_confusion_images)
+
+
+def _sequential(hparams: dict, device, log_confusion_images: bool):
+    return hpo.oom_guard(train)(hparams, EXPERIMENT_NAME,
+                                EXPERIMENT_VERSION,
+                                log_confusion_images=log_confusion_images,
+                                device=device)
+
+
+def optuna_optimization(n_trials: int = 300, timeout: float = 86400,
+                        parallel: int = 0, device="cuda",
+                        log_confusion_images: bool = True):
+    """HPO entry point over the checkpoints ``path_config.yaml`` names.
+    ``parallel=K`` trains frozen proposals K stage-3 heads at a time over one
+    pass through the three frozen stage-2 models per step
+    (``fusion_hpo.optimize_stage3_all_modalities``, stage-1 towers shared);
+    unfrozen proposals keep the sequential path inside the same study.
+    """
+    study = hpo.create_study(direction="minimize")
+    if parallel and parallel > 1:
+        from multimodal_alzheimer_tpu_torch.train import fusion_hpo
+        from multimodal_alzheimer_tpu_torch.utils.path_config import (
+            load_path_config,
+        )
+
+        paths = load_path_config()
+        return fusion_hpo.optimize_stage3_all_modalities(
+            study, sample_hparams,
+            functools.partial(_sequential, device=device,
+                              log_confusion_images=log_confusion_images),
+            n_trials=n_trials, parallel=parallel,
+            path_pet=str(paths["pet_cnn_3_class"]),
+            path_mri=str(paths["mri_cnn_3_class"]),
+            path_tabular=str(paths["tabular_mlp_3_class"]),
+            path_anat_pet=str(paths["pet_mri_3_class"]),
+            path_anat_tab=str(paths["mri_tab_3_class"]),
+            path_pet_tab=str(paths["pet_tab_3_class"]), timeout=timeout,
+            device=device)
+    study.optimize(functools.partial(
+        _objective, device=device,
+        log_confusion_images=log_confusion_images),
+        n_trials=n_trials, timeout=timeout)
+    return study
+
+
+if __name__ == "__main__":
+    optuna_optimization()

@@ -8,14 +8,16 @@ constants: the PET z-score and the MRI all-scan z-score of
 ``train_early_fusion.MRI_ALL_SCAN_STATS``.
 
 ``sample_hparams`` takes any object with optuna's ``suggest_float`` and
-``suggest_categorical``; this module does not import optuna. The HPO entry
-points (``_objective``, ``optuna_optimization`` and its vectorised
-branch) are not ported.
+``suggest_categorical``; optuna is imported only by ``hpo.create_study``.
+``optuna_optimization`` is the HPO entry point, sequential or
+``parallel=K`` full-model trials per bucket through the K-trial trainer.
 
     python -m multimodal_alzheimer_tpu_torch.models.fusion_models.train_anat_pet_featuremapfusion
 """
 
 from __future__ import annotations
+
+import functools
 
 from multimodal_alzheimer_tpu_torch.models.fusion_models.featuremap_fusion import (
     PETMRIFeatureMapFusion,
@@ -23,6 +25,7 @@ from multimodal_alzheimer_tpu_torch.models.fusion_models.featuremap_fusion impor
 from multimodal_alzheimer_tpu_torch.models.fusion_models.train_early_fusion import (
     MRI_ALL_SCAN_STATS,
 )
+from multimodal_alzheimer_tpu_torch.train import hpo
 from multimodal_alzheimer_tpu_torch.train.driver import (
     attach_class_weights,
     build_datasets,
@@ -119,6 +122,73 @@ def train(hparams: dict, experiment_name: str = EXPERIMENT_NAME,
         log_confusion_images=log_confusion_images, device=device,
         **run_kwargs)
     return last_val_loss
+
+
+@hpo.oom_guard
+def _objective(trial, device="cuda", log_confusion_images: bool = True):
+    return train(sample_hparams(trial), EXPERIMENT_NAME, EXPERIMENT_VERSION,
+                 log_confusion_images=log_confusion_images, device=device)
+
+
+def optuna_optimization(n_trials: int = 300, timeout: float = 86400,
+                        parallel: int = 0, device="cuda",
+                        log_confusion_images: bool = True):
+    """HPO entry point. ``parallel=K`` trains full-model trials K at a time
+    (``train/vmap_hpo.py``): every fusion-tower knob of this space is an
+    architecture choice, so the bucket signature carries them all and only lr
+    and fl_gamma vary per trial; both normalizations are fixed constants,
+    applied once over the split.
+    """
+    study = hpo.create_study(direction="minimize")
+    if parallel and parallel > 1:
+        from multimodal_alzheimer_tpu_torch.train import vmap_hpo
+        from multimodal_alzheimer_tpu_torch.train.fusion_hpo import (
+            preprocessed_arrays,
+        )
+
+        base = {"n_classes": 2}
+        trainset, valset = build_datasets(
+            base, ["pet1451", "t1w"],
+            normalize_pet={"mean": 0.5145, "std": 0.5383},
+            normalize_mri={"all_scan_norm": MRI_ALL_SCAN_STATS[2]})
+        attach_class_weights(base, trainset)
+        train_data = preprocessed_arrays(trainset, device)
+        val_data = preprocessed_arrays(valset, device)
+
+        def signature(hparams):
+            return (tuple(hparams["conv_out"]),
+                    tuple(hparams["filter_size"]),
+                    hparams["fusion_mode"],
+                    int(hparams["n_out_fusion"]),
+                    int(hparams["filter_size_fusion"]),
+                    bool(hparams["batchnorm"]),
+                    bool(hparams["batchnorm_fusion"]),
+                    int(hparams["batch_size"]),
+                    int(hparams["max_epochs"]),
+                    int(hparams["early_stopping_patience"]))
+
+        def batch_objective(sig, rows):
+            model = PETMRIFeatureMapFusion.from_hparams(
+                dict(base, **rows[0]))
+            hp = vmap_hpo.stack_trial_hparams(rows)
+            values, _ = vmap_hpo.run_parallel_trials(
+                model, hp, train_data, val_data,
+                batch_size=int(rows[0]["batch_size"]),
+                max_epochs=int(rows[0]["max_epochs"]),
+                patience=int(rows[0]["early_stopping_patience"]),
+                class_weights=base["loss_class_weights"], seed=SEED,
+                apply_fn=vmap_hpo.plain_apply, device=device)
+            return [float(v) for v in values[:len(rows)]]
+
+        vmap_hpo.optimize_batched(study, sample_hparams, batch_objective,
+                                  n_trials=n_trials, parallel=parallel,
+                                  signature_fn=signature, timeout=timeout)
+        return study
+    study.optimize(functools.partial(
+        _objective, device=device,
+        log_confusion_images=log_confusion_images),
+        n_trials=n_trials, timeout=timeout)
+    return study
 
 
 if __name__ == "__main__":

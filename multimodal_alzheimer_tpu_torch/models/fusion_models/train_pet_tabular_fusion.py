@@ -9,15 +9,21 @@ fusion's towers before the first step; the PET datasets take the PET
 checkpoint's z-score constants.
 
 ``sample_hparams`` takes any object with optuna's ``suggest_float`` and
-``suggest_categorical``; this module does not import optuna. The HPO entry
-points are not ported.
+``suggest_categorical``; optuna is imported only by ``hpo.create_study``.
+``optuna_optimization`` is the HPO entry point: sequential, or with
+``parallel=K`` frozen proposals trained K heads at a time over one shared
+tower forward per step (``train/fusion_hpo.py``) and unfrozen ones
+sequentially.
 """
 
 from __future__ import annotations
 
+import functools
+
 from multimodal_alzheimer_tpu_torch.models.fusion_models.pet_tabular_fusion import (
     PETTabularFusion,
 )
+from multimodal_alzheimer_tpu_torch.train import hpo
 from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     graft_params,
     load_checkpoint,
@@ -94,3 +100,56 @@ def train(hparams: dict, experiment_name: str = "",
         drop_last=True, log_confusion_images=log_confusion_images,
         device=device, **run_kwargs)
     return last_val_loss
+
+
+def _objective(trial, device="cuda", log_confusion_images: bool = True):
+    from multimodal_alzheimer_tpu_torch.utils.path_config import (
+        load_path_config,
+    )
+
+    paths = load_path_config()
+    hparams = sample_hparams(trial, path_pet=str(paths["pet_cnn_2_class"]),
+        path_tabular=str(paths["tabular_mlp_2_class"]))
+    return _sequential(hparams, device, log_confusion_images)
+
+
+def _sequential(hparams: dict, device, log_confusion_images: bool):
+    return hpo.oom_guard(train)(hparams, EXPERIMENT_NAME,
+                                EXPERIMENT_VERSION,
+                                log_confusion_images=log_confusion_images,
+                                device=device)
+
+
+def optuna_optimization(n_trials: int = 300, timeout: float = 86400,
+                        parallel: int = 0, device="cuda",
+                        log_confusion_images: bool = True):
+    """HPO entry point over the checkpoints ``path_config.yaml`` names.
+    ``parallel=K`` trains frozen proposals K heads at a time over one shared
+    tower forward per step (``fusion_hpo.optimize_stage2_pet_tab``); unfrozen
+    proposals keep the sequential path inside the same study.
+    """
+    study = hpo.create_study(direction="minimize")
+    if parallel and parallel > 1:
+        from multimodal_alzheimer_tpu_torch.train import fusion_hpo
+        from multimodal_alzheimer_tpu_torch.utils.path_config import (
+            load_path_config,
+        )
+
+        paths = load_path_config()
+        return fusion_hpo.optimize_stage2_pet_tab(
+            study, sample_hparams,
+            functools.partial(_sequential, device=device,
+                              log_confusion_images=log_confusion_images),
+            n_trials=n_trials, parallel=parallel, n_classes=2,
+            path_pet=str(paths["pet_cnn_2_class"]),
+            path_tabular=str(paths["tabular_mlp_2_class"]), timeout=timeout,
+            device=device)
+    study.optimize(functools.partial(
+        _objective, device=device,
+        log_confusion_images=log_confusion_images),
+        n_trials=n_trials, timeout=timeout)
+    return study
+
+
+if __name__ == "__main__":
+    optuna_optimization()

@@ -40,8 +40,10 @@ goes wrong quietly:
 Also ``max_pool3d`` with torch's floor semantics and the JAX package's guard
 against a tower too deep for its volume, ``global_avg_pool``, flax's
 weight initialisation from an explicit ``torch.Generator``, flax's
-``Dropout`` with its keep mask drawn from an explicit generator, and the
-small CNN's ``ConvBlock3D`` / ``ConvTower3D`` (``layers.py:361-442``).
+``Dropout`` with its keep mask drawn from an explicit generator,
+``traced_dropout`` / ``TracedDropout`` (the same masking with the rate given
+at call time, ``layers.py:123-136``), and the small CNN's ``ConvBlock3D`` /
+``ConvTower3D`` (``layers.py:361-442``).
 
 The JAX ``ConvBlock3D`` lowers its conv, ReLU and pool through
 ``S2DConvReLUPool`` (and its BatchNorm through ``ParityBatchNorm``) for
@@ -298,19 +300,58 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
+def traced_dropout(x: torch.Tensor, rate: float,
+                   generator: torch.Generator | None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Dropout whose rate is a call-time value (JAX ``traced_dropout``,
+    ``layers.py:123-136``): a Bernoulli keep mask with ``keep = 1 - rate``
+    in float32, survivors divided by ``keep`` rounded to ``dtype`` (the
+    compute dtype), the rest 0. The K-trial trainer (``train/vmap_hpo.py``)
+    gives each trial its own rate this way. ``rate == 0.0`` returns ``x``
+    itself, bit-exact to no dropout, and draws nothing from ``generator``.
+    Callers gate on train mode."""
+    if float(rate) == 0.0:
+        return x
+    keep = (torch.ones((), dtype=torch.float32)
+            - torch.tensor(float(rate), dtype=torch.float32))
+    mask = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep.item()
+    # both values are exact as Python floats, so no operand is rounded
+    return torch.where(mask, x / keep.to(dtype).item(),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class TracedDropout(nn.Module):
+    """Holds the generator of a model's ``traced_dropout`` calls (set by
+    ``set_dropout_generator``); ``forward(x, rate)`` drops in train mode
+    only. No parameters, so no state-dict entries."""
+
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor, rate) -> torch.Tensor:
+        if not self.training:
+            return x
+        return traced_dropout(x, rate, self.generator, self.dtype)
+
+
 def set_dropout_generator(module: nn.Module,
                           generator: torch.Generator | None) -> None:
-    """Every ``Dropout`` in ``module`` draws its masks from ``generator``
-    (JAX passes ``rngs={"dropout": key}`` to the step)."""
+    """Every ``Dropout`` and ``TracedDropout`` in ``module`` draws its masks
+    from ``generator`` (JAX passes ``rngs={"dropout": key}`` to the
+    step)."""
     for m in module.modules():
-        if isinstance(m, Dropout):
+        if isinstance(m, (Dropout, TracedDropout)):
             m.generator = generator
 
 
 class ConvBlock3D(nn.Module):
     """Conv3d('same', bias) -> [BN] -> ReLU -> MaxPool(2) -> [Dropout]
     (reference pet_cnn.py:17-28); submodules ``conv``, ``bn``; ``dtype`` is
-    the compute dtype."""
+    the compute dtype. ``forward(x, dropout_rate)``: a rate given at call
+    time replaces the static ``dropout_p`` (``traced_dropout``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  use_batchnorm: bool = False, dropout_p=None,
@@ -324,13 +365,16 @@ class ConvBlock3D(nn.Module):
                               device, dtype)
                    if use_batchnorm else None)
         self.dropout = Dropout(dropout_p) if dropout_p is not None else None
+        self.traced_dropout = TracedDropout(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_rate=None) -> torch.Tensor:
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         x = max_pool3d(F.relu(x))
-        if self.dropout is not None:
+        if dropout_rate is not None:
+            x = self.traced_dropout(x, dropout_rate)
+        elif self.dropout is not None:
             x = self.dropout(x)
         return x
 
@@ -353,9 +397,9 @@ class ConvTower3D(nn.Module):
             self.out_features = features
             self.n_blocks = i + 1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_rate=None) -> torch.Tensor:
         for i in range(self.n_blocks):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, dropout_rate)
         return x
 
 

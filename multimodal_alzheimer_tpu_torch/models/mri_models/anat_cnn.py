@@ -94,3 +94,7 @@ class AnatCNN(nn.Module):
             # stop_gradient: no backbone dgrad or wgrad work is done.
             fmap = fmap.detach()
         return self.head(fmap)
+
+    def fusion_tap(self) -> str:
+        """The embedding the fusions consume (JAX ``anat_cnn.py:103``)."""
+        return "backbone_gap"

@@ -27,6 +27,7 @@ from multimodal_alzheimer_tpu_torch.models.layers import (
     ConvTower3D,
     Dropout,
     Linear,
+    TracedDropout,
     global_avg_pool,
     reset_parameters,
 )
@@ -59,6 +60,7 @@ class SmallPETCNN(nn.Module):
                                  dtype)
         width = self.convs.out_features
         self.dense_dropout = self.hidden = None
+        self.traced_dropout = TracedDropout(dtype)
         if linear_out:
             if dropout_dense_p is not None:
                 self.dense_dropout = Dropout(dropout_dense_p)
@@ -84,12 +86,19 @@ class SmallPETCNN(nn.Module):
         kwargs.update(overrides)
         return cls(**kwargs)
 
-    def forward(self, batch: dict) -> dict:
+    def forward(self, batch: dict, dropout_conv_rate=None,
+                dropout_dense_rate=None) -> dict:
+        """``dropout_conv_rate`` / ``dropout_dense_rate``, given, replace the
+        static dropout of the conv blocks / before the hidden Linear with a
+        call-time rate (``layers.traced_dropout``, as JAX's traced rates);
+        0.0 is bit-exact no dropout."""
         x = batch[self.input_key]
         if x.ndim == 4:
             x = x.unsqueeze(1)  # (B, D, H, W) -> NCDHW
-        h = global_avg_pool(self.convs(x.to(self.dtype)))
-        if self.dense_dropout is not None:
+        h = global_avg_pool(self.convs(x.to(self.dtype), dropout_conv_rate))
+        if dropout_dense_rate is not None and self.hidden is not None:
+            h = self.traced_dropout(h, dropout_dense_rate)
+        elif self.dense_dropout is not None:
             h = self.dense_dropout(h)
         embeddings = {"gap": h}
         if self.hidden is not None:
@@ -109,8 +118,8 @@ class RandomBenchmarkAllCN(SmallPETCNN):
     """Predict-all-CN floor baseline (reference pet_cnn.py:85-90): the
     network runs, and the logits are one-hot on class 0."""
 
-    def forward(self, batch: dict) -> dict:
-        out = super().forward(batch)
+    def forward(self, batch: dict, **rates) -> dict:
+        out = super().forward(batch, **rates)
         logits = torch.zeros_like(out["logits"])
         logits[..., 0] = 1.0
         out["logits"] = logits

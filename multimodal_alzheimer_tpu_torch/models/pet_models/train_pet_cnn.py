@@ -9,16 +9,21 @@ patterns, batch >= 64 raising patience and epochs, fl_gamma in
 under ``MMALZ_DATA_DIR`` (or ``./data``).
 
 ``sample_hparams`` takes any object with optuna's ``suggest_float`` and
-``suggest_categorical``; this module does not import optuna.
+``suggest_categorical``; optuna is imported only by ``hpo.create_study``.
+``optuna_optimization`` is the HPO entry point, sequential or
+``parallel=K`` trials per bucket through the K-trial trainer.
 
     train(sample_hparams(trial), "pet", device="cpu")  # on a CPU
 """
 
 from __future__ import annotations
 
+import functools
+
 from multimodal_alzheimer_tpu_torch.models.pet_models.pet_cnn import (
     SmallPETCNN,
 )
+from multimodal_alzheimer_tpu_torch.train import hpo
 from multimodal_alzheimer_tpu_torch.train.driver import (
     attach_class_weights,
     build_datasets,
@@ -104,3 +109,84 @@ def train(hparams: dict, experiment_name: str = "",
         log_confusion_images=log_confusion_images, device=device,
         **run_kwargs)
     return last_val_loss
+
+
+@hpo.oom_guard
+def _objective(trial, device="cuda", log_confusion_images: bool = True):
+    hparams = sample_hparams(trial)
+    return train(hparams, EXPERIMENT_NAME, EXPERIMENT_VERSION,
+                 log_confusion_images=log_confusion_images, device=device)
+
+
+def _dropout_apply(model, batch, hp, train):
+    if train:
+        return model(batch, dropout_conv_rate=hp["dropout_conv_p"],
+                     dropout_dense_rate=hp["dropout_dense_p"])
+    return model(batch)
+
+
+def optuna_optimization(n_trials: int = 300, timeout: float = 86400,
+                        parallel: int = 0, device="cuda",
+                        log_confusion_images: bool = True):
+    """HPO entry point. ``parallel=K`` switches to the K-trial searcher
+    (``train/vmap_hpo.py``): the batched TPE asks K configs per round; configs
+    sharing the bucket signature (conv ladder, filter sizes, batchnorm,
+    linear_out, batch size and the batch>=64 epoch-budget bump) train together,
+    with lr, focal gamma and BOTH dropout rates per trial (an absent dropout
+    knob is rate 0.0, bit-exact no dropout, so dropout presence never splits a
+    bucket). Refit the winner with ``train()`` for a checkpoint.
+    """
+    study = hpo.create_study(direction="minimize")
+    if parallel and parallel > 1:
+        from multimodal_alzheimer_tpu_torch.train import vmap_hpo
+        from multimodal_alzheimer_tpu_torch.train.fusion_hpo import (
+            preprocessed_arrays,
+        )
+
+        base = {"n_classes": 3}
+        trainset, valset = build_datasets(
+            base, ["pet1451"],
+            normalize_pet={"mean": 0.5145, "std": 0.5383})
+        attach_class_weights(base, trainset)
+        # The PET normalization is elementwise and trial-invariant: once
+        # over the whole split, not per step per trial.
+        train_data = preprocessed_arrays(trainset, device)
+        val_data = preprocessed_arrays(valset, device)
+
+        def signature(hparams):
+            return (tuple(hparams["conv_out"]),
+                    tuple(hparams["filter_size"]),
+                    bool(hparams["batchnorm"]),
+                    int(hparams.get("linear_out") or 0),
+                    int(hparams["batch_size"]),
+                    int(hparams["max_epochs"]),
+                    int(hparams["early_stopping_patience"]))
+
+        def batch_objective(sig, rows):
+            model = SmallPETCNN.from_hparams(
+                dict(base, **rows[0]),
+                dropout_conv_p=None, dropout_dense_p=None)
+            hp = vmap_hpo.stack_trial_hparams(
+                rows, extra_keys=("dropout_conv_p", "dropout_dense_p"))
+            values, _ = vmap_hpo.run_parallel_trials(
+                model, hp, train_data, val_data,
+                batch_size=int(rows[0]["batch_size"]),
+                max_epochs=int(rows[0]["max_epochs"]),
+                patience=int(rows[0]["early_stopping_patience"]),
+                class_weights=base["loss_class_weights"], seed=SEED,
+                apply_fn=_dropout_apply, device=device)
+            return [float(v) for v in values[:len(rows)]]
+
+        vmap_hpo.optimize_batched(study, sample_hparams, batch_objective,
+                                  n_trials=n_trials, parallel=parallel,
+                                  signature_fn=signature, timeout=timeout)
+        return study
+    study.optimize(functools.partial(
+        _objective, device=device,
+        log_confusion_images=log_confusion_images),
+        n_trials=n_trials, timeout=timeout)
+    return study
+
+
+if __name__ == "__main__":
+    optuna_optimization()

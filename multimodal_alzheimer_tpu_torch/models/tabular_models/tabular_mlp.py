@@ -14,8 +14,10 @@ beforehand (``TabPFNClassifier.embed``) feed a fusion checkpoint exactly.
 Submodules follow the flax tree (``dense_{i}``, ``cls``), so
 ``models/convert.py`` maps weights by name; the feature statistics are
 hyperparameters, kept as buffers outside the ``state_dict``. ``dtype`` is
-the compute dtype (f32 parameters, f32 logits, the tap in ``dtype``). The
-HPO path's traced dropout rate is not ported; ``dropout_p`` is.
+the compute dtype (f32 parameters, f32 logits, the tap in ``dtype``).
+``forward(batch, dropout_rate)``: a rate given at call time replaces the
+static ``dropout_p`` (``layers.traced_dropout``), as the K-trial trainer
+uses it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from torch import nn
 from multimodal_alzheimer_tpu_torch.models.layers import (
     Dropout,
     Linear,
+    TracedDropout,
     reset_parameters,
 )
 
@@ -71,6 +74,7 @@ class TabularMLP(nn.Module):
                 self.add_module(f"dropout_{i}", Dropout(dropout_p))
             width = features
         self.dropout_p = float(dropout_p)
+        self.traced_dropout = TracedDropout(dtype)
         self.cls = Linear(width, n_classes, device=device,
                           compute_dtype=dtype)
         reset_parameters(self, generator)
@@ -91,7 +95,7 @@ class TabularMLP(nn.Module):
         kwargs.update(overrides)
         return cls(**kwargs)
 
-    def forward(self, batch: dict) -> dict:
+    def forward(self, batch: dict, dropout_rate=None) -> dict:
         dt = self.dtype
         if self.embedding_key and self.embedding_key in batch:
             h = batch[self.embedding_key].to(dt)
@@ -107,7 +111,9 @@ class TabularMLP(nn.Module):
         h = x
         for i in range(len(self.hidden)):
             h = F.relu(getattr(self, f"dense_{i}")(h))
-            if self.dropout_p:
+            if dropout_rate is not None:
+                h = self.traced_dropout(h, dropout_rate)
+            elif self.dropout_p:
                 h = getattr(self, f"dropout_{i}")(h)
         return {"logits": self.cls(h).to(torch.float32),
                 "embeddings": {"decoder": h}}

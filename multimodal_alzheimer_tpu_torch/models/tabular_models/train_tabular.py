@@ -10,19 +10,25 @@ feature statistics go into the hparams, and so into every checkpoint, for
 the fusion stages to reuse.
 
 ``sample_hparams`` takes any object with optuna's ``suggest_float`` and
-``suggest_categorical``; this module does not import optuna. The HPO
-entry point (``optuna_optimization``, the vectorised trials) is not ported.
+``suggest_categorical``; optuna is imported only by ``hpo.create_study``.
+``optuna_optimization`` is the HPO entry point, sequential or
+``parallel=K`` trials per bucket through the K-trial trainer.
 
     train(sample_hparams(trial), "tabular", device="cpu")  # on a CPU
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
+
 from multimodal_alzheimer_tpu_torch.data.tabular import tabular_matrix
 from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
     TabularMLP,
     compute_feature_stats,
 )
+from multimodal_alzheimer_tpu_torch.train import hpo
 from multimodal_alzheimer_tpu_torch.train.driver import (
     attach_class_weights,
     build_datasets,
@@ -80,3 +86,73 @@ def train(hparams: dict, experiment_name: str = "",
         log_confusion_images=log_confusion_images, device=device,
         **run_kwargs)
     return last_val_loss
+
+
+@hpo.oom_guard
+def _objective(trial, device="cuda", log_confusion_images: bool = True):
+    return train(sample_hparams(trial), EXPERIMENT_NAME, EXPERIMENT_VERSION,
+                 log_confusion_images=log_confusion_images, device=device)
+
+
+def _full_arrays(dataset) -> dict:
+    """The whole split's feature rows and labels as host arrays, for the
+    K-trial search."""
+    labels = np.array([dataset.label_mapping[r["label"]]
+                       for r in dataset.rows], np.int32)
+    return {"tabular": tabular_matrix(dataset.rows), "label": labels}
+
+
+def optuna_optimization(n_trials: int = 100, timeout: float = 86400,
+                        parallel: int = 0, device="cuda",
+                        log_confusion_images: bool = True):
+    """HPO entry point (reference train_pet_cnn.py:208-216 template).
+
+    ``parallel=K`` switches to the K-trial searcher (``train/vmap_hpo.py``):
+    TPE asks K configs per round, and configs of one (batch size, hidden)
+    bucket train together, each with its own lr, l2, dropout rate and loss. The
+    objective stays the last val loss at early stopping that the sequential
+    path returns; refit the winner with ``train()`` for a checkpoint (the
+    parallel path saves none).
+    """
+    study = hpo.create_study(direction="minimize")
+    if parallel and parallel > 1:
+        from multimodal_alzheimer_tpu_torch.train import vmap_hpo
+
+        base = {"n_classes": 3}
+        trainset, valset = build_datasets(base, ["tabular"])
+        attach_class_weights(base, trainset)
+        mean, std = compute_feature_stats(tabular_matrix(trainset.rows))
+        train_data = _full_arrays(trainset)
+        val_data = _full_arrays(valset)
+
+        def signature(hparams):
+            return (int(hparams["batch_size"]), tuple(hparams["hidden"]))
+
+        def batch_objective(signature, rows):
+            batch_size, hidden = signature
+            model = TabularMLP(n_classes=3, hidden=hidden,
+                               feature_mean=tuple(mean),
+                               feature_std=tuple(std))
+            hp = vmap_hpo.stack_trial_hparams(rows)
+            values, _ = vmap_hpo.run_parallel_trials(
+                model, hp, train_data, val_data,
+                batch_size=batch_size,
+                max_epochs=int(rows[0]["max_epochs"]),
+                patience=int(rows[0]["early_stopping_patience"]),
+                class_weights=base["loss_class_weights"], seed=SEED,
+                device=device)
+            return values[:len(rows)]
+
+        vmap_hpo.optimize_batched(
+            study, sample_hparams, batch_objective, n_trials=n_trials,
+            parallel=parallel, signature_fn=signature, timeout=timeout)
+        return study
+    study.optimize(functools.partial(
+        _objective, device=device,
+        log_confusion_images=log_confusion_images),
+        n_trials=n_trials, timeout=timeout)
+    return study
+
+
+if __name__ == "__main__":
+    optuna_optimization()

@@ -13,8 +13,11 @@ A checkpoint directory holds ``state.pt`` (the model's ``state_dict``),
 ``graft_params`` (``checkpoint.py:197``) loads stage-1 checkpoints into a
 fusion model's towers by submodule prefix. ``sync_tower_duplicates`` and
 ``assert_tower_duplicates_equal`` (``checkpoint.py:240-330``) keep and check
-the stage-3 fusion's duplicate tower copies. The train-state resume waits
-for its slice.
+the stage-3 fusion's duplicate tower copies. ``save_train_state`` /
+``load_train_state`` (``checkpoint.py:132-195``) write and read a resumable
+mid-run state: ``train_state.pt`` (the model's and the optimizer's
+``state_dict``, ``step`` and ``lr_scale``) beside ``hparams.json`` and
+``extra.json`` as JAX writes them.
 """
 
 from __future__ import annotations
@@ -122,6 +125,52 @@ class TopKCheckpointManager:
     @property
     def best_value(self) -> Optional[float]:
         return self.entries[0][0] if self.entries else None
+
+
+def save_train_state(path: str | Path, state, hparams: dict,
+                     extra: Optional[dict] = None) -> None:
+    """Full mid-run checkpoint of a ``TrainState``: parameters, BatchNorm
+    statistics, the optimizer's moments and groups (with their base lr),
+    ``step`` and ``lr_scale``; resumable training, which the reference's
+    ModelCheckpoints lack (SURVEY §5). Replaces any checkpoint at
+    ``path``."""
+    path = Path(path).absolute()
+    if path.exists():
+        shutil.rmtree(path)
+    path.mkdir(parents=True)
+    torch.save({
+        "model": {k: v.detach().cpu()
+                  for k, v in state.model.state_dict().items()},
+        "optimizer": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "lr_scale": float(state.lr_scale),
+    }, path / "train_state.pt")
+    with open(path / "hparams.json", "w") as f:
+        json.dump(_jsonable(hparams), f, indent=2)
+    if extra:
+        with open(path / "extra.json", "w") as f:
+            json.dump(_jsonable(extra), f, indent=2)
+
+
+def load_train_state(path: str | Path, model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer):
+    """Restore a ``save_train_state`` checkpoint into ``model`` and
+    ``optimizer``, built as the saved ones were (the same parameter groups);
+    the moments move to the parameters' device. Returns ``(TrainState,
+    hparams)``."""
+    from multimodal_alzheimer_tpu_torch.train.state import TrainState
+
+    path = Path(path).absolute()
+    saved = torch.load(path / "train_state.pt", map_location="cpu",
+                       weights_only=True)
+    with open(path / "hparams.json") as f:
+        hparams = json.load(f)
+    model.load_state_dict(saved["model"])
+    optimizer.load_state_dict(saved["optimizer"])
+    state = TrainState(model=model, optimizer=optimizer,
+                       step=int(saved["step"]),
+                       lr_scale=float(saved["lr_scale"]))
+    return state, hparams
 
 
 def graft_params(target: dict, grafts: dict) -> dict:

@@ -23,6 +23,16 @@ import torch
 FROZEN = "frozen"
 
 
+def adam_group(params, lr: float, l2_reg: float = 0.0) -> torch.optim.Adam:
+    """torch ``Adam(lr, weight_decay=l2_reg)`` over ``params`` (JAX's
+    ``adam_group`` chain for one group, ``optim.py:28-35``): the K-trial
+    trainer's optimizer for one trial. ``params`` may also be torch
+    parameter-group dicts carrying their own ``lr`` (a group at lr 0.0 keeps
+    its parameters exactly, with L2 still in its moments)."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=l2_reg)
+
+
 def build_optimizer(group_lrs: Dict[str, Optional[float]],
                     label_fn: Callable, model: torch.nn.Module,
                     l2_reg: float = 0.0) -> torch.optim.Adam:

@@ -17,6 +17,7 @@ from multimodal_alzheimer_tpu.models.mri_models.anat_cnn import (
 from multimodal_alzheimer_tpu_torch.models.convert import state_dict_from_flax
 from multimodal_alzheimer_tpu_torch.models.mri_models.anat_cnn import AnatCNN
 from torch_port_helpers import model_pair, random_flax_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-3, atol=1e-4)
 

@@ -23,6 +23,7 @@ from multimodal_alzheimer_tpu.models import layers as jax_layers
 from multimodal_alzheimer_tpu.ops import pallas_bn
 from multimodal_alzheimer_tpu_torch.models import layers
 from multimodal_alzheimer_tpu_torch.ops import hopper_bn
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 EPS = 1e-5
 Y_TOL = dict(rtol=2e-4, atol=2e-4)

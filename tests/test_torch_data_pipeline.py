@@ -23,6 +23,7 @@ from multimodal_alzheimer_tpu_torch.data.synthetic import (
     ArrayDataset,
     make_labeled_volumes,
 )
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 MODALITIES = ("mri", "pet1451", "tabular")
 

@@ -32,6 +32,7 @@ from multimodal_alzheimer_tpu_torch.data.dataset import (
 )
 from multimodal_alzheimer_tpu_torch.data.tabular import tabular_vector
 from multimodal_alzheimer_tpu_torch.utils import path_config
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (12, 14, 12)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

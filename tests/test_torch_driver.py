@@ -35,6 +35,7 @@ from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from torch_port_helpers import Trial, model_pair
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (12, 14, 12)
 HPARAMS = {"n_classes": 2, "resnet_depth": 10, "lr": 1e-3,

@@ -60,6 +60,7 @@ from multimodal_alzheimer_tpu_torch.models.pet_models.pet_resnet_cnn import (
 )
 from multimodal_alzheimer_tpu_torch.ops import hopper_bn
 from torch_port_helpers import dist, random_flax_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (12, 14, 12)
 BF16_ULP = 2.0 ** -8

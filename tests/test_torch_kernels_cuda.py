@@ -25,6 +25,7 @@ steps launch the kernels their paths reach, as many times as chip_smoke.py
 expects at full width.
 """
 
+import copy
 import time
 
 import numpy as np
@@ -889,3 +890,116 @@ def test_early_fusion_step_launches(device, mri_norm, k12):
     assert np.isfinite(aux["loss"].item())
     assert got == dict(dict.fromkeys(got, 0), minmax_select=k12,
                        minmax_apply=k12), got
+
+
+class _MinMaxSplit:
+    """A dataset's quantile and device preprocess, as
+    ``percentile_normalizer`` reads them."""
+
+    quantile = 0.99
+
+    def get_device_preprocess(self):
+        return make_device_preprocess(None, {"per_scan_norm": "min_max"},
+                                      self.quantile)
+
+
+def _raw_split(n, seed, modalities=("mri",)):
+    data = make_labeled_volumes(n, (32, 36, 32), n_classes=2, seed=seed,
+                                modalities=modalities)
+    data["label"] = (np.arange(n) % 2).astype(np.int32)
+    return data
+
+
+def test_percentile_normalizer_launches_once_per_split(device):
+    """The MRI search normalizes each split once per percentile bucket:
+    one K1 and one K2 launch per split, none for a bucket of the resident
+    q."""
+    from multimodal_alzheimer_tpu_torch.models.mri_models.train_anat_cnn \
+        import percentile_normalizer
+
+    normalized = percentile_normalizer(_MinMaxSplit(), _raw_split(6, 0),
+                                       _raw_split(4, 1), device)
+    counts = []
+    for q in (0.95, 0.95, 1.0):
+        before = _launches()
+        train, val = normalized(q)
+        torch.cuda.synchronize()
+        counts.append({k: _launches()[k] - before[k]
+                       for k in ("minmax_select", "minmax_apply")})
+        assert train["mri"].is_cuda and torch.isfinite(train["mri"]).all()
+    assert counts == [{"minmax_select": 2, "minmax_apply": 2},
+                      {"minmax_select": 0, "minmax_apply": 0},
+                      {"minmax_select": 2, "minmax_apply": 2}], counts
+
+
+def test_shared_tower_trials_launch_once_per_step_for_k_heads(device):
+    """K = 3 TabularMRIFusion heads over one fused_bn="full" ResNet-10
+    tower, raw scans: per train step K1 and K2 once and K4/K5 once per
+    BatchNorm, whatever K is; no K6/K7 (frozen towers run no backward).
+    The validation batch and the one shape probe before the first step
+    each add K1 and K2 once and no BatchNorm kernel (eval)."""
+    from multimodal_alzheimer_tpu_torch.train import fusion_hpo, vmap_hpo
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    mri = AnatCNN.from_hparams(
+        {"n_classes": 2, "resnet_depth": 10, "linear_out": ()},
+        fused_bn="full", generator=gen)
+    tab = TabularMLP.from_hparams({"n_classes": 2, "hidden": (16, 32)})
+    head = TabularMRIFusion(2, copy.deepcopy(mri), copy.deepcopy(tab),
+                            freeze_towers=True)
+    n_bn = sum(isinstance(m, FusedBatchNorm) for m in mri.modules())
+    rows = [{"lr": lr, "trial_seed": i}
+            for i, lr in enumerate((1e-3, 3e-3, 1e-2))]
+    steps = 2
+    before = _launches()
+    _, info = fusion_hpo.run_frozen_fusion_trials(
+        head, {"mri": mri, "tab": tab},
+        {"mri": mri.state_dict(), "tab": tab.state_dict()},
+        vmap_hpo.stack_trial_hparams(rows),
+        _raw_split(4 * steps, 0, ("mri", "tabular")),
+        _raw_split(4, 1, ("mri", "tabular")),
+        preprocess=make_device_preprocess(None, {"per_scan_norm": "min_max"}),
+        batch_size=4,
+        max_epochs=1, patience=1, class_weights=[0.5, 0.5], device=device)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _launches().items()}
+    assert np.isfinite(info["val_history"]).all()
+    assert n_bn > 0 and got == {
+        "minmax_select": steps + 2, "minmax_apply": steps + 2, "zscore": 0,
+        "bn_stats": steps * n_bn, "bn_apply": steps * n_bn,
+        "bn_grad_sum": 0, "bn_dx": 0, "maxpool_bwd": 0}, got
+
+
+def test_frozen_trial_keeps_its_backbone_on_the_card(device):
+    """lr_select with lr_pretrained traced to 0.0: the frozen trial's
+    backbone parameters stay bit for bit on the card, its head moves; the
+    unfrozen trial's backbone moves."""
+    from multimodal_alzheimer_tpu_torch.train import vmap_hpo
+
+    model = AnatCNN(2, resnet_depth=10, linear_out=(16,),
+                    trailing_relu=False)  # no logit clamped dead at init
+    rows = [{"lr": 1e-3, "lr_pretrained": None, "trial_seed": 1},
+            {"lr": 1e-3, "lr_pretrained": 1e-3, "trial_seed": 2}]
+    data = _raw_split(8, 0)
+    data["mri"] = data["mri"] / np.abs(data["mri"]).max()
+    data.pop("mri_mask")
+    _, info = vmap_hpo.run_parallel_trials(
+        model, vmap_hpo.stack_trial_hparams(rows,
+                                            extra_keys=("lr_pretrained",)),
+        data, data, batch_size=4, max_epochs=2, patience=5,
+        class_weights=[0.5, 0.5], seed=3,
+        apply_fn=lambda m, batch, hp, train: m(batch),
+        lr_select=lambda row, keys: (row["lr"] if keys[0] == "head"
+                                     else row["lr_pretrained"]),
+        return_state=True, device=device)
+    params = info["carry"][0]
+    init = [vmap_hpo._default_init(model, torch.Generator().manual_seed(
+        vmap_hpo.trial_generator_seed(3, r["trial_seed"], 0)), None,
+        None).state_dict() for r in rows]
+    for name, value in params.items():
+        if name.startswith("backbone."):
+            assert torch.equal(value[0].cpu(), init[0][name]), name
+    assert any(not torch.equal(params[k][0].cpu(), init[0][k])
+               for k in params if k.startswith("head."))
+    assert any(not torch.equal(params[k][1].cpu(), init[1][k])
+               for k in params if k.startswith("backbone."))

@@ -18,6 +18,7 @@ from multimodal_alzheimer_tpu.metrics import classification as jax_metrics
 from multimodal_alzheimer_tpu_torch.losses import classification as losses
 from multimodal_alzheimer_tpu_torch.metrics import bootstrap, classification
 from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-6, atol=1e-7)
 

@@ -40,6 +40,7 @@ from multimodal_alzheimer_tpu_torch.ops.maxpool import (
     winner_offsets,
 )
 from torch_port_helpers import model_pair, run_unfused
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # tests/test_pallas_maxpool.py:35-40, NDHWC: odd, even, D a multiple of the
 # Pallas block, tiny.

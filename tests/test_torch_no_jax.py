@@ -4,9 +4,11 @@ package, and needs nothing that the machine with the card lacks.
 A static scan: the test process itself has jax loaded (conftest.py), so
 ``sys.modules`` cannot tell what the port pulls in. The card's machine has
 no pandas, yaml, plotting packages or optuna: no module of the port, and
-not chip_smoke.py, imports one of them at module level, and only the
+not chip_smoke.py, imports one of them at module level, only the
 confusion-matrix rendering (``metrics/confusion_plot.py``, reached only when
-a caller asks for images) imports plotting packages, inside its functions.
+a caller asks for images) imports plotting packages, inside its functions,
+and only ``train/hpo.py``'s ``create_study`` tries optuna, inside the
+function, falling back to the TPE shim.
 """
 
 import ast
@@ -22,6 +24,7 @@ NOT_ON_THE_CARD = {"pandas", "yaml", "matplotlib", "seaborn", "PIL",
                    "optuna"}
 PLOTTING = {"pandas", "matplotlib", "seaborn", "PIL"}
 RENDERING = PORT / "metrics" / "confusion_plot.py"
+STUDY = PORT / "train" / "hpo.py"
 # What the serving front end may import: it runs no tensor code itself.
 SERVER_IMPORTS = {"__future__", "concurrent", "numpy", "queue", "threading",
                   "time", "typing"}
@@ -84,9 +87,10 @@ def test_port_module_imports_nothing_the_card_lacks_at_module_level(path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_only_the_rendering_route_imports_plotting_packages(path):
-    """yaml and optuna nowhere; pandas and the plotting packages only in
-    the functions of metrics/confusion_plot.py."""
-    allowed = PLOTTING if path == RENDERING else set()
+    """yaml nowhere; pandas and the plotting packages only in the functions
+    of metrics/confusion_plot.py; optuna only in train/hpo.py's
+    functions."""
+    allowed = {RENDERING: PLOTTING, STUDY: {"optuna"}}.get(path, set())
     for name in _imports(path):
         top = _top(name)
         assert top not in NOT_ON_THE_CARD or top in allowed, \
@@ -94,7 +98,10 @@ def test_only_the_rendering_route_imports_plotting_packages(path):
 
 
 def test_the_scan_sees_function_level_imports():
-    """The rendering module does import the plotting packages, inside
-    functions: the scan must find them there and only there."""
+    """The rendering module does import the plotting packages, and the
+    study factory optuna, inside functions: the scan must find them there
+    and only there."""
     assert {_top(n) for n in _imports(RENDERING)} >= PLOTTING
     assert not {_top(n) for n in _module_level_imports(RENDERING)} & PLOTTING
+    assert "optuna" in {_top(n) for n in _imports(STUDY)}
+    assert "optuna" not in {_top(n) for n in _module_level_imports(STUDY)}

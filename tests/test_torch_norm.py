@@ -23,6 +23,7 @@ from multimodal_alzheimer_tpu_torch.data.preprocess import (
 from multimodal_alzheimer_tpu_torch.ops import hopper_norm
 from multimodal_alzheimer_tpu_torch.ops import normalization as port_norm
 from multimodal_alzheimer_tpu_torch.ops import quantile as port_quantile
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (19, 23, 17)  # as tests/test_normalization.py
 

@@ -27,6 +27,7 @@ from multimodal_alzheimer_tpu_torch.train.state import (
     TrainState,
     _set_learning_rates,
 )
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 class _Toy(torch.nn.Module):

@@ -54,6 +54,7 @@ from multimodal_alzheimer_tpu_torch.models.pet_models.pet_resnet_cnn import (
 )
 from multimodal_alzheimer_tpu_torch.train.loop import Trainer
 from torch_port_helpers import Trial, random_flax_variables, run_unfused
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 GRID = (16, 18, 16)  # four 2^3 pools take it
 PET_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -47,6 +47,7 @@ from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from torch_port_helpers import Trial, random_flax_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 GRID = (16, 18, 16)
 PLOTTING = ("matplotlib", "seaborn", "PIL", "pandas")

@@ -8,6 +8,7 @@ checked here.
 import pytest
 
 from multimodal_alzheimer_tpu_torch.tools import profile_serve as ps
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _span(ts, dur):

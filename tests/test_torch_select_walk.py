@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from multimodal_alzheimer_tpu_torch.ops import hopper_norm
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # csrc/scan_cluster.cuh
 THREADS = 1024

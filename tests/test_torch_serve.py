@@ -23,6 +23,7 @@ from multimodal_alzheimer_tpu_torch.inference.predictor import Predictor
 from multimodal_alzheimer_tpu_torch.inference.server import BatchingServer
 from multimodal_alzheimer_tpu_torch.ops import hopper_norm
 from torch_port_helpers import model_pair
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-3, atol=1e-4)
 SHAPE = (12, 14, 12)

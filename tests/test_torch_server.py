@@ -16,6 +16,7 @@ from multimodal_alzheimer_tpu.inference.server import (
 )
 from multimodal_alzheimer_tpu_torch.inference.predictor import Predictor
 from multimodal_alzheimer_tpu_torch.inference.server import BatchingServer
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 class _Tiny(torch.nn.Module):

@@ -90,6 +90,7 @@ from torch_port_helpers import (
     random_variables,
     run_unfused,
 )
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (12, 14, 12)
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)

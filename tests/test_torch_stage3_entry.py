@@ -80,6 +80,7 @@ from multimodal_alzheimer_tpu_torch.train.checkpoint import (
 )
 from multimodal_alzheimer_tpu_torch.train.driver import stage1_normalizations
 from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (12, 14, 12)
 SPLIT = {"n_subjects": (16, 8, 8), "seed": 6}

@@ -46,6 +46,7 @@ from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
 )
 from test_tabpfn import EMSIZE, NFEAT, NHEAD, NHID, NLAYERS, TorchTabPFN
 from torch_port_helpers import dist, random_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 PRE_TOL = dict(rtol=2e-6, atol=2e-6)

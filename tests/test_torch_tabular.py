@@ -51,6 +51,7 @@ from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
 )
 from multimodal_alzheimer_tpu_torch.train.checkpoint import load_checkpoint
 from torch_port_helpers import Trial, dist, random_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 SHAPE = (6, 7, 6)  # the test split's volumes: the harness reads them
@@ -155,7 +156,8 @@ def test_dropout_follows_the_mode(rows):
     """dropout_p > 0: eval equals JAX's; train drops and rescales."""
     jax_models, variables, port = _pair(rows, dropout_p=0.5)
     assert [n for n, _ in port.named_children()] == [
-        "dense_0", "dropout_0", "dense_1", "dropout_1", "cls"]
+        "dense_0", "dropout_0", "dense_1", "dropout_1", "traced_dropout",
+        "cls"]
     x = tabular_matrix(rows)[:8]
     want = jax_models[jnp.float32].apply(variables,
                                          {"tabular": jnp.asarray(x)})

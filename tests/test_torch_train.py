@@ -47,6 +47,7 @@ from multimodal_alzheimer_tpu_torch.train.state import (
     make_train_step,
 )
 from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (12, 14, 12)
 MINMAX = {"per_scan_norm": "min_max"}

@@ -47,6 +47,7 @@ from multimodal_alzheimer_tpu_torch.train.optim import (
 )
 from multimodal_alzheimer_tpu_torch.train.state import make_eval_step
 from torch_port_helpers import model_pair
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (12, 14, 12)
 HPARAMS = {"n_classes": 2, "resnet_depth": 10, "lr": 1e-4,

@@ -22,6 +22,7 @@ from multimodal_alzheimer_tpu.ops import normalization as jax_norm
 from multimodal_alzheimer_tpu.ops import pallas_norm
 from multimodal_alzheimer_tpu_torch.ops import hopper_norm
 from multimodal_alzheimer_tpu_torch.ops import normalization as port_norm
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (12, 14, 12)
 XLA_TOL = dict(rtol=2e-5, atol=2e-5)
