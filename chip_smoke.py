@@ -1,15 +1,18 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: MRI serving, training and
-the entry points from NIfTI files on disk, the PET family with the stem
-max-pool backward kernel, TabPFN, the stage-2 fusions, stage 3, the two
-fusion baselines, and the hyperparameter search (K-trial trainer, seed
-screen, shared-tower fusion search, the entry points' studies).
+"""Smoke run of the PyTorch port on one NVIDIA GPU: MRI serving (float, bf16,
+BN-folded and int8 through the int8 convolution kernel, exported
+artifacts, dataset-level quality), training and the entry points from
+NIfTI files on disk, the PET family with the stem max-pool backward
+kernel, TabPFN, the stage-2 fusions, stage 3 (int8 too), the two fusion
+baselines, and the hyperparameter search (K-trial trainer, seed screen,
+shared-tower fusion search, the entry points' studies).
 
     python3 chip_smoke.py
 
 Phases, each printing its lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: compiles csrc/minmax_norm.cu, csrc/batch_norm.cu,
-     csrc/zscore_norm.cu and csrc/maxpool_bwd.cu with nvcc for sm_90a, one
+     csrc/zscore_norm.cu, csrc/maxpool_bwd.cu and csrc/int8_conv3d.cu with
+     nvcc for sm_90a, one
      process per source, all started together, into one library; prints
      ptxas register counts;
   3. min-max kernels against their plain PyTorch versions at the real
@@ -41,6 +44,35 @@ Phases, each printing its lines:
      launch counts over the run; then a bf16 AnatCNN with the same weights
      at rung 8 beside the f32 one: logits within 2e-2 of max(1, |logit|),
      argmax equal where the margin is clear, requests/s of each;
+  7b. the int8 convolution (K9) against its plain version, bit for bit, at
+     all 11 convolution shapes of the int8 ResNet-18 at batch 2 (scale 1
+     and bias 0, then random scale and bias), then bit for bit again and
+     its device times at batch 8 and 32 against its bound (int8 dense tensor cores at 1,979
+     TOP/s or 3.35 TB/s) with cuDNN's bf16 conv3d of each shape beside it
+     as context; the host microseconds per call of K1, K2, K3 and K9
+     through their custom ops and straight into the ctypes launch;
+  7c. the serving extras on phase 6's model: the four serve cores of
+     tools/cases.py (float32, bf16, BN-folded bf16, int8 calibrated on 2
+     raw batches); per batch of 8 raw requests K1 and K2 once each and K9
+     20 times (int8 only); int8 drift from the float32 model within JAX's
+     bounds (argmax agreement 1.0, probabilities within 0.01); folded
+     logits within 2e-2 of max(1, |f32 logit|) of f32's and twice that of
+     the bf16 model's, argmax equal to the bf16 model's where the f32
+     margin exceeds 4x that; then the int8 core behind
+     Predictor(serve_fn=..., ladder=(8,), batch_size=32) and BatchingServer
+     over phase 7's 40 requests (every count set to 0 before, read after;
+     K9 20 per served batch); requests/s of the four cores at rungs 8 and
+     32;
+  7d. the int8 and folded cores through export_serve_fn -> bytes ->
+     load_exported: outputs bit for bit the eager core's, K1/K2 (and K9 20
+     times) launched inside the loaded program;
+  7e. compare_serve_cores over the float32, folded and int8 cores on 32
+     labeled synthetic volumes (bootstrap 200), printed with
+     format_comparison;
+  7f. int8 stage 3: quantize_all_modalities_fusion on tools/cases.py's
+     stage-3 case (shared towers), K9 20 and K1/K2 once per batch,
+     probabilities within 0.01 of the float fusion's and the argmax equal
+     where its margin is clear; ms per batch of each;
   8. a train step at full width: ResNet-18 AnatCNN, batch 8 of raw scans
      preprocessed in the step, from the same weights once with
      fused_bn="full" (the BatchNorm kernels) and once with fused_bn=False;
@@ -164,7 +196,13 @@ stage-3 step's, frozen and towers trained ("launches_stage3"), the f32
 early-fusion step's under both normalisations ("launches_early_fusion"),
 and every kernel the HPO phases' launches ("launches_hpo": the seed
 screen's run, the MRI search's normalization, the shared-tower fusion
-search per train step in f32, and the two entry-point studies).
+search per train step in f32, and the two entry-point studies); K1-K3
+also their host microseconds per call through the custom op and direct.
+K9's entry: launches from phase 7c's server run, per batch of the int8
+serve, int8 stage 3 and the exported program ("launches_int8"), the
+largest |kernel - plain| over the batch-8 shapes, device,
+per-call, plain and bound ms summed over one forward's 20 convolutions at
+batch 8 (and 32), each shape's times, and cuDNN's bf16 time as context.
 Any failed check raises,
 so the script exits non-zero without printing its last line,
 {"ok": true, "device": {...}}. It needs one card and imports the
@@ -213,7 +251,19 @@ from multimodal_alzheimer_tpu_torch.inference import (
     test_pet_tab_fusion,
     test_tab,
 )
+from multimodal_alzheimer_tpu_torch.inference.export import (
+    export_serve_fn,
+    load_exported,
+)
 from multimodal_alzheimer_tpu_torch.inference.predictor import Predictor
+from multimodal_alzheimer_tpu_torch.inference.quality import (
+    compare_serve_cores,
+    format_comparison,
+)
+from multimodal_alzheimer_tpu_torch.inference.quantize import (
+    quantization_error,
+    quantize_all_modalities_fusion,
+)
 from multimodal_alzheimer_tpu_torch.inference.server import BatchingServer
 from multimodal_alzheimer_tpu_torch.losses.classification import (
     make_criterion,
@@ -271,6 +321,7 @@ from multimodal_alzheimer_tpu_torch.ops import (
     hopper_bn,
     hopper_maxpool,
     hopper_norm,
+    int8_conv,
 )
 from multimodal_alzheimer_tpu_torch.ops.maxpool import (
     NO_WINNER,
@@ -284,6 +335,8 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     BN_KERNELS,
     BN_PER_STEP,
     BN_SHAPES,
+    INT8_CONV_SHAPES,
+    INT8_OPS_PER_MS,
     STEM,
     aten_pool_backward,
     bn_chain,
@@ -291,8 +344,10 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     bound,
     call_ms,
     device_ms,
+    int8_conv_operands,
     norm_bounds,
     time_bn,
+    time_int8_conv,
     time_norm,
     time_pool,
 )
@@ -304,11 +359,16 @@ from multimodal_alzheimer_tpu_torch.tools.cases import (
     PET_NORM,
     QUANTILE,
     SEED,
+    SERVE_CORES,
     STAGE3_REGIMES,
     TAB_HPARAMS,
     baseline_batch,
     baseline_case,
     raw_batch,
+    serve_core,
+    serve_model,
+    serve_preprocess,
+    serve_requests,
     stage3_batch,
     stage3_model,
     stage3_preprocess,
@@ -351,7 +411,8 @@ SOURCE = {"minmax_select": CSRC + "minmax_norm.cu",
           "zscore": CSRC + "zscore_norm.cu",
           "bn_stats": CSRC + "batch_norm.cu", "bn_apply": CSRC + "batch_norm.cu",
           "bn_grad_sum": CSRC + "batch_norm.cu", "bn_dx": CSRC + "batch_norm.cu",
-          "maxpool_bwd": CSRC + "maxpool_bwd.cu"}
+          "maxpool_bwd": CSRC + "maxpool_bwd.cu",
+          "int8_conv3d": CSRC + "int8_conv3d.cu"}
 REPLACES = {"minmax_select": "multimodal_alzheimer_tpu/ops/pallas_norm.py:263",
             "minmax_apply": "multimodal_alzheimer_tpu/ops/pallas_norm.py:354",
             "zscore": "multimodal_alzheimer_tpu/ops/pallas_norm.py:63",
@@ -359,7 +420,9 @@ REPLACES = {"minmax_select": "multimodal_alzheimer_tpu/ops/pallas_norm.py:263",
             "bn_apply": "multimodal_alzheimer_tpu/ops/pallas_bn.py:75",
             "bn_grad_sum": "multimodal_alzheimer_tpu/ops/pallas_bn.py:82",
             "bn_dx": "multimodal_alzheimer_tpu/ops/pallas_bn.py:96",
-            "maxpool_bwd": "multimodal_alzheimer_tpu/ops/pallas_maxpool.py:98"}
+            "maxpool_bwd": "multimodal_alzheimer_tpu/ops/pallas_maxpool.py:98",
+            "int8_conv3d":
+                "multimodal_alzheimer_tpu/inference/quantize.py:125"}
 NORM_KERNELS = ("minmax_select", "minmax_apply", "zscore")
 APPLY_TOL = 1e-6
 # The z-score kernel against its plain version: |kernel - plain| <= ZSCORE_TOL
@@ -753,12 +816,9 @@ def phase_bn_times(device, shapes=BN_SHAPES, dtype=torch.float32) -> dict:
 
 
 def make_requests(n: int, grid, seed: int) -> list:
-    """Raw serving requests: ``mri`` and ``mri_mask``, no memoised bounds."""
-    rng = np.random.default_rng(seed)
-    shape = (n,) + tuple(grid)
-    mri = rng.standard_normal(shape, dtype=np.float32) * 400 + 900
-    mask = (rng.random(shape, dtype=np.float32) > 0.35).astype(np.float32)
-    return [{"mri": mri[i], "mri_mask": mask[i]} for i in range(n)]
+    """Raw serving requests: ``mri`` and ``mri_mask``, no memoised bounds
+    (tools/cases.py)."""
+    return serve_requests(n, seed, grid)
 
 
 def _stack(samples, device=None):
@@ -774,13 +834,9 @@ def phase_model(device, grid=GRID):
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"[model] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    model_cpu = AnatCNN(n_classes=3, resnet_depth=18, dilated=True,
-                        generator=make_generator(SEED)).eval()
-    with torch.no_grad():  # keeps the trailing ReLU off its floor
-        model_cpu.head.cls.bias.fill_(1.0)
+    model_cpu = serve_model()  # tools/cases.py: seed SEED, cls bias 1.0
     model = copy.deepcopy(model_cpu).to(device)
-    preprocess = make_device_preprocess(normalize_mri=MINMAX,
-                                        quantile=QUANTILE)
+    preprocess = serve_preprocess()
     requests = make_requests(2, grid, SEED + 2)
     outs = {}
     for dev, m in ((device, model), ("cpu", model_cpu)):
@@ -809,17 +865,15 @@ def phase_model(device, grid=GRID):
     return model, preprocess
 
 
-def phase_serve(model, preprocess, device, grid=GRID) -> dict:
-    predictor = Predictor(model, batch_size=32, ladder=(8,), device=device,
-                          preprocess=preprocess)
-    requests = make_requests(N_REQUESTS, grid, SEED + 3)
-    start = time.perf_counter()
-    predictor.warmup(_stack(requests[:1]), parts=True)
-    log(f"[serve] warmup of rungs {predictor.ladder} in "
-        f"{time.perf_counter() - start:.2f} s")
-
-    submitted, done = [0.0] * N_REQUESTS, [0.0] * N_REQUESTS
-    futures = [None] * N_REQUESTS
+def drive_server(predictor, requests, what: str) -> tuple:
+    """``requests`` from N_CLIENTS client threads through a BatchingServer
+    over ``predictor``, every launch count set to 0 just before and read
+    just after; each result checked finite and equal to single-sample
+    ``predict_batch`` within SERVE_TOL. Returns (results, launch counts,
+    requests/s)."""
+    n = len(requests)
+    submitted, done = [0.0] * n, [0.0] * n
+    futures = [None] * n
 
     def client(indices):
         for i in indices:
@@ -828,11 +882,12 @@ def phase_serve(model, preprocess, device, grid=GRID) -> dict:
             futures[i].add_done_callback(
                 lambda _, i=i: done.__setitem__(i, time.perf_counter()))
 
-    hopper_norm.reset_launches()
+    torch.cuda.synchronize()
+    reset_launch_counts()
     server = BatchingServer(predictor, max_wait_s=0.05)
     try:
         threads = [threading.Thread(target=client,
-                                    args=(range(k, N_REQUESTS, N_CLIENTS),))
+                                    args=(range(k, n, N_CLIENTS),))
                    for k in range(N_CLIENTS)]
         for t in threads:
             t.start()
@@ -841,18 +896,17 @@ def phase_serve(model, preprocess, device, grid=GRID) -> dict:
             check(not t.is_alive(), "client thread finished")
         results = [f.result(timeout=300) for f in futures]
         torch.cuda.synchronize()
-        launches = dict(hopper_norm.LAUNCHES)
+        launches = launch_counts()
     finally:
         server.close()
     wall = max(done) - min(submitted)
     latency = [d - s for s, d in zip(submitted, done)]
-    log(f"[serve] {N_REQUESTS} requests from {N_CLIENTS} clients: batch "
+    log(f"[{what}] {n} requests from {N_CLIENTS} clients: batch "
         f"histogram {dict(sorted(server.batch_histogram.items()))}, "
-        f"{N_REQUESTS / wall:.2f} requests/s, p50 latency "
-        f"{statistics.median(latency) * 1e3:.1f} ms, launches {launches}")
-    check(server.samples_served == N_REQUESTS, "every request served")
-    for name in ("minmax_select", "minmax_apply"):
-        check(launches[name] > 0, f"{name} launched during serving")
+        f"{n / wall:.2f} requests/s, p50 latency "
+        f"{statistics.median(latency) * 1e3:.1f} ms, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    check(server.samples_served == n, "every request served")
     for i, result in enumerate(results):
         single = predictor.predict_batch(_stack([requests[i]]))
         for key, got, want in (
@@ -867,8 +921,22 @@ def phase_serve(model, preprocess, device, grid=GRID) -> dict:
     check(results[0]["logits"].shape == (3,)
           and results[0]["embeddings"]["backbone_gap"].shape == (512,),
           "per-request shapes (3,) and (512,)")
-    log(f"[serve] all {N_REQUESTS} results finite and equal to "
-        f"single-sample predict_batch within {SERVE_TOL}")
+    log(f"[{what}] all {n} results finite and equal to single-sample "
+        f"predict_batch within {SERVE_TOL}")
+    return results, launches, n / wall
+
+
+def phase_serve(model, preprocess, device, grid=GRID) -> dict:
+    predictor = Predictor(model, batch_size=32, ladder=(8,), device=device,
+                          preprocess=preprocess)
+    requests = make_requests(N_REQUESTS, grid, SEED + 3)
+    start = time.perf_counter()
+    predictor.warmup(_stack(requests[:1]), parts=True)
+    log(f"[serve] warmup of rungs {predictor.ladder} in "
+        f"{time.perf_counter() - start:.2f} s")
+    _, launches, _ = drive_server(predictor, requests, "serve")
+    for name in ("minmax_select", "minmax_apply"):
+        check(launches[name] > 0, f"{name} launched during serving")
     return launches
 
 
@@ -893,13 +961,14 @@ def train_optimizer(model):
 
 def launch_counts() -> dict:
     return {**hopper_norm.LAUNCHES, **hopper_bn.LAUNCHES,
-            **hopper_maxpool.LAUNCHES}
+            **hopper_maxpool.LAUNCHES, **int8_conv.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     hopper_norm.reset_launches()
     hopper_bn.reset_launches()
     hopper_maxpool.reset_launches()
+    int8_conv.reset_launches()
 
 
 def phase_train_step(device, grid=GRID, timed_steps: int = 3) -> dict:
@@ -988,7 +1057,8 @@ def phase_train_step(device, grid=GRID, timed_steps: int = 3) -> dict:
                    if k.startswith("backbone.")) ** 0.5
     check(backbone > 0, "the backbone gradient is nonzero")
     want = {"minmax_select": 1, "minmax_apply": 1, "zscore": 0,
-            "maxpool_bwd": 0, **dict.fromkeys(BN_KERNELS, BN_LAYERS)}
+            "maxpool_bwd": 0, "int8_conv3d": 0,
+            **dict.fromkeys(BN_KERNELS, BN_LAYERS)}
     check(launches == want, f"fused step launches {launches} == {want}")
     check(launches_ref == {**want, **dict.fromkeys(BN_KERNELS, 0)},
           f"fused_bn=False launches no BatchNorm kernel: {launches_ref}")
@@ -1043,7 +1113,7 @@ def phase_fit(device, grid=GRID, n_train: int = 16, n_val: int = 8) -> dict:
         check(record["val_loss_epoch"] == last, "val loss returned")
         want = {"minmax_select": steps + n_val // hp["batch_size"],
                 "minmax_apply": steps + n_val // hp["batch_size"],
-                "zscore": 0, "maxpool_bwd": 0,
+                "zscore": 0, "maxpool_bwd": 0, "int8_conv3d": 0,
                 **dict.fromkeys(BN_KERNELS, BN_LAYERS * steps)}
         check(launches == want, f"fit launches {launches} == {want}")
         names = sorted(os.listdir(checkpoints))
@@ -1954,7 +2024,8 @@ def phase_fusion_step(device, embeddings, grid=GRID,
             loss = aux["loss"].item()
             backward = 0 if frozen else BN_LAYERS
             want = {"minmax_select": 1, "minmax_apply": 1, "zscore": 0,
-                    "maxpool_bwd": 0, "bn_stats": BN_LAYERS,
+                    "maxpool_bwd": 0, "int8_conv3d": 0,
+                    "bn_stats": BN_LAYERS,
                     "bn_apply": BN_LAYERS, "bn_grad_sum": backward,
                     "bn_dx": backward}
             what = (f"TabularMRIFusion {str(dtype)[6:]} "
@@ -2790,7 +2861,8 @@ def phase_hpo_fusion(device, grid=GRID, k: int = 4, steps: int = 3,
         n_eval = 1 + epochs  # the shape probe and one val batch an epoch
         want = {"minmax_select": n_steps + n_eval,
                 "minmax_apply": n_steps + n_eval, "zscore": 0,
-                "maxpool_bwd": 0, "bn_stats": BN_LAYERS * n_steps,
+                "maxpool_bwd": 0, "int8_conv3d": 0,
+                "bn_stats": BN_LAYERS * n_steps,
                 "bn_apply": BN_LAYERS * n_steps, "bn_grad_sum": 0,
                 "bn_dx": 0}
         what = f"K={k} TabularMRIFusion heads {str(dtype)[6:]}"
@@ -2943,6 +3015,338 @@ def phase_hpo_entry_points(device, grid=HPO_ENTRY_GRID) -> dict:
     return out
 
 
+# The serving extras: int8 drift against the float32 model within JAX's
+# bounds (tests/test_quantize.py: argmax agreement 1.0, probability error
+# below 0.01); the quality comparison's labeled set; the serving rungs.
+INT8_DRIFT = {"argmax_agree": 1.0, "prob_max_abs_err": 0.01}
+QUALITY = {"n": 32, "bootstrap": 200, "batch": 8, "seed": SEED + 40}
+SERVE_RUNGS = (8, 32)
+RESNET18_CONVS = 20  # 17 3^3/7^3 convolutions and 3 downsamples
+
+
+def phase_int8_conv(device, batch: int = 2, timed=SERVE_RUNGS) -> dict:
+    """K9 against its plain version, bit for bit, at every convolution
+    shape of the int8 ResNet-18 at batch ``batch`` (scale 1 and bias 0 for
+    the int32 sums, then random scale and bias); then at each serving rung
+    K9 held to its plain version again, bit for bit at every shape, and its
+    device times beside the plain version's (the first rung only), the
+    bound and cuDNN's bfloat16 convolution of the same shape."""
+    gen = make_generator(SEED + 50, device)
+    for name in INT8_CONV_SHAPES:
+        x, w, scale, bias, args = int8_conv_operands(name, batch, gen, device)
+        for s, b in ((torch.ones_like(scale), torch.zeros_like(bias)),
+                     (scale, bias)):
+            got = int8_conv.int8_conv3d(x, w, s, b, *args)
+            torch.cuda.synchronize()
+            want = int8_conv.int8_conv3d_plain(x, w, s, b, *args)
+            check(torch.equal(got, want), f"K9 {name} B={batch} equals plain")
+        del x, got, want
+    log(f"[int8 conv] K9 equals its plain version bit for bit at all "
+        f"{len(INT8_CONV_SHAPES)} convolution shapes of ResNet-18, B={batch}"
+        f" (int32 sums and epilogue)")
+    log(f"[int8 conv] bounds assume {INT8_OPS_PER_MS / 1e9:.0f} TOP/s int8 "
+        f"dense tensor cores and 3.35 TB/s HBM (H100 SXM)")
+    times = {}
+    for b in timed:
+        times[b] = {}
+        for name in INT8_CONV_SHAPES:
+            r = time_int8_conv(name, b, gen, device, plain=b == timed[0])
+            check(r["equal"], f"K9 {name} B={b} equals plain (max |kernel -"
+                  f" plain| {r['max_abs_err']})")
+            times[b][name] = r
+            plain = ("" if r["plain_ms"] is None
+                     else f", plain {r['plain_ms']:.4f} ms")
+            log(f"[int8 conv] {name} B={b}: equal to plain, max |kernel -"
+                f" plain| {r['max_abs_err']}; kernel {r['ms']:.4f} ms (per "
+                f"call {r['call_ms']:.4f}){plain}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+                f"{r['bound_ms'] / r['ms']:.3f}; cuDNN bf16 conv3d "
+                f"{r['cudnn_bf16_ms']:.4f} ms (context)")
+        total = {k: sum(times[b][n][k] * INT8_CONV_SHAPES[n][-1]
+                        for n in INT8_CONV_SHAPES)
+                 for k in ("ms", "bound_ms", "cudnn_bf16_ms")}
+        log(f"[int8 conv] one ResNet-18 forward's 20 convolutions at B={b}: "
+            f"K9 {total['ms']:.3f} ms, bound {total['bound_ms']:.3f} ms, "
+            f"cuDNN bf16 {total['cudnn_bf16_ms']:.3f} ms")
+    return times
+
+
+def phase_op_overhead(device, batch: int = 8, grid=GRID) -> dict:
+    """Host microseconds per call of K1, K2, K3 and K9 through their custom
+    ops (the wrappers now) and straight into the ctypes launch (the route
+    before the ops), each queued behind a spin so the card never waits."""
+    gen = make_generator(SEED + 51, device)
+    vol, mask = make_scans("normal", batch, grid, gen, device)
+    qs = (QUANTILE, 1.0 - QUANTILE)
+    qmin = torch.zeros(batch, device=device)
+    qmax = torch.full((batch,), 2000.0, device=device)
+    x, w, scale, bias, args = int8_conv_operands("layer3", batch, gen,
+                                                 device)
+
+    def direct_k1():
+        hopper_norm._order_stats_kernel(*hopper_norm._rows(vol, mask), qs)
+
+    def direct_k2():
+        hopper_norm._minmax_apply_kernel(*hopper_norm._rows(vol, mask), qmin,
+                                         qmax)
+
+    def direct_k3():
+        hopper_norm._zscore_kernel(*hopper_norm._rows(vol, mask))
+
+    def direct_k9():
+        int8_conv._check(x, w, scale, bias, args[0], args[3])
+        int8_conv._kernel(x, w, scale, bias, *args)
+
+    routes = {
+        "minmax_select": (lambda: hopper_norm.order_stats(vol, mask, qs),
+                          direct_k1),
+        "minmax_apply": (lambda: hopper_norm.minmax_apply(vol, mask, qmin,
+                                                          qmax), direct_k2),
+        "zscore": (lambda: hopper_norm.per_scan_zscore(vol, mask), direct_k3),
+        "int8_conv3d": (lambda: int8_conv.int8_conv3d(x, w, scale, bias,
+                                                      *args), direct_k9),
+    }
+
+    def host_us(fn, n=40) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(100 * 2.0e6))  # 100 ms or more
+        start = time.perf_counter()
+        for _ in range(n):
+            fn()
+        seconds = time.perf_counter() - start
+        check(not torch.cuda.current_stream().query(),
+              "the spin outlasted the timed calls")
+        torch.cuda.synchronize()
+        return seconds / n * 1e6
+
+    out = {}
+    for name, (op, direct) in routes.items():
+        samples = {"op": [], "direct": []}
+        for _ in range(2):  # op, direct, direct, op
+            samples["op"].append(host_us(op))
+            samples["direct"].append(host_us(direct))
+            samples["direct"].append(host_us(direct))
+            samples["op"].append(host_us(op))
+        out[name] = {k: statistics.median(v) for k, v in samples.items()}
+        log(f"[op overhead] {name} B={batch}: host {out[name]['op']:.1f} us "
+            f"per call through the custom op, {out[name]['direct']:.1f} us "
+            f"straight into the launch (samples op {samples['op']}, direct "
+            f"{samples['direct']})")
+    return out
+
+
+def serve_rates(cores: dict, device, grid=GRID, reps: int = 5) -> None:
+    """Log requests/s of each serve core through a Predictor at each
+    serving rung: a full rung of raw requests, median of ``reps``
+    batches."""
+    requests = make_requests(max(SERVE_RUNGS), grid, SEED + 11)
+    rates = {}
+    for name, serve in cores.items():
+        predictor = Predictor(serve_fn=serve, batch_size=max(SERVE_RUNGS),
+                              ladder=SERVE_RUNGS, device=device)
+        rates[name] = {}
+        for rung in SERVE_RUNGS:
+            batch = _stack(requests[:rung])
+            predictor.predict_batch(batch)
+            times = []
+            for _ in range(reps):
+                start = time.perf_counter()
+                predictor.predict_batch(batch)
+                times.append(time.perf_counter() - start)
+            rates[name][rung] = rung / statistics.median(times)
+    for rung in SERVE_RUNGS:
+        log(f"[serve rates] rung {rung}: " + ", ".join(
+            f"{name} {rates[name][rung]:.2f}" for name in cores)
+            + f" requests/s (median of {reps} batches of raw requests)")
+
+
+def phase_int8_serve(model, preprocess, device, grid=GRID) -> tuple:
+    """The serving extras on the flagship model: the four serve cores of
+    tools/cases.py; the int8 core's launches per batch (K9 20, K1 and K2
+    once) and its drift from the float32 model within JAX's bounds; the
+    folded bf16 core against the bf16 model; then the int8 core behind
+    Predictor(serve_fn=..., ladder=(8,), batch_size=32) and BatchingServer
+    over the serve phase's requests (the path whose launches the kernels
+    line reports); then requests/s of the four cores at both rungs.
+    Returns the cores, the server run's launch counts and the int8 core's
+    launches per batch."""
+    start = time.perf_counter()
+    cores = {name: serve_core(name, model, preprocess, device, grid)
+             for name in SERVE_CORES}
+    log(f"[int8 serve] cores {list(cores)} built (int8 calibrated on 2 raw "
+        f"batches of 8) in {time.perf_counter() - start:.2f} s")
+    batch = _stack(make_requests(8, grid, SEED + 9), device)
+    zero = dict.fromkeys(launch_counts(), 0)
+    outs, per_batch = {}, {}
+    for name, serve in cores.items():
+        serve(batch)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with torch.inference_mode():
+            outs[name] = serve(batch)
+        torch.cuda.synchronize()
+        per_batch[name] = launch_counts()
+        want = dict(zero, minmax_select=1, minmax_apply=1,
+                    int8_conv3d=RESNET18_CONVS if name == "int8" else 0)
+        check(per_batch[name] == want,
+              f"{name} core launches {per_batch[name]} == {want}")
+    err = quantization_error(model, cores["int8"], batch, preprocess)
+    check(err["argmax_agree"] >= INT8_DRIFT["argmax_agree"]
+          and err["prob_max_abs_err"] < INT8_DRIFT["prob_max_abs_err"],
+          f"int8 drift {err} within {INT8_DRIFT}")
+    log(f"[int8 serve] int8 core launches per batch of 8: "
+        f"{per_batch['int8']}; drift from the float32 model {err} (JAX's bounds "
+        f"{INT8_DRIFT})")
+    l16 = outs["bf16"]["logits"].float().cpu().numpy()
+    lf = outs["folded"]["logits"].cpu().numpy()
+    l32 = outs["float"]["logits"].cpu().numpy()
+    tol = BF16_SERVE_TOL * max(1.0, float(np.abs(l32).max()))
+    gaps = {"folded-f32": float(np.abs(lf - l32).max()),
+            "folded-bf16": float(np.abs(lf - l16).max())}
+    top2 = np.sort(l32, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 4 * tol
+    check(np.isfinite(lf).all() and gaps["folded-f32"] <= tol
+          and gaps["folded-bf16"] <= 2 * tol,
+          f"folded bf16 logits {gaps}: within {tol} of f32's and "
+          f"{2 * tol} of the bf16 model's")
+    check(bool((lf.argmax(1) == l16.argmax(1))[clear].all()),
+          "folded argmax equal to the bf16 model's where the f32 margin "
+          "exceeds 4x tol")
+    log(f"[folded serve] folded bf16 logits: {gaps['folded-f32']:.4g} from "
+        f"f32's (tolerance {tol:.4g}), {gaps['folded-bf16']:.4g} from the "
+        f"bf16 model's (tolerance {2 * tol:.4g}); argmax equal on "
+        f"{int(clear.sum())} clear requests")
+
+    predictor = Predictor(serve_fn=cores["int8"], batch_size=32, ladder=(8,),
+                          device=device)
+    requests = make_requests(N_REQUESTS, grid, SEED + 3)
+    predictor.warmup(_stack(requests[:1]), parts=True)
+    _, launches, _ = drive_server(predictor, requests, "int8 serve")
+    for name in ("int8_conv3d", "minmax_select", "minmax_apply"):
+        check(launches[name] > 0, f"{name} launched during int8 serving")
+    check(launches["int8_conv3d"] == RESNET18_CONVS
+          * launches["minmax_select"], "K9 20 times per served batch")
+    serve_rates(cores, device, grid)
+    return cores, launches, per_batch["int8"]
+
+
+def phase_int8_stage3(device, grid=GRID) -> dict:
+    """int8 stage 3 on tools/cases.py's stage-3 case (frozen, shared
+    towers): quantize_all_modalities_fusion calibrated on the case's batch;
+    K9 20 and K1/K2 once per batch; drift from the float fusion (the
+    probabilities within JAX's 0.01, the argmax equal where the float
+    margin is clear); ms per batch of each."""
+    batch, (mean, std) = stage3_batch(device, grid)
+    tab_hp = dict(TAB_HPARAMS, feature_mean=mean, feature_std=std)
+    preprocess = stage3_preprocess()
+    model = stage3_model(torch.float32, None, tab_hp, device=device).eval()
+    serve, _ = quantize_all_modalities_fusion(model, [batch], preprocess)
+    serve(batch)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.inference_mode():
+        serve(batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = dict(dict.fromkeys(launches, 0), minmax_select=1, minmax_apply=1,
+                int8_conv3d=RESNET18_CONVS)
+    check(launches == want, f"int8 stage 3 launches {launches} == {want}")
+    err = quantization_error(model, serve, batch, preprocess)
+    with torch.inference_mode():
+        probs = torch.softmax(model(preprocess(batch))["logits"], -1)
+        int8_probs = serve(batch)["probs"]
+    top2 = probs.sort(dim=1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * err["prob_max_abs_err"]
+    agree = bool((probs.argmax(1) == int8_probs.argmax(1))[clear].all())
+    # The random-weight 2-class fusion sits near p = 0.5 for some samples:
+    # the argmax is held wherever the float margin exceeds twice the drift.
+    check(agree and err["prob_max_abs_err"]
+          < INT8_DRIFT["prob_max_abs_err"],
+          f"int8 stage 3 drift {err}: probabilities within "
+          f"{INT8_DRIFT['prob_max_abs_err']}, argmax equal on the "
+          f"{int(clear.sum())} samples with a clear margin")
+
+    def float_serve(b):
+        with torch.inference_mode():
+            return model(preprocess(b))
+
+    ms = {}
+    for name, fn in (("float", float_serve), ("int8", serve)):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            with torch.inference_mode():
+                fn(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        ms[name] = statistics.median(times[1:])
+    log(f"[int8 stage3] AllModalitiesFusion (shared towers), batch 8 at "
+        f"{grid}: launches per batch {want}, drift from the float fusion "
+        f"{err}; {ms['float']:.2f} ms float32, {ms['int8']:.2f} ms int8")
+    return launches
+
+
+def phase_export(cores: dict, device, grid=GRID) -> dict:
+    """The int8 and folded cores through export_serve_fn -> bytes ->
+    load_exported on the card: outputs bit for bit the eager core's, and
+    the loaded program launches K9 (int8), K1 and K2."""
+    batch = _stack(make_requests(8, grid, SEED + 9), device)
+    zero = dict.fromkeys(launch_counts(), 0)
+    out = {}
+    for name in ("int8", "folded"):
+        start = time.perf_counter()
+        blob = export_serve_fn(cores[name], batch)
+        exported_s = time.perf_counter() - start
+        loaded = load_exported(blob)
+        eager = cores[name](batch)
+        loaded(batch)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = loaded(batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = dict(zero, minmax_select=1, minmax_apply=1,
+                    int8_conv3d=RESNET18_CONVS if name == "int8" else 0)
+        check(launches == want,
+              f"exported {name}: launches {launches} == {want}")
+        for key in ("logits", "probs"):
+            check(torch.equal(got[key], eager[key]),
+                  f"exported {name} {key} bit for bit the eager core's")
+        check(torch.equal(got["embeddings"]["backbone_gap"],
+                          eager["embeddings"]["backbone_gap"]),
+              f"exported {name} backbone_gap bit for bit")
+        out[name] = launches
+        log(f"[export] {name}: {len(blob) / 1e6:.1f} MB artifact, exported "
+            f"in {exported_s:.2f} s; loaded program launches "
+            f"{ {k: v for k, v in launches.items() if v} }, outputs bit for "
+            f"bit the eager core's")
+    return out
+
+
+def phase_quality(cores: dict, device, grid=GRID) -> dict:
+    """compare_serve_cores over the float32, folded and int8 cores on a
+    labeled synthetic set (make_labeled_volumes), with bootstrap CIs."""
+    data = make_labeled_volumes(QUALITY["n"], tuple(grid), n_classes=3,
+                                seed=QUALITY["seed"])
+    res = compare_serve_cores(
+        {k: cores[k] for k in ("float", "folded", "int8")}, data, 3,
+        batch_size=QUALITY["batch"], bootstrap=QUALITY["bootstrap"],
+        device=device)
+    for name, r in res.items():
+        check(r["n"] == QUALITY["n"] and np.isfinite(r["f1"])
+              and np.isfinite(r["f1_ci"]), f"quality {name}: {r['n']} "
+              f"samples, finite f1 and CI")
+    check(res["float"]["delta_f1_ci"] == 0.0, "float's own delta CI is 0")
+    for line in format_comparison(res).splitlines():
+        log(f"[quality] {line}")
+    return {k: {m: r[m] for m in ("f1", "mcc", "agreement",
+                                  "max_prob_abs_err")}
+            for k, r in res.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2961,7 +3365,14 @@ def main() -> int:
     model, preprocess = phase_model(device)
     serve_launches = phase_serve(model, preprocess, device)
     phase_bf16_serve(model, preprocess, device)
-    del model
+    int8_times = phase_int8_conv(device)
+    op_overhead = phase_op_overhead(device)
+    cores, int8_launches, int8_per_batch = phase_int8_serve(
+        model, preprocess, device)
+    export_launches = phase_export(cores, device)
+    phase_quality(cores, device)
+    del cores, model
+    stage3_int8 = phase_int8_stage3(device)
     phase_train_step(device)
     fit_launches = phase_fit(device)
     err["zscore"], zscore_times = phase_zscore(device)
@@ -3008,9 +3419,15 @@ def main() -> int:
             "launches_early_fusion": {k: v[name] for k, v in
                                       early_launches.items()},
             "launches_hpo": {k: v[name] for k, v in hpo_launches.items()},
+            "launches_int8": {"serve": int8_launches[name],
+                              "serve_per_batch": int8_per_batch[name],
+                              "stage3_per_batch": stage3_int8[name],
+                              "export_int8": export_launches["int8"][name]},
             "shape": [8, int(np.prod(GRID))], "ms": ms, "call_ms": per_call,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None})
+            "library_ms": None,
+            "host_us_custom_op": op_overhead[name]["op"],
+            "host_us_direct": op_overhead[name]["direct"]})
     keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     for name in BN_KERNELS:
         kernels.append({
@@ -3047,6 +3464,36 @@ def main() -> int:
                          hpo_launches.items()},
         "batch": 8, "shape": list(STEM), **{k: k8[k] for k in keys},
         "bfloat16": {k: pool[torch.bfloat16][1][k] for k in keys}})
+    per_forward = {b: {k: (None if r["stem"][k] is None else sum(
+        r[n][k] * INT8_CONV_SHAPES[n][-1] for n in INT8_CONV_SHAPES))
+        for k in ("ms", "call_ms", "plain_ms", "bound_ms", "cudnn_bf16_ms")}
+        for b, r in int8_times.items()}
+    by_ops = sum(r["bound_ms"] * INT8_CONV_SHAPES[n][-1]
+                 for n, r in int8_times[8].items()
+                 if r["bound_by"] == "operations")
+    kernels.append({
+        "name": "int8_conv3d", "route": "cuda",
+        "source": SOURCE["int8_conv3d"], "replaces": REPLACES["int8_conv3d"],
+        "launches": int8_launches["int8_conv3d"],
+        "launches_int8": {"serve_per_batch": int8_per_batch["int8_conv3d"],
+                          "stage3_per_batch": stage3_int8["int8_conv3d"],
+                          "export_int8": export_launches["int8"][
+                              "int8_conv3d"],
+                          "export_folded": export_launches["folded"][
+                              "int8_conv3d"]},
+        "max_abs_err": max(r["max_abs_err"] for r in int8_times[8].values()),
+        "batch": 8,
+        "shape": "the 20 convolutions of one ResNet-18 forward, 91x109x91",
+        **per_forward[8], "library_ms": None,
+        "bound_by": ("operations" if by_ops >= per_forward[8]["bound_ms"] / 2
+                     else "bytes"),
+        "batch_32": per_forward[32],
+        "per_shape": {b: {n: {k: r[n][k] for k in (
+            "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "cudnn_bf16_ms")} for n in r}
+            for b, r in int8_times.items()},
+        "host_us_custom_op": op_overhead["int8_conv3d"]["op"],
+        "host_us_direct": op_overhead["int8_conv3d"]["direct"]})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

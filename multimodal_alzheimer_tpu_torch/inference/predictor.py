@@ -4,7 +4,10 @@ Port of ``multimodal_alzheimer_tpu/inference/predictor.py`` for one device.
 A ragged batch pads to the smallest rung of the batch-size ladder, so the
 card runs a few fixed batch shapes; padding rows are stripped before the
 outputs return as numpy. ``BatchingServer`` (``inference/server.py``) drives
-it through ``batch_size``, ``stage_sample`` and ``predict_parts``.
+it through ``batch_size``, ``stage_sample`` and ``predict_parts``. The serve
+core is the model's eval forward (``model_serve_fn``) or a prebuilt one
+(``serve_fn=``: the BN-folded and int8 graphs of ``inference/quantize.py``,
+an exported artifact of ``inference/export.py``).
 """
 
 from __future__ import annotations
@@ -36,9 +39,27 @@ def _to_numpy(tree, n: int):
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def model_serve_fn(model: torch.nn.Module, preprocess=None):
+    """``batch -> {'logits', 'probs', 'embeddings'}`` of ``model``'s forward
+    (in whatever mode the model is) on ``preprocess(batch)``: the float
+    serve core, the ``'float'`` baseline of ``inference/quality.py``."""
+
+    def serve(batch: dict) -> dict:
+        with torch.no_grad():
+            if preprocess is not None:
+                batch = preprocess(batch)
+            out = model(batch)
+            return {"logits": out["logits"],
+                    "probs": torch.softmax(out["logits"], dim=-1),
+                    "embeddings": out["embeddings"]}
+
+    return serve
+
+
 class Predictor:
-    def __init__(self, model: torch.nn.Module, batch_size: int = 32,
-                 preprocess=None, device="cuda", ladder=None):
+    def __init__(self, model: torch.nn.Module | None = None,
+                 batch_size: int = 32, preprocess=None, device="cuda",
+                 ladder=None, serve_fn=None, mesh=None):
         """Serve ``model`` (moved to ``device``, the card unless the caller
         asks for the CPU, and set to eval) on batches.
 
@@ -47,16 +68,31 @@ class Predictor:
         ``ladder`` lists extra batch sizes below ``batch_size``: a ragged
         batch pads to the smallest rung that fits it. Results are the same
         per-sample computation at every rung.
+
+        ``serve_fn`` replaces the model's forward with a prebuilt core,
+        ``batch -> {'logits', 'probs'[, 'embeddings']}``, that applies its
+        own preprocessing and holds its own weights: the predictor then runs
+        no ``preprocess`` and does not touch ``model``, which (when given)
+        only names the class count of an empty ``predict``. ``mesh``
+        (data-parallel serving over several cards) is not ported yet.
         """
+        if mesh is not None:
+            raise NotImplementedError(
+                "Predictor(mesh=...) is not ported yet: one device only")
+        if model is None and serve_fn is None:
+            raise ValueError("Predictor needs a model or a serve_fn")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = model
+        if serve_fn is None:
+            self.model = model.to(self.device).eval()
+            serve_fn = model_serve_fn(self.model, preprocess)
+        self.serve_fn = serve_fn
         self.batch_size = batch_size
         rungs = sorted({int(r) for r in (ladder or ())} | {int(batch_size)})
         if rungs[-1] != batch_size:
             raise ValueError(
                 f"ladder rungs {rungs} exceed batch_size {batch_size}")
         self.ladder = tuple(rungs)
-        self.preprocess = preprocess
 
     def _pad_target(self, n: int) -> int:
         """Smallest ladder rung that fits n samples."""
@@ -75,13 +111,9 @@ class Predictor:
 
     def _serve(self, batch: dict, n: int) -> dict:
         with torch.inference_mode():
-            if self.preprocess is not None:
-                batch = self.preprocess(batch)
-            out = self.model(batch)
-            probs = torch.softmax(out["logits"], dim=-1)
-            result = {"logits": out["logits"], "probs": probs,
-                      "embeddings": out["embeddings"]}
-            return _to_numpy(result, n)
+            out = self.serve_fn(batch)
+            return _to_numpy({"logits": out["logits"], "probs": out["probs"],
+                              "embeddings": out.get("embeddings", {})}, n)
 
     def warmup(self, example_batch: dict, parts: bool = False) -> None:
         """Run every ladder rung once (one call per rung), and with
@@ -128,3 +160,34 @@ class Predictor:
         tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                    for k, v in padded.items()}
         return self._serve(tensors, n)
+
+    def predict(self, dataset_or_batches) -> dict:
+        """Iterate batches (or an indexable dataset, through the port's
+        ``DataLoader`` on the host) and concatenate the outputs; ``'label'``
+        is dropped. A core without embedding taps gives an empty
+        ``embeddings`` dict. An empty dataset gives ``(0, n_classes)``
+        logits and probs (the wrapped model's class count; 0 for a bare
+        serve core)."""
+        from multimodal_alzheimer_tpu_torch.data.pipeline import DataLoader
+
+        if hasattr(dataset_or_batches, "__getitem__"):
+            loader = DataLoader(dataset_or_batches, self.batch_size,
+                                device="cpu")
+        else:
+            loader = dataset_or_batches
+        outs = []
+        for batch in loader:
+            batch = dict(batch)
+            batch.pop("label", None)
+            outs.append(self.predict_batch(batch))
+        if not outs:
+            n_classes = int(getattr(self.model, "n_classes", 0) or 0)
+            empty = np.zeros((0, n_classes), np.float32)
+            return {"logits": empty, "probs": empty, "embeddings": {}}
+        return {
+            "logits": np.concatenate([o["logits"] for o in outs]),
+            "probs": np.concatenate([o["probs"] for o in outs]),
+            "embeddings": {k: np.concatenate([o["embeddings"][k]
+                                              for o in outs])
+                           for k in outs[0]["embeddings"]},
+        }

@@ -171,12 +171,14 @@ class BatchingServer:
         try:
             out = self.predictor.predict_parts(samples)
             # Built inside the try: an output of the wrong structure fails
-            # this batch instead of killing the worker.
+            # this batch instead of killing the worker. 'embeddings' is
+            # optional: exported and int8 cores may return only 'logits'
+            # and 'probs'.
             results = [{
                 "logits": out["logits"][i],
                 "probs": out["probs"][i],
-                "embeddings": {k: v[i]
-                               for k, v in out["embeddings"].items()},
+                "embeddings": {k: v[i] for k, v in
+                               out.get("embeddings", {}).items()},
             } for i in range(len(futures))]
         except Exception as e:  # model/device failure: fail this batch only
             for future in futures:

@@ -38,6 +38,7 @@ class AnatCNN(nn.Module):
                  input_key: str = "mri",
                  dtype=torch.float32,
                  remat: bool = False,
+                 in_channels: int = 1,
                  device=None,
                  generator: torch.Generator | None = None):
         """``generator`` draws the initial weights (torch's global RNG when
@@ -46,7 +47,9 @@ class AnatCNN(nn.Module):
         in it, while parameters and BatchNorm statistics stay float32 and
         the logits return as float32; ``torch.bfloat16`` runs the JAX
         package's bf16 configuration. ``remat`` recomputes the residual
-        blocks' activations in the backward pass. ``fused_bn`` picks the backbone's
+        blocks' activations in the backward pass. ``in_channels`` is the
+        stem's input channels (2 for a stacked PET and MRI pair, given as
+        (B, 2, D, H, W)). ``fused_bn`` picks the backbone's
         BatchNorm (``models.layers.batch_norm``); ``bn_torch_stats`` gives
         backbone and head torch's running statistics and overrides it.
         ``maxpool_impl`` picks the stem pool's backward (``"xla"``, ``"sf"``
@@ -66,7 +69,8 @@ class AnatCNN(nn.Module):
         self.backbone = MedicalNetResNet3D(
             resnet_depth, dilated, device=device,
             fused_bn="torch_stats" if bn_torch_stats else fused_bn,
-            maxpool_impl=maxpool_impl, dtype=dtype, remat=remat)
+            maxpool_impl=maxpool_impl, dtype=dtype, remat=remat,
+            in_channels=in_channels)
         self.head = ClassifierHead3D(
             FEATURE_WIDTH[resnet_depth], n_classes, conv_out, filter_size,
             linear_out, batchnorm_begin, batchnorm_conv, batchnorm_dense,

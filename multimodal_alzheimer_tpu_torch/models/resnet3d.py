@@ -119,25 +119,30 @@ class Bottleneck3D(nn.Module):
 
 
 class MedicalNetResNet3D(nn.Module):
-    """Backbone only: (B, 1, D, H, W) -> (B, C_out, d, h, w).
+    """Backbone only: (B, in_channels, D, H, W) -> (B, C_out, d, h, w).
 
     ``dilated=True`` keeps layers 3-4 at stride 1 with dilation 2/4 (Med3D);
     ``dilated=False`` uses stride-2 layers instead, with the same parameter
-    shapes.
+    shapes. ``in_channels`` is 1 for a scan; 2 for a stacked PET and MRI pair
+    (JAX's stem takes whatever channel count its input has).
     """
 
     def __init__(self, depth: int = 18, dilated: bool = True, device=None,
                  fused_bn=False, maxpool_impl: str = "xla",
-                 dtype=torch.float32, remat: bool = False):
+                 dtype=torch.float32, remat: bool = False,
+                 in_channels: int = 1):
         super().__init__()
         if maxpool_impl not in MAXPOOL_IMPLS:
             raise ValueError(f"maxpool_impl must be one of {MAXPOOL_IMPLS}, "
                              f"got {maxpool_impl!r}")
         self.maxpool_impl = maxpool_impl
         self.remat = remat
+        self.depth = depth
+        self.dilated = dilated
         block_kind, layout = BLOCK_CONFIGS[depth]
         block = BasicBlock3D if block_kind == "basic" else Bottleneck3D
-        self.conv1 = _conv(1, 64, 7, stride=2, device=device, dtype=dtype)
+        self.conv1 = _conv(in_channels, 64, 7, stride=2, device=device,
+                           dtype=dtype)
         self.bn1 = batch_norm(64, fused_bn, device, dtype)
         if dilated:  # (planes, stride, dilation) per Med3D resnet.py
             specs = [(64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4)]

@@ -22,7 +22,8 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 SOURCES = (_PACKAGE / "csrc" / "minmax_norm.cu",
            _PACKAGE / "csrc" / "batch_norm.cu",
            _PACKAGE / "csrc" / "zscore_norm.cu",
-           _PACKAGE / "csrc" / "maxpool_bwd.cu")
+           _PACKAGE / "csrc" / "maxpool_bwd.cu",
+           _PACKAGE / "csrc" / "int8_conv3d.cu")
 HEADERS = (_PACKAGE / "csrc" / "scan_cluster.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -147,6 +148,10 @@ def library() -> ctypes.CDLL:
     lib.maxpool_bwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64,
                                 i64, ptr]
     lib.maxpool_bwd.restype = ctypes.c_int
+    lib.int8_conv3d_max_k.argtypes = []
+    lib.int8_conv3d_max_k.restype = i64
+    lib.int8_conv3d.argtypes = [ptr] * 5 + [i64] * 19 + [ptr]
+    lib.int8_conv3d.restype = ctypes.c_int
     return lib
 
 

@@ -20,6 +20,11 @@ requests went through the kernels. On the card the wrappers only enqueue
 work: the quantile levels travel by value in the launch arguments, and the
 interpolation takes them from a tensor made once per device by a fill
 kernel, so no call copies from host memory or waits for the card.
+
+The three kernels are custom ops (``mmalz_port::order_stats``,
+``::minmax_apply``, ``::zscore``): CPU kernel the plain version, CUDA kernel
+the hand-written one, and a fake kernel for shapes, so ``torch.export``
+records each as one op and an exported program launches the same kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from multimodal_alzheimer_tpu_torch.ops import _native
 from multimodal_alzheimer_tpu_torch.ops.quantile import (
@@ -60,12 +66,16 @@ def order_stats_plain(vol: torch.Tensor, mask: torch.Tensor,
     return order_stats_rows(vol * mask, qs)
 
 
+def _fill_levels(qs: tuple[float, ...], device: torch.device):
+    return torch.stack([torch.full((), q, dtype=torch.float32, device=device)
+                        for q in qs])
+
+
 @functools.cache
 def levels_tensor(qs: tuple[float, ...], device: torch.device):
     """(Q,) float32 ``qs`` on ``device``, made once by fill kernels (no
     copy from host memory); equal to ``torch.tensor(qs, dtype=float32)``."""
-    return torch.stack([torch.full((), q, dtype=torch.float32, device=device)
-                        for q in qs])
+    return _fill_levels(qs, device)
 
 
 def _order_stats_kernel(vol: torch.Tensor, mask: torch.Tensor,
@@ -99,6 +109,26 @@ def _decode_keys(keys: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float32)
 
 
+@torch.library.custom_op("mmalz_port::order_stats", mutates_args=(),
+                         device_types="cpu")
+def _order_stats_op(vol: torch.Tensor, mask: torch.Tensor,
+                    qs: list[float]) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    return order_stats_plain(vol, mask, _fill_levels(tuple(qs), vol.device))
+
+
+@_order_stats_op.register_kernel("cuda")
+def _(vol, mask, qs):
+    return _order_stats_kernel(vol, mask, tuple(qs))
+
+
+@_order_stats_op.register_fake
+def _(vol, mask, qs):
+    b = vol.shape[0]
+    return (vol.new_empty((b,), dtype=torch.int64),
+            vol.new_empty((b, len(qs))), vol.new_empty((b, len(qs))))
+
+
 def order_stats(volume: torch.Tensor, mask: torch.Tensor,
                 qs: tuple[float, ...]):
     """Per-scan ``(n, v_lo, v_hi)`` order statistics of ``{x*mask != 0}``.
@@ -108,10 +138,8 @@ def order_stats(volume: torch.Tensor, mask: torch.Tensor,
     tensors. A scan with no valid voxel gives +inf for both statistics.
     """
     vol, msk = _rows(volume, mask)
-    qs = tuple(qs)
-    if _native.on_cuda(vol):
-        return _order_stats_kernel(vol, msk, qs)
-    return order_stats_plain(vol, msk, levels_tensor(qs, vol.device))
+    _native.on_cuda(vol)  # raises for a device with neither route
+    return _order_stats_op(vol, msk, [float(q) for q in qs])
 
 
 def batched_masked_quantiles(volume: torch.Tensor, mask: torch.Tensor,
@@ -123,7 +151,9 @@ def batched_masked_quantiles(volume: torch.Tensor, mask: torch.Tensor,
     meaningful result (a scan with none gives NaN).
     """
     n, v_lo, v_hi = order_stats(volume, mask, qs)
-    return interpolate(n, v_lo, v_hi, levels_tensor(tuple(qs), v_lo.device))
+    # Under torch.export the tensors are fake: the cache must not keep one.
+    levels = _fill_levels if is_fake(v_lo) else levels_tensor
+    return interpolate(n, v_lo, v_hi, levels(tuple(qs), v_lo.device))
 
 
 def minmax_apply_plain(volume: torch.Tensor, mask: torch.Tensor,
@@ -153,16 +183,31 @@ def _minmax_apply_kernel(vol: torch.Tensor, mask: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("mmalz_port::minmax_apply", mutates_args=(),
+                         device_types="cpu")
+def _minmax_apply_op(vol: torch.Tensor, mask: torch.Tensor,
+                     qmin: torch.Tensor, qmax: torch.Tensor) -> torch.Tensor:
+    return minmax_apply_plain(vol, mask, qmin.to(torch.float32),
+                              qmax.to(torch.float32))
+
+
+@_minmax_apply_op.register_kernel("cuda")
+def _(vol, mask, qmin, qmax):
+    return _minmax_apply_kernel(vol, mask, qmin, qmax)
+
+
+@_minmax_apply_op.register_fake
+def _(vol, mask, qmin, qmax):
+    return torch.empty_like(vol)
+
+
 def minmax_apply(volume: torch.Tensor, mask: torch.Tensor,
                  qmin: torch.Tensor, qmax: torch.Tensor) -> torch.Tensor:
     """``clamp((x - qmin) / (qmax - qmin), 0, 1) * mask`` with (B,) per-scan
     bounds, as float32 of the volume's shape."""
     vol, msk = _rows(volume, mask)
-    if _native.on_cuda(vol):
-        return _minmax_apply_kernel(vol, msk, qmin, qmax).reshape(
-            volume.shape)
-    return minmax_apply_plain(vol, msk, qmin.to(torch.float32),
-                              qmax.to(torch.float32)).reshape(volume.shape)
+    _native.on_cuda(vol)  # raises for a device with neither route
+    return _minmax_apply_op(vol, msk, qmin, qmax).reshape(volume.shape)
 
 
 def per_scan_minmax(volume: torch.Tensor, mask: torch.Tensor,
@@ -202,6 +247,22 @@ def _zscore_kernel(vol: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("mmalz_port::zscore", mutates_args=(),
+                         device_types="cpu")
+def _zscore_op(vol: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return zscore_plain(vol, mask)
+
+
+@_zscore_op.register_kernel("cuda")
+def _(vol, mask):
+    return _zscore_kernel(vol, mask)
+
+
+@_zscore_op.register_fake
+def _(vol, mask):
+    return torch.empty_like(vol)
+
+
 def per_scan_zscore(volume: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-scan z-score of a (B, ...) batch over each scan's nonzero masked
     voxels, re-masked (reference: dataloader.py:252-260), as float32 of the
@@ -209,6 +270,5 @@ def per_scan_zscore(volume: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     both paths. A scan with no valid voxel gives NaN throughout; one with a
     single valid voxel has std 0."""
     vol, msk = _rows(volume, mask)
-    if _native.on_cuda(vol):
-        return _zscore_kernel(vol, msk).reshape(volume.shape)
-    return zscore_plain(vol, msk).reshape(volume.shape)
+    _native.on_cuda(vol)  # raises for a device with neither route
+    return _zscore_op(vol, msk).reshape(volume.shape)

@@ -1,7 +1,9 @@
-"""The full-width train cases that ``chip_smoke.py`` drives and
-``tools/profile_paths.py`` profiles, defined once: the raw-scan batch, the
-stage-3 model and the fusion baselines with their preprocessing, all on the
-91x109x91 grid with random weights from seed ``SEED``."""
+"""The full-width cases that ``chip_smoke.py`` drives and
+``tools/profile_paths.py`` and ``tools/profile_serve.py`` profile, defined
+once: the raw-scan batch, the stage-3 model and the fusion baselines with
+their preprocessing, and the serving model with its four serve cores
+(float32, bfloat16, BN-folded bfloat16, int8), all on the 91x109x91 grid
+with random weights from seed ``SEED``."""
 
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from multimodal_alzheimer_tpu_torch.data.preprocess import (
     make_device_preprocess,
 )
 from multimodal_alzheimer_tpu_torch.data.synthetic import make_labeled_volumes
+from multimodal_alzheimer_tpu_torch.inference import quantize
+from multimodal_alzheimer_tpu_torch.inference.predictor import model_serve_fn
 from multimodal_alzheimer_tpu_torch.models.fusion_models import (
     train_anat_pet_featuremapfusion,
     train_early_fusion,
@@ -62,6 +66,12 @@ TAB_HPARAMS = {"n_classes": 2, "hidden": (256, 1024), "dropout_p": 0.0}
 # Stage 3's regimes: lr_pretrained None freezes every sub-model (shared
 # towers); a rate trains every tower.
 STAGE3_REGIMES = {"frozen": None, "trained": 1e-5}
+# The serving cores of the flagship AnatCNN (ResNet-18 dilated, 3 classes,
+# raw scans min-max normalised by K1 and K2): the float32 model, the same
+# weights in bfloat16 compute, the BN-folded bfloat16 graph and the int8
+# graph (K9), calibrated on CALIBRATION batches of raw scans.
+SERVE_CORES = ("float", "bf16", "folded", "int8")
+CALIBRATION = {"batches": 2, "batch": 8, "seed": SEED + 30}
 SAMENORM = {"all_scan_norm": train_early_fusion.MRI_ALL_SCAN_STATS[2]}
 # name -> (model class, hparams, MRI normalisation, K1/K2 per step)
 BASELINES = {
@@ -159,3 +169,55 @@ def baseline_case(name: str, dtype, device) -> tuple:
         {"mean": hp["norm_mean"], "std": hp["norm_std"]}, mri_norm,
         hp.get("norm_percentile", QUANTILE))
     return model, hp, preprocess
+
+
+def serve_requests(n: int, seed: int, grid=GRID) -> list:
+    """Raw serving requests: ``mri`` (N(900, 400)) and ``mri_mask``, no
+    memoised bounds."""
+    rng = np.random.default_rng(seed)
+    shape = (n,) + tuple(grid)
+    mri = rng.standard_normal(shape, dtype=np.float32) * 400 + 900
+    mask = (rng.random(shape, dtype=np.float32) > 0.35).astype(np.float32)
+    return [{"mri": mri[i], "mri_mask": mask[i]} for i in range(n)]
+
+
+def serve_model(dtype=torch.float32, device=None) -> AnatCNN:
+    """The flagship serving AnatCNN in eval mode from seed ``SEED``, its
+    classifier bias 1.0 (keeps the trailing ReLU off its floor)."""
+    model = AnatCNN(n_classes=3, resnet_depth=18, dilated=True, dtype=dtype,
+                    generator=make_generator(SEED))
+    with torch.no_grad():
+        model.head.cls.bias.fill_(1.0)
+    return model.to(device).eval()
+
+
+def serve_preprocess():
+    """Per-scan min-max of the raw MRI in the serve (K1 and K2)."""
+    return make_device_preprocess(normalize_mri=MINMAX, quantile=QUANTILE)
+
+
+def calibration_batches(device, grid=GRID) -> list:
+    """``CALIBRATION`` raw batches on the device."""
+    reqs = serve_requests(CALIBRATION["batches"] * CALIBRATION["batch"],
+                          CALIBRATION["seed"], grid)
+    b = CALIBRATION["batch"]
+    return [{k: torch.from_numpy(np.stack([r[k] for r in reqs[i:i + b]]))
+             .to(device) for k in reqs[0]}
+            for i in range(0, len(reqs), b)]
+
+
+def serve_core(name: str, model: AnatCNN, preprocess, device, grid=GRID):
+    """The ``SERVE_CORES`` core ``name`` over the float32 ``model``:
+    ``batch -> {'logits', 'probs', 'embeddings'}`` on raw batches."""
+    if name == "float":
+        return model_serve_fn(model, preprocess)
+    if name == "bf16":
+        twin = serve_model(torch.bfloat16)
+        twin.load_state_dict(model.state_dict())
+        return model_serve_fn(twin.to(device).eval(), preprocess)
+    if name == "folded":
+        return quantize.fold_anat_cnn(model, preprocess)[0]
+    if name == "int8":
+        return quantize.quantize_anat_cnn(
+            model, calibration_batches(device, grid), preprocess)[0]
+    raise ValueError(f"serve core {name!r} is not one of {SERVE_CORES}")

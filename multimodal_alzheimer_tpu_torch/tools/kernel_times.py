@@ -1,8 +1,10 @@
 """Device times of the per-scan normalisation kernels (K1 select, K3
-z-score), the BatchNorm kernels (K4-K7, float32 and bfloat16) and the stem
-max-pool backward (K8), with their plain versions and torch's call for the
-same function where there is one, at the shapes of the flagship ResNet-18
-serving and train paths.
+z-score), the BatchNorm kernels (K4-K7, float32 and bfloat16), the stem
+max-pool backward (K8) and the int8 convolution (K9, at every shape of the
+int8 ResNet-18, batch 8 and 32, with cuDNN's bfloat16 convolution of the
+same shape beside it as context), with their plain versions and torch's
+call for the same function where there is one, at the shapes of the
+flagship ResNet-18 serving and train paths.
 
     python3 multimodal_alzheimer_tpu_torch/tools/kernel_times.py \
         [--root DIR] [--label NAME] [--out FILE] [--kernels K,...] \
@@ -72,6 +74,24 @@ NORM_KERNELS = ("minmax_select", "zscore")
 QS = (0.99, 0.01)
 # The stem pool's input at 91x109x91, batch 8 (NCDHW).
 STEM = (8, 64, 46, 55, 46)
+# Every distinct convolution of the int8 ResNet-18 (dilated) at 91x109x91:
+# name -> (C_in, F, kernel, stride, dilation, input (D, H, W), convs of that
+# shape in one forward); 20 convolutions in all, 3 of them downsamples.
+INT8_CONV_SHAPES = {
+    "stem": (1, 64, 7, 2, 1, (91, 109, 91), 1),
+    "layer1": (64, 64, 3, 1, 1, (23, 28, 23), 4),
+    "layer2_in": (64, 128, 3, 2, 1, (23, 28, 23), 1),
+    "layer2_down": (64, 128, 1, 2, 1, (23, 28, 23), 1),
+    "layer2": (128, 128, 3, 1, 1, (12, 14, 12), 3),
+    "layer3_in": (128, 256, 3, 1, 2, (12, 14, 12), 1),
+    "layer3_down": (128, 256, 1, 1, 1, (12, 14, 12), 1),
+    "layer3": (256, 256, 3, 1, 2, (12, 14, 12), 3),
+    "layer4_in": (256, 512, 3, 1, 4, (12, 14, 12), 1),
+    "layer4_down": (256, 512, 1, 1, 1, (12, 14, 12), 1),
+    "layer4": (512, 512, 3, 1, 4, (12, 14, 12), 3),
+}
+# The int8 tensor cores of one H100 SXM, dense: 1,979 TOP/s.
+INT8_OPS_PER_MS = 1979e9
 # One H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s f32 outside the tensor cores,
 # 50 MB of L2.
 HBM_BYTES_PER_MS = 3.35e9
@@ -395,6 +415,84 @@ def time_pool(x, y, indices, g) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def int8_conv_operands(name: str, batch: int, generator, device):
+    """K9's operands at ``INT8_CONV_SHAPES[name]``: int8 channels-last input
+    and packed weights in [-127, 127], float32 scale and bias; and the
+    call's (kernel, stride, dilation, pads)."""
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    c, f, k, stride, dilation, size, _ = INT8_CONV_SHAPES[name]
+    x = torch.randint(-127, 128, (batch,) + size + (c,), generator=generator,
+                      device=device, dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-127, 128, (f, c, k, k, k), generator=generator,
+                      device=device, dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(f, generator=generator, device=device) * 1e-3
+    bias = torch.randn(f, generator=generator, device=device)
+    pad = dilation * (k - 1) // 2
+    return (x, int8_conv.pack_weight(w), scale, bias,
+            ((k, k, k), stride, dilation, ((pad, pad),) * 3))
+
+
+def int8_conv_bound(name: str, batch: int) -> tuple:
+    """K9's bound: 2 M F K operations on the int8 tensor cores, or the
+    input and weights read once (int8), scale and bias, and the float32
+    output written once, over the HBM rate; whichever is larger."""
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    c, f, k, stride, dilation, size, _ = INT8_CONV_SHAPES[name]
+    pad = dilation * (k - 1) // 2
+    out = int8_conv.output_size(size, (k, k, k), stride, dilation,
+                                ((pad, pad),) * 3)
+    m = batch * float(np.prod(out))
+    kk = float(c * k ** 3)
+    ops = 2.0 * m * f * kk
+    nbytes = batch * float(np.prod(size)) * c + f * kk + 8 * f + 4 * m * f
+    by_ops, by_bytes = ops / INT8_OPS_PER_MS, nbytes / HBM_BYTES_PER_MS
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                             "bytes")
+
+
+def time_int8_conv(name: str, batch: int, generator, device,
+                   plain: bool = True) -> dict:
+    """K9 at ``INT8_CONV_SHAPES[name]``, batch ``batch``: its output held
+    to the plain version's on the same operands (``equal``, bit for bit,
+    and ``max_abs_err``), device and per-call ms, the plain version's ms
+    (float64 convolution; None unless ``plain``), the bound, and as context
+    cuDNN's bfloat16 ``F.conv3d`` of the same shape (not the same function:
+    no PyTorch call convolves int8 on the card). The input is cycled past
+    the L2, the weights are not."""
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    x, w, scale, bias, args = int8_conv_operands(name, batch, generator,
+                                                 device)
+    got = int8_conv.int8_conv3d(x, w, scale, bias, *args)
+    want = int8_conv.int8_conv3d_plain(x, w, scale, bias, *args)
+    equal = torch.equal(got, want)
+    max_abs_err = float((got - want).abs().max())
+    del got, want
+    copies = [x] + [x.clone() for _ in range(n_copies(x.numel()) - 1)]
+    kernel = [lambda xc=xc: int8_conv.int8_conv3d(xc, w, scale, bias, *args)
+              for xc in copies]
+    plain_calls = [lambda: int8_conv.int8_conv3d_plain(x, w, scale, bias,
+                                                       *args)]
+    c = x.shape[-1]
+    xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    wb = int8_conv.unpack_weight(w, args[0], c).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    pad = args[3][0][0]
+    cudnn = [lambda: torch.nn.functional.conv3d(xb, wb, None, args[1], pad,
+                                                args[2])]
+    bound_ms, bound_by = int8_conv_bound(name, batch)
+    return {"equal": equal, "max_abs_err": max_abs_err,
+            "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+            "plain_ms": (device_ms(plain_calls, launches=3, reps=3,
+                                   spin=False) if plain else None),
+            "library_ms": None, "library_call_ms": None,
+            "cudnn_bf16_ms": device_ms(cudnn),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -406,8 +504,10 @@ def row_line(label: str, what: str, r: dict) -> str:
     library = ("none" if r["library_ms"] is None else
                f"{r['library_ms']:.4f} ms (per call "
                f"{r['library_call_ms']:.4f})")
+    plain = ("not timed" if r["plain_ms"] is None
+             else f"{r['plain_ms']:.4f} ms")
     return (f"[{label}] {what}: kernel {r['ms']:.4f} ms (per call "
-            f"{r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['call_ms']:.4f}), plain {plain}, library "
             f"{library}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
@@ -419,7 +519,7 @@ def main() -> int:
     parser.add_argument("--label", default="kernels")
     parser.add_argument("--out", default=None, help="JSON file to write")
     parser.add_argument("--kernels", default=",".join(
-        NORM_KERNELS + BN_KERNELS + ("maxpool_bwd",)),
+        NORM_KERNELS + BN_KERNELS + ("maxpool_bwd", "int8_conv3d")),
         help="comma-separated kernels to time")
     parser.add_argument("--bn-dtypes", default="float32,bfloat16",
                         help="activation dtypes of the BatchNorm kernels")
@@ -461,6 +561,15 @@ def main() -> int:
                      "dtype": str(dtype), **r})
         print(row_line(args.label, f"maxpool_bwd stem {STEM} {dtype}", r),
               flush=True)
+    for batch in NORM_BATCHES if "int8_conv3d" in chosen else ():
+        for name in INT8_CONV_SHAPES:
+            r = time_int8_conv(name, batch, gen, device,
+                               plain=batch == NORM_BATCHES[0])
+            rows.append({"kernel": "int8_conv3d", "shape": name,
+                         "batch": batch, **r})
+            print(row_line(args.label, f"int8_conv3d {name} B={batch}", r)
+                  + f", cuDNN bf16 {r['cudnn_bf16_ms']:.4f} ms, equal to "
+                  f"plain {r['equal']}", flush=True)
     card = nvidia_smi()
     print(f"[{args.label}] {card}", flush=True)
     if args.out:

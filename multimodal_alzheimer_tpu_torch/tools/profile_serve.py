@@ -3,13 +3,15 @@
     python3 -m multimodal_alzheimer_tpu_torch.tools.profile_serve [--out DIR]
 
 Serves staged raw 91x109x91 requests (``mri`` + ``mri_mask``, no memoised
-bounds) through ``Predictor.predict_parts``: the ResNet-18 ``AnatCNN``
-(dilated, float32, TF32 off, random weights from a seed) behind the min-max
-preprocess, whose quantiles and apply run in the two CUDA kernels. Three
-cases: rung 8 with 1 real sample (a lone request), rung 8 with 8, rung 32
+bounds) through ``Predictor.predict_parts``: the serving cores of
+``tools/cases.py``: the ResNet-18 ``AnatCNN`` (dilated, float32, TF32 off,
+random weights from a seed) behind the min-max preprocess, whose
+quantiles and apply run in the two CUDA kernels; its BN-folded bfloat16
+graph; and its int8 graph, whose convolutions run in K9. Cases: rung 8
+with 1 real sample (a lone request, float only), rung 8 with 8, rung 32
 with 32. Each case is warmed up, then runs ``CALLS`` back-to-back calls
-under ``torch.profiler``, each call inside a ``record_function`` span.
-Per case it reports:
+under ``torch.profiler``, each call inside a ``record_function`` span. Per
+case it reports:
 
 * ``host_ms``: the span of one call (staged inputs in, numpy out, so it
   includes the device-to-host copy and the synchronisation);
@@ -17,12 +19,15 @@ Per case it reports:
   that span (CUPTI timestamps, on the host spans' clock);
 * ``idle_share``: 1 - busy / span, over all calls;
 * ``share``: device busy time by kind: ``conv_gemm`` (cuDNN/cuBLAS),
-  ``K1`` (the radix select's kernels), ``K2`` (the apply kernel),
-  ``pooling``, ``memory`` (copies and sets) and ``other`` (BatchNorm, ReLU,
-  residual adds, reductions, softmax);
-* ``conv_tflops``: 2 x the MACs of every ``Conv3d`` (counted by forward
-  hooks on the real shapes, padding rows included) over the ``conv_gemm``
-  device time;
+  ``K1`` (the radix select's kernels), ``K2`` (the apply kernel), ``K9``
+  (the int8 convolution), ``requant`` (round and clamp kernels: the
+  requant's, and ReLU's, which torch runs as a clamp), ``copy`` (dtype
+  casts, the int8 conversion included, and layout permutes), ``pooling``,
+  ``memory`` (copies and sets) and ``other`` (BatchNorm, the requant's
+  multiply, residual adds, reductions, softmax);
+* ``conv_tflops``: 2 x the MACs of every ``Conv3d`` of the float model
+  (counted by forward hooks on the real shapes, padding rows included)
+  over the convolution device time (``conv_gemm``, or ``K9`` for int8);
 * ``kernels_ms``: device ms per call of each kernel name, largest first.
 
 Medians are over calls. It prints one line per case and the card's name and
@@ -41,24 +46,27 @@ import statistics
 import subprocess
 from pathlib import Path
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from multimodal_alzheimer_tpu_torch.data.preprocess import (
-    make_device_preprocess,
-)
 from multimodal_alzheimer_tpu_torch.inference.predictor import Predictor
-from multimodal_alzheimer_tpu_torch.models.mri_models.anat_cnn import AnatCNN
-from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
+from multimodal_alzheimer_tpu_torch.tools.cases import (
+    GRID,
+    SEED,
+    serve_core,
+    serve_model,
+    serve_preprocess,
+    serve_requests,
+)
 
-GRID = (91, 109, 91)
 CASES = ((8, 1), (8, 8), (32, 32))  # (rung, real samples)
+CORE_CASES = {"float": CASES, "folded": CASES[1:], "int8": CASES[1:]}
 CALLS = 5
-SEED = 0
-K1_KERNELS = ("keys_kernel", "init_targets_kernel", "digit_hist_kernel",
-              "digit_pick_kernel", "neighbour_kernel", "finish_kernel")
+K1_KERNELS = ("select_cluster_kernel", "keys_kernel", "init_targets_kernel",
+              "digit_hist_kernel", "digit_pick_kernel", "neighbour_kernel",
+              "finish_kernel")
 K2_KERNELS = ("minmax_apply_kernel",)
+K9_KERNELS = ("int8_conv3d_kernel",)
 CONV_WORDS = ("conv", "fprop", "implicit", "gemm", "xmma", "winograd")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPAN = "serve_call"
@@ -73,11 +81,17 @@ def kind(event: dict) -> str:
         return "K1"
     if any(k in name for k in K2_KERNELS):
         return "K2"
+    if any(k in name for k in K9_KERNELS):
+        return "K9"
     low = name.lower()
+    if "round" in low or "clamp" in low:
+        return "requant"
     if any(w in low for w in CONV_WORDS):
         return "conv_gemm"
     if "pool" in low:
         return "pooling"
+    if "copy" in low:
+        return "copy"
     return "other"
 
 
@@ -149,14 +163,6 @@ def conv_macs(model: torch.nn.Module, run) -> int:
     return macs[0]
 
 
-def requests(n: int, seed: int) -> list:
-    rng = np.random.default_rng(seed)
-    shape = (n,) + GRID
-    mri = rng.standard_normal(shape, dtype=np.float32) * 400 + 900
-    mask = (rng.random(shape, dtype=np.float32) > 0.35).astype(np.float32)
-    return [{"mri": mri[i], "mri_mask": mask[i]} for i in range(n)]
-
-
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -175,47 +181,52 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
-    model = AnatCNN(n_classes=3, resnet_depth=18, dilated=True,
-                    generator=make_generator(SEED)).eval()
-    predictor = Predictor(
-        model, batch_size=32, ladder=(8,), device=device,
-        preprocess=make_device_preprocess(
-            normalize_mri={"per_scan_norm": "min_max"}, quantile=0.99))
-    staged = [predictor.stage_sample(r)
-              for r in requests(32, SEED + 1)]
+    model = serve_model(device=device)
+    preprocess = serve_preprocess()
+    float_predictor = Predictor(model, batch_size=32, ladder=(8,),
+                                device=device, preprocess=preprocess)
+    staged = [float_predictor.stage_sample(r)
+              for r in serve_requests(32, SEED + 1)]
     smi = nvidia_smi()
     report = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "grid": GRID,
               "calls": CALLS, "cases": []}
-    for rung, n in CASES:
-        parts = staged[:n]
-        for _ in range(3):
-            predictor.predict_parts(parts)
-        macs = conv_macs(predictor.model,
-                         lambda: predictor.predict_parts(parts))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(CALLS):
-                with record_function(SPAN):
-                    predictor.predict_parts(parts)
-        trace_path = out / f"profile_serve_rung{rung}_n{n}.json"
-        prof.export_chrome_trace(str(trace_path))
-        case = breakdown(json.loads(trace_path.read_text()), CALLS)
-        conv_ms = case["kind_ms"].get("conv_gemm")
-        if not conv_ms:
-            raise RuntimeError(f"no convolution kernel among "
-                               f"{list(case['kernels_ms'])[:10]}")
-        case.update(rung=rung, samples=n, conv_gflop=2 * macs / 1e9,
-                    conv_tflops=(2 * macs / 1e12) / (conv_ms / 1e3),
-                    trace=str(trace_path))
-        report["cases"].append(case)
-        shares = ", ".join(f"{k} {v:.4f}" for k, v in case["share"].items())
-        print(f"[profile] rung {rung} ({n} real): host "
-              f"{statistics.median(case['host_ms']):.3f} ms/call, device "
-              f"busy {statistics.median(case['busy_ms']):.3f} ms/call, idle "
-              f"share {case['idle_share']:.4f}; {shares}; conv "
-              f"{case['conv_gflop']:.1f} GFLOP at "
-              f"{case['conv_tflops']:.2f} TFLOP/s", flush=True)
+    for core in CORE_CASES:
+        predictor = (float_predictor if core == "float" else Predictor(
+            serve_fn=serve_core(core, model, preprocess, device),
+            batch_size=32, ladder=(8,), device=device))
+        for rung, n in CORE_CASES[core]:
+            parts = staged[:n]
+            for _ in range(3):
+                predictor.predict_parts(parts)
+            macs = conv_macs(model,
+                             lambda: float_predictor.predict_parts(parts))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(CALLS):
+                    with record_function(SPAN):
+                        predictor.predict_parts(parts)
+            trace_path = out / f"profile_serve_{core}_rung{rung}_n{n}.json"
+            prof.export_chrome_trace(str(trace_path))
+            case = breakdown(json.loads(trace_path.read_text()), CALLS)
+            conv_kind = "K9" if core == "int8" else "conv_gemm"
+            conv_ms = case["kind_ms"].get(conv_kind)
+            if not conv_ms:
+                raise RuntimeError(f"no {conv_kind} kernel among "
+                                   f"{list(case['kernels_ms'])[:10]}")
+            case.update(core=core, rung=rung, samples=n,
+                        conv_gflop=2 * macs / 1e9,
+                        conv_tflops=(2 * macs / 1e12) / (conv_ms / 1e3),
+                        trace=str(trace_path))
+            report["cases"].append(case)
+            shares = ", ".join(f"{k} {v:.4f}"
+                               for k, v in case["share"].items())
+            print(f"[profile] {core} rung {rung} ({n} real): host "
+                  f"{statistics.median(case['host_ms']):.3f} ms/call, "
+                  f"device busy {statistics.median(case['busy_ms']):.3f} "
+                  f"ms/call, idle share {case['idle_share']:.4f}; {shares}; "
+                  f"conv {case['conv_gflop']:.1f} GFLOP at "
+                  f"{case['conv_tflops']:.2f} TFLOP/s", flush=True)
     (out / "profile_serve.json").write_text(json.dumps(report, indent=1))
     print(smi, flush=True)
     return 0

@@ -1003,3 +1003,121 @@ def test_frozen_trial_keeps_its_backbone_on_the_card(device):
                for k in params if k.startswith("head."))
     assert any(not torch.equal(params[k][1].cpu(), init[1][k])
                for k in params if k.startswith("backbone."))
+
+
+# --------------------------------------------------------------------------
+# K9: the int8 convolution (ops/int8_conv.py, csrc/int8_conv3d.cu)
+# --------------------------------------------------------------------------
+
+# (C_in, F, kernel, stride, dilation, pads, input (D, H, W)) beyond the
+# flagship's shapes: the C_in=2 stem, depth-50 1^3 convs, the PET tower's
+# SAME pads (k=5, and k=4 asymmetric), per-dimension pads, and ragged M, N
+# and K tails (F=70, K=81).
+K9_EXTRA = {
+    "stem_2ch": (2, 64, (7, 7, 7), 2, 1, ((3, 3),) * 3, (91, 109, 91)),
+    "d50_expand": (64, 256, (1, 1, 1), 1, 1, ((0, 0),) * 3, (23, 28, 23)),
+    "d50_reduce": (1024, 256, (1, 1, 1), 1, 1, ((0, 0),) * 3, (12, 14, 12)),
+    "d50_down": (1024, 2048, (1, 1, 1), 1, 1, ((0, 0),) * 3, (12, 14, 12)),
+    "pet_k5": (1, 8, (5, 5, 5), 1, 1, ((2, 2),) * 3, (91, 109, 91)),
+    "pet_k4": (8, 16, (4, 4, 4), 1, 1, ((1, 2),) * 3, (45, 54, 45)),
+    "per_dim_pads": (48, 70, (3, 2, 3), 2, 2, ((2, 1), (0, 1), (2, 2)),
+                     (9, 11, 10)),
+    "ragged": (3, 70, (3, 3, 3), 1, 1, ((1, 1),) * 3, (5, 7, 6)),
+}
+
+
+def _k9_case(name, batch, device, seed):
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+    from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
+        INT8_CONV_SHAPES,
+        int8_conv_operands,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if name in INT8_CONV_SHAPES:
+        return int8_conv_operands(name, batch, gen, device)
+    c, f, kernel, stride, dilation, pads, size = K9_EXTRA[name]
+    x = torch.randint(-127, 128, (batch,) + size + (c,), generator=gen,
+                      device=device, dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-127, 128, (f, c) + kernel, generator=gen,
+                      device=device, dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(f, generator=gen, device=device) * 1e-3
+    bias = torch.randn(f, generator=gen, device=device)
+    return (x, int8_conv.pack_weight(w), scale, bias,
+            (kernel, stride, dilation, pads))
+
+
+@pytest.mark.parametrize("name", sorted(
+    ["stem", "layer1", "layer2_in", "layer2_down", "layer2", "layer3_in",
+     "layer3_down", "layer3", "layer4_in", "layer4_down", "layer4"]
+    + list(K9_EXTRA)))
+def test_int8_conv_equals_plain(device, name):
+    """Bit for bit: the int32 sums with scale 1 and bias 0, then the
+    float32 epilogue with random scale and bias."""
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    x, w, scale, bias, args = _k9_case(name, 2, device, seed=40)
+    ones, zeros = torch.ones_like(scale), torch.zeros_like(bias)
+    for s, b in ((ones, zeros), (scale, bias)):
+        got = int8_conv.int8_conv3d(x, w, s, b, *args)
+        torch.cuda.synchronize()
+        want = int8_conv.int8_conv3d_plain(x, w, s, b, *args)
+        assert got.is_contiguous() and torch.equal(got, want), name
+
+
+def test_int8_conv_launches_once_without_a_workspace(device):
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    x, w, scale, bias, args = _k9_case("layer3", 2, device, seed=41)
+    before = int8_conv.LAUNCHES["int8_conv3d"]
+    out, allocated = _allocations(
+        lambda: int8_conv.int8_conv3d(x, w, scale, bias, *args))
+    assert allocated == 1 and out.dtype == torch.float32
+    assert int8_conv.LAUNCHES["int8_conv3d"] == before + 1
+
+
+def test_int8_conv_refuses_what_it_does_not_take(device):
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    x, w, scale, bias, args = _k9_case("layer1", 1, device, seed=42)
+    with pytest.raises(TypeError, match="int8"):
+        int8_conv.int8_conv3d(x.float(), w, scale, bias, *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv.int8_conv3d(x.permute(0, 4, 1, 2, 3), w, scale, bias,
+                              *args)
+    with pytest.raises(ValueError, match="operands on"):
+        int8_conv.int8_conv3d(x.cpu(), w, scale, bias, *args)
+    big = torch.zeros((1, 4, 4, 4, 5000), dtype=torch.int8, device=device)
+    with pytest.raises(ValueError, match="overflow"):
+        int8_conv.int8_conv3d(big, w, scale, bias, *args)
+    lib = _native.library()
+    assert lib.int8_conv3d_max_k() == int8_conv.MAX_K
+
+
+def test_custom_ops_under_export_on_the_card(device):
+    """An int8 serve with the min-max preprocess exported on the card:
+    reloaded, it launches K1, K2 and K9 and gives the eager bits."""
+    from multimodal_alzheimer_tpu_torch.inference import export, quantize
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    model = AnatCNN(3, resnet_depth=10).to(device).eval()
+    preprocess = make_device_preprocess(
+        normalize_mri={"per_scan_norm": "min_max"}, quantile=0.99)
+    rng = np.random.default_rng(43)
+    batch = {"mri": torch.tensor(rng.normal(900, 400, (2, 32, 36, 32)),
+                                 dtype=torch.float32, device=device),
+             "mri_mask": torch.tensor(rng.random((2, 32, 36, 32)) > 0.35,
+                                      dtype=torch.float32, device=device)}
+    serve, _ = quantize.quantize_anat_cnn(model, [batch], preprocess)
+    eager = serve(batch)
+    loaded = export.load_exported(export.export_serve_fn(serve, batch))
+    hopper_norm.reset_launches()
+    int8_conv.reset_launches()
+    got = loaded(batch)
+    torch.cuda.synchronize()
+    assert hopper_norm.LAUNCHES["minmax_select"] == 1
+    assert hopper_norm.LAUNCHES["minmax_apply"] == 1
+    assert int8_conv.LAUNCHES["int8_conv3d"] == 12  # stem, 8, 3 downsamples
+    assert torch.equal(got["logits"], eager["logits"])
+    assert torch.equal(got["embeddings"]["backbone_gap"],
+                       eager["embeddings"]["backbone_gap"])

@@ -34,6 +34,15 @@ def test_union_ms(intervals, want):
     (_dev("keys_kernel(float const*, float const*)", 0, 1), "K1"),
     (_dev("digit_pick_kernel(unsigned int const*)", 0, 1), "K1"),
     (_dev("minmax_apply_kernel(float const*)", 0, 1), "K2"),
+    (_dev("select_cluster_kernel(float const*, float const*)", 0, 1), "K1"),
+    (_dev("int8_conv3d_kernel<true>(signed char const*)", 0, 1), "K9"),
+    (_dev("vectorized_elementwise_kernel<4, round_kernel_cuda>", 0, 1),
+     "requant"),
+    (_dev("vectorized_elementwise_kernel<4, launch_clamp_scalar>", 0, 1),
+     "requant"),
+    (_dev("vectorized_elementwise_kernel<4, MulFunctor<float>>", 0, 1),
+     "other"),
+    (_dev("direct_copy_kernel_cuda", 0, 1), "copy"),
     (_dev("sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32", 0, 1),
      "conv_gemm"),
     (_dev("void cudnn::ops::nchwToNhwcKernel", 0, 1), "other"),

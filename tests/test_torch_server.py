@@ -222,3 +222,38 @@ def test_predictor_runs_on_the_card_unless_asked_for_the_cpu():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Predictor(_Tiny())
     assert Predictor(_Tiny(), device="cpu").device.type == "cpu"
+
+
+class _NoTaps:
+    """A predictor whose outputs carry only logits and probs, as JAX's
+    Predictor passes on an exported or int8 core's."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+        self.batch_size = predictor.batch_size
+
+    def stage_sample(self, sample):
+        return self.predictor.stage_sample(sample)
+
+    def predict_parts(self, samples):
+        out = self.predictor.predict_parts(samples)
+        return {"logits": out["logits"], "probs": out["probs"]}
+
+
+@pytest.mark.parametrize("server_cls", [BatchingServer, JaxBatchingServer],
+                         ids=["port", "jax"])
+def test_core_without_embeddings_serves(server_cls):
+    """Outputs without an 'embeddings' entry serve through both servers,
+    each result with an empty embeddings dict and the single-sample
+    numbers."""
+    pred = _predictor(batch_size=4)
+    rng = np.random.default_rng(4)
+    xs = rng.normal(size=(6, 9)).astype(np.float32)
+    with server_cls(_NoTaps(pred), max_wait_s=0.02) as server:
+        results = [f.result(timeout=60) for f in
+                   [server.submit({"x": x}) for x in xs]]
+    for x, r in zip(xs, results):
+        assert r["embeddings"] == {}
+        want = pred.predict_batch({"x": x[None]})["logits"][0]
+        np.testing.assert_allclose(r["logits"], want, rtol=1e-6, atol=1e-7)
+    assert server.samples_served == 6
