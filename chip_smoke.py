@@ -44,13 +44,20 @@ Phases, each printing its lines:
      launch counts over the run; then a bf16 AnatCNN with the same weights
      at rung 8 beside the f32 one: logits within 2e-2 of max(1, |logit|),
      argmax equal where the margin is clear, requests/s of each;
-  7b. the int8 convolution (K9) against its plain version, bit for bit, at
-     all 11 convolution shapes of the int8 ResNet-18 at batch 2 (scale 1
-     and bias 0, then random scale and bias), then bit for bit again and
-     its device times at batch 8 and 32 against its bound (int8 dense tensor cores at 1,979
-     TOP/s or 3.35 TB/s) with cuDNN's bf16 conv3d of each shape beside it
-     as context; the host microseconds per call of K1, K2, K3 and K9
-     through their custom ops and straight into the ctypes launch;
+  7b. the int8 convolution (K9) against its plain version, bit for bit, in
+     every epilogue mode (float32 out with scale 1 and bias 0, then random
+     scale and bias; ReLU and int8 out; a float32 or int8 residual, ReLU,
+     int8 or float32 out) at all 11 convolution shapes of the int8
+     ResNet-18 at batch 2 and at kernel_times.INT8_GEOMETRIES (the C_in=2
+     stem, depth-50 1^3 convs, the PET tower's pads, ragged tails, long K
+     at C not a multiple of 16, the CPU tests' geometries);
+     then bit for bit again and its device times at batch 8 and 32, per
+     shape in float32-out mode and in each mode the graph runs there,
+     against the mode's bound (int8 dense tensor cores at 1,979 TOP/s or
+     3.35 TB/s), with torch._int_mm on im2col columns of the same M, N, K
+     (the GEMM only) and cuDNN's bf16 conv3d of each shape beside it as
+     context; the host microseconds per call of K1, K2, K3 and K9 through
+     their custom ops and straight into the ctypes launch;
   7c. the serving extras on phase 6's model: the four serve cores of
      tools/cases.py (float32, bf16, BN-folded bf16, int8 calibrated on 2
      raw batches); per batch of 8 raw requests K1 and K2 once each and K9
@@ -69,6 +76,11 @@ Phases, each printing its lines:
   7e. compare_serve_cores over the float32, folded and int8 cores on 32
      labeled synthetic volumes (bootstrap 200), printed with
      format_comparison;
+  7e'. the int8 ResNet-18 graph on one batch of 8 through K9's fused
+     epilogue and through the unfused composition (float32 out, then
+     torch's add, ReLU and requant; a context subclass here): every
+     requant site's carrier, the feature map and the logits equal bit for
+     bit, K9 20 launches a fused batch, drift within JAX's bounds;
   7f. int8 stage 3: quantize_all_modalities_fusion on tools/cases.py's
      stage-3 case (shared towers), K9 20 and K1/K2 once per batch,
      probabilities within 0.01 of the float fusion's and the argmax equal
@@ -199,10 +211,15 @@ screen's run, the MRI search's normalization, the shared-tower fusion
 search per train step in f32, and the two entry-point studies); K1-K3
 also their host microseconds per call through the custom op and direct.
 K9's entry: launches from phase 7c's server run, per batch of the int8
-serve, int8 stage 3 and the exported program ("launches_int8"), the
-largest |kernel - plain| over the batch-8 shapes, device,
-per-call, plain and bound ms summed over one forward's 20 convolutions at
-batch 8 (and 32), each shape's times, and cuDNN's bf16 time as context.
+serve, int8 stage 3, the exported program and the fused route
+("launches_int8"), the largest |kernel - plain| over the batch-8 shapes
+and modes, device and bound ms summed over one forward's 20 convolutions
+in the graph's modes at batch 8 (and 32), the same in float32-out mode
+with per-call and plain ms, library_ms the torch._int_mm GEMMs of the
+same shapes (not the same function), each shape's and mode's times, and
+cuDNN's bf16 time as context. The BatchNorm kernels' entries carry
+per-step totals (launches x time and launches x bound over the five
+shapes, f32 and bf16).
 Any failed check raises,
 so the script exits non-zero without printing its last line,
 {"ok": true, "device": {...}}. It needs one card and imports the
@@ -240,6 +257,7 @@ from multimodal_alzheimer_tpu_torch.data.synthetic import (
 )
 from multimodal_alzheimer_tpu_torch.inference import (
     harness,
+    quantize,
     test_all_mod_fusion,
     test_anat_cnn,
     test_anat_pet_fusion,
@@ -336,6 +354,9 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     BN_PER_STEP,
     BN_SHAPES,
     INT8_CONV_SHAPES,
+    INT8_FORWARD,
+    INT8_GEOMETRIES,
+    INT8_MODES,
     INT8_OPS_PER_MS,
     STEM,
     aten_pool_backward,
@@ -345,6 +366,9 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     call_ms,
     device_ms,
     int8_conv_operands,
+    int8_fused_operands,
+    int8_fused_plain,
+    int8_geometry_operands,
     norm_bounds,
     time_bn,
     time_int8_conv,
@@ -360,6 +384,7 @@ from multimodal_alzheimer_tpu_torch.tools.cases import (
     QUANTILE,
     SEED,
     SERVE_CORES,
+    calibration_batches,
     STAGE3_REGIMES,
     TAB_HPARAMS,
     baseline_batch,
@@ -3024,50 +3049,93 @@ SERVE_RUNGS = (8, 32)
 RESNET18_CONVS = 20  # 17 3^3/7^3 convolutions and 3 downsamples
 
 
+def _check_k9_modes(what, x, w, scale, bias, args, gen) -> None:
+    """K9 against its plain version, bit for bit, in float32-out mode
+    (scale 1 and bias 0 for the int32 sums, then random scale and bias)
+    and in every other epilogue mode of ``INT8_MODES``."""
+    for s, b in ((torch.ones_like(scale), torch.zeros_like(bias)),
+                 (scale, bias)):
+        got = int8_conv.int8_conv3d(x, w, s, b, *args)
+        torch.cuda.synchronize()
+        want = int8_conv.int8_conv3d_plain(x, w, s, b, *args)
+        check(torch.equal(got, want), f"K9 {what} equals plain")
+    for mode in INT8_MODES:
+        if mode == "f32":
+            continue
+        kw = int8_fused_operands(x, w, scale, bias, args, mode, gen)
+        got = int8_conv.int8_conv3d_fused(x, w, scale, bias, *args, **kw)
+        torch.cuda.synchronize()
+        want = int8_fused_plain(x, w, scale, bias, args, kw)
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"K9 {what} {mode} equals plain")
+
+
 def phase_int8_conv(device, batch: int = 2, timed=SERVE_RUNGS) -> dict:
-    """K9 against its plain version, bit for bit, at every convolution
-    shape of the int8 ResNet-18 at batch ``batch`` (scale 1 and bias 0 for
-    the int32 sums, then random scale and bias); then at each serving rung
-    K9 held to its plain version again, bit for bit at every shape, and its
-    device times beside the plain version's (the first rung only), the
-    bound and cuDNN's bfloat16 convolution of the same shape."""
+    """K9 against its plain version, bit for bit, in every epilogue mode
+    (``INT8_MODES``: float32 out; ReLU and int8 out; a float32 or int8
+    residual, ReLU, int8 or float32 out) at every convolution shape of the
+    int8 ResNet-18 at batch ``batch``, and at ``INT8_GEOMETRIES``; then at
+    each serving rung,
+    per shape, K9 held to its plain version again in float32-out mode and
+    in each mode the graph runs at that shape (``INT8_FORWARD``), with its
+    device times beside the plain version's (the first rung, float32 out),
+    the bound of the mode, ``torch._int_mm`` on im2col columns of the same
+    M, N and K (the GEMM only, not the same function) and cuDNN's bfloat16
+    convolution of the same shape as context."""
     gen = make_generator(SEED + 50, device)
     for name in INT8_CONV_SHAPES:
-        x, w, scale, bias, args = int8_conv_operands(name, batch, gen, device)
-        for s, b in ((torch.ones_like(scale), torch.zeros_like(bias)),
-                     (scale, bias)):
-            got = int8_conv.int8_conv3d(x, w, s, b, *args)
-            torch.cuda.synchronize()
-            want = int8_conv.int8_conv3d_plain(x, w, s, b, *args)
-            check(torch.equal(got, want), f"K9 {name} B={batch} equals plain")
-        del x, got, want
-    log(f"[int8 conv] K9 equals its plain version bit for bit at all "
-        f"{len(INT8_CONV_SHAPES)} convolution shapes of ResNet-18, B={batch}"
-        f" (int32 sums and epilogue)")
+        _check_k9_modes(f"{name} B={batch}",
+                        *int8_conv_operands(name, batch, gen, device), gen)
+    for name in INT8_GEOMETRIES:
+        _check_k9_modes(f"{name} B={batch}",
+                        *int8_geometry_operands(name, batch, gen, device),
+                        gen)
+    log(f"[int8 conv] K9 equals its plain version bit for bit in all "
+        f"{len(INT8_MODES)} epilogue modes at all {len(INT8_CONV_SHAPES)} "
+        f"convolution shapes of ResNet-18 and {len(INT8_GEOMETRIES)} more "
+        f"geometries (INT8_GEOMETRIES), B={batch}")
     log(f"[int8 conv] bounds assume {INT8_OPS_PER_MS / 1e9:.0f} TOP/s int8 "
         f"dense tensor cores and 3.35 TB/s HBM (H100 SXM)")
     times = {}
     for b in timed:
         times[b] = {}
+        total = dict.fromkeys(("ms", "bound_ms", "library_ms",
+                               "cudnn_bf16_ms", "graph_ms",
+                               "graph_bound_ms"), 0.0)
         for name in INT8_CONV_SHAPES:
-            r = time_int8_conv(name, b, gen, device, plain=b == timed[0])
-            check(r["equal"], f"K9 {name} B={b} equals plain (max |kernel -"
-                  f" plain| {r['max_abs_err']})")
-            times[b][name] = r
-            plain = ("" if r["plain_ms"] is None
-                     else f", plain {r['plain_ms']:.4f} ms")
-            log(f"[int8 conv] {name} B={b}: equal to plain, max |kernel -"
-                f" plain| {r['max_abs_err']}; kernel {r['ms']:.4f} ms (per "
-                f"call {r['call_ms']:.4f}){plain}, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
-                f"{r['bound_ms'] / r['ms']:.3f}; cuDNN bf16 conv3d "
-                f"{r['cudnn_bf16_ms']:.4f} ms (context)")
-        total = {k: sum(times[b][n][k] * INT8_CONV_SHAPES[n][-1]
-                        for n in INT8_CONV_SHAPES)
-                 for k in ("ms", "bound_ms", "cudnn_bf16_ms")}
+            count = INT8_CONV_SHAPES[name][-1]
+            times[b][name] = {}
+            for mode in ["f32"] + [m for m in INT8_FORWARD[name]
+                                   if m != "f32"]:
+                r = time_int8_conv(name, b, gen, device,
+                                   plain=b == timed[0] and mode == "f32",
+                                   mode=mode)
+                check(r["equal"], f"K9 {name} B={b} {mode} equals plain "
+                      f"(max |kernel - plain| {r['max_abs_err']})")
+                times[b][name][mode] = r
+                runs = INT8_FORWARD[name].get(mode, 0)
+                total["graph_ms"] += runs * r["ms"]
+                total["graph_bound_ms"] += runs * r["bound_ms"]
+                extra = "".join(
+                    f", {label} {r[key]:.4f} ms" for key, label in (
+                        ("plain_ms", "plain"),
+                        ("library_ms", "torch._int_mm GEMM only"),
+                        ("cudnn_bf16_ms", "cuDNN bf16 conv3d (context)"))
+                    if r[key] is not None)
+                log(f"[int8 conv] {name} B={b} {mode}: equal to plain, max "
+                    f"|kernel - plain| {r['max_abs_err']}; kernel "
+                    f"{r['ms']:.4f} ms (per call {r['call_ms']:.4f}), bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+                    f"{r['bound_ms'] / r['ms']:.3f}{extra}")
+            for key in ("ms", "bound_ms", "library_ms", "cudnn_bf16_ms"):
+                total[key] += count * times[b][name]["f32"][key]
+        times[b]["total"] = total
         log(f"[int8 conv] one ResNet-18 forward's 20 convolutions at B={b}: "
-            f"K9 {total['ms']:.3f} ms, bound {total['bound_ms']:.3f} ms, "
-            f"cuDNN bf16 {total['cudnn_bf16_ms']:.3f} ms")
+            f"K9 in the graph's modes {total['graph_ms']:.3f} ms (bound "
+            f"{total['graph_bound_ms']:.3f}); all float32 out "
+            f"{total['ms']:.3f} ms (bound {total['bound_ms']:.3f}); "
+            f"torch._int_mm GEMMs alone {total['library_ms']:.3f} ms; cuDNN "
+            f"bf16 {total['cudnn_bf16_ms']:.3f} ms")
     return times
 
 
@@ -3232,6 +3300,89 @@ def phase_int8_serve(model, preprocess, device, grid=GRID) -> tuple:
     return cores, launches, per_batch["int8"]
 
 
+class _RecordingInt8Ctx(quantize._Int8Ctx):
+    """The int8 graph's context, keeping each requant site's carrier."""
+
+    def __init__(self, scales):
+        super().__init__(scales)
+        self.seen = {}
+
+    def requant(self, site, x):
+        self.seen[site] = super().requant(site, x)
+        return self.seen[site]
+
+
+class _UnfusedInt8Ctx(_RecordingInt8Ctx):
+    """The int8 graph as it ran before K9's fused epilogue: every
+    convolution writes float32 (``int8_conv3d``), then torch adds the
+    shortcut (an int8 one through ``dequant``), applies ReLU and
+    requantizes, as the float graph's ``conv_relu`` does."""
+
+    conv_relu = quantize._FloatCtx.conv_relu
+
+
+def phase_int8_fused_route(model, preprocess, device, grid=GRID) -> dict:
+    """One batch of 8 raw requests at ``grid`` through the int8 ResNet-18
+    graph twice from one calibration: fused (K9 adds the shortcut, applies
+    ReLU and writes each int8 carrier) and unfused (float32 out, then torch
+    ops). Every requant site's carrier, the feature map and the logits
+    equal bit for bit; K9 20 launches per fused batch; the int8 core's
+    drift from the float32 model within JAX's bounds; device ms per batch
+    of each route's backbone. Returns the fused route's launch counts."""
+    serve, qtree = quantize.quantize_anat_cnn(
+        model, calibration_batches(device, grid), preprocess)
+    batch = _stack(make_requests(8, grid, SEED + 9), device)
+    vol = quantize._make_vol(model, preprocess, torch.float32)(batch)
+    head = quantize._float32_head(model)
+    cfg = qtree["config"]
+    routes = {"fused": _RecordingInt8Ctx, "unfused": _UnfusedInt8Ctx}
+    out, ms = {}, {}
+    for name, ctx_type in routes.items():
+        times = []
+        for rep in range(4):
+            ctx = ctx_type(qtree["scales"])
+            torch.cuda.synchronize()
+            if rep == 3:
+                reset_launch_counts()
+            start = time.perf_counter()
+            with torch.inference_mode():
+                fmap = quantize._backbone_forward(
+                    qtree, vol, ctx, depth=cfg["depth"],
+                    dilated=cfg["dilated"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        if name == "fused":
+            launches = launch_counts()
+        with torch.inference_mode():
+            out[name] = (ctx.seen, fmap, head(fmap)["logits"])
+        ms[name] = statistics.median(times[1:])
+    (fs, ffmap, flog), (us, ufmap, ulog) = out["fused"], out["unfused"]
+    check(list(fs) == list(us), f"requant sites {list(fs)} == {list(us)}")
+    for site in fs:
+        check(fs[site].dtype == torch.int8 and torch.equal(fs[site],
+                                                            us[site]),
+              f"int8 carrier {site}: fused equals unfused")
+    check(torch.equal(ffmap, ufmap) and torch.equal(flog, ulog),
+          "feature map and logits: fused equals unfused")
+    with torch.inference_mode():
+        served = serve(batch)["logits"]
+    check(torch.equal(served, flog), "the int8 core's logits are the fused "
+          "route's")
+    want = dict(dict.fromkeys(launches, 0), int8_conv3d=RESNET18_CONVS)
+    check(launches == want, f"fused backbone launches {launches} == {want}")
+    err = quantization_error(model, serve, batch, preprocess)
+    check(err["argmax_agree"] >= INT8_DRIFT["argmax_agree"]
+          and err["prob_max_abs_err"] < INT8_DRIFT["prob_max_abs_err"],
+          f"int8 drift {err} within {INT8_DRIFT}")
+    log(f"[int8 fused] batch 8 at {grid}: {len(fs)} requant sites, the "
+        f"feature map and the logits equal bit for bit fused and unfused; "
+        f"K9 {launches['int8_conv3d']} launches a fused batch; drift from "
+        f"the float32 model {err}; backbone {ms['fused']:.3f} ms fused, "
+        f"{ms['unfused']:.3f} ms unfused (host clock around a synchronised "
+        f"batch, median of 3)")
+    return launches
+
+
 def phase_int8_stage3(device, grid=GRID) -> dict:
     """int8 stage 3 on tools/cases.py's stage-3 case (frozen, shared
     towers): quantize_all_modalities_fusion calibrated on the case's batch;
@@ -3371,7 +3522,9 @@ def main() -> int:
         model, preprocess, device)
     export_launches = phase_export(cores, device)
     phase_quality(cores, device)
-    del cores, model
+    del cores
+    fused_route = phase_int8_fused_route(model, preprocess, device)
+    del model
     stage3_int8 = phase_int8_stage3(device)
     phase_train_step(device)
     fit_launches = phase_fit(device)
@@ -3429,6 +3582,18 @@ def main() -> int:
             "host_us_custom_op": op_overhead[name]["op"],
             "host_us_direct": op_overhead[name]["direct"]})
     keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    bn_per_step = {
+        name: {dtype: {k: sum(BN_PER_STEP[shape] * t[shape][name][k]
+                              for shape in BN_SHAPES)
+                       for k in ("ms", "bound_ms")}
+               for dtype, t in (("float32", bn_times),
+                                ("bfloat16", bn_times_bf16))}
+        for name in BN_KERNELS}
+    for name, per in bn_per_step.items():
+        log(f"[bn per step] {name}: " + "; ".join(
+            f"{dtype} {v['ms']:.4f} ms a step (sum of launches x time over "
+            f"the five shapes), bound {v['bound_ms']:.4f} ms, share "
+            f"{v['bound_ms'] / v['ms']:.3f}" for dtype, v in per.items()))
     for name in BN_KERNELS:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
@@ -3443,6 +3608,7 @@ def main() -> int:
             "max_abs_err": err[name], "batch": 8,
             "shape": list(BN_SHAPES["stem"]),
             **{k: bn_times["stem"][name][k] for k in keys},
+            "per_step": bn_per_step[name],
             "per_shape": {
                 shape: {"dims": list(BN_SHAPES[shape]),
                         "launches_per_step": BN_PER_STEP[shape],
@@ -3464,13 +3630,20 @@ def main() -> int:
                          hpo_launches.items()},
         "batch": 8, "shape": list(STEM), **{k: k8[k] for k in keys},
         "bfloat16": {k: pool[torch.bfloat16][1][k] for k in keys}})
-    per_forward = {b: {k: (None if r["stem"][k] is None else sum(
-        r[n][k] * INT8_CONV_SHAPES[n][-1] for n in INT8_CONV_SHAPES))
-        for k in ("ms", "call_ms", "plain_ms", "bound_ms", "cudnn_bf16_ms")}
+    per_forward = {b: {
+        "ms": r["total"]["graph_ms"], "bound_ms": r["total"]["graph_bound_ms"],
+        "ms_f32_out": r["total"]["ms"],
+        "bound_ms_f32_out": r["total"]["bound_ms"],
+        "library_ms": r["total"]["library_ms"],
+        "cudnn_bf16_ms": r["total"]["cudnn_bf16_ms"],
+        **{k: sum(r[n]["f32"][k] * INT8_CONV_SHAPES[n][-1]
+                  for n in INT8_CONV_SHAPES)
+           for k in ("call_ms", "plain_ms") if r["stem"]["f32"][k]
+           is not None}}
         for b, r in int8_times.items()}
-    by_ops = sum(r["bound_ms"] * INT8_CONV_SHAPES[n][-1]
-                 for n, r in int8_times[8].items()
-                 if r["bound_by"] == "operations")
+    by_ops = sum(r["f32"]["bound_ms"] * INT8_CONV_SHAPES[n][-1]
+                 for n, r in int8_times[8].items() if n != "total"
+                 and r["f32"]["bound_by"] == "operations")
     kernels.append({
         "name": "int8_conv3d", "route": "cuda",
         "source": SOURCE["int8_conv3d"], "replaces": REPLACES["int8_conv3d"],
@@ -3480,17 +3653,24 @@ def main() -> int:
                           "export_int8": export_launches["int8"][
                               "int8_conv3d"],
                           "export_folded": export_launches["folded"][
+                              "int8_conv3d"],
+                          "fused_route_per_batch": fused_route[
                               "int8_conv3d"]},
-        "max_abs_err": max(r["max_abs_err"] for r in int8_times[8].values()),
+        "max_abs_err": max(m["max_abs_err"] for n, r in int8_times[8].items()
+                           if n != "total" for m in r.values()),
         "batch": 8,
-        "shape": "the 20 convolutions of one ResNet-18 forward, 91x109x91",
-        **per_forward[8], "library_ms": None,
-        "bound_by": ("operations" if by_ops >= per_forward[8]["bound_ms"] / 2
-                     else "bytes"),
+        "shape": "the 20 convolutions of one ResNet-18 forward, 91x109x91, "
+                 "in the int8 graph's epilogue modes",
+        "plain_ms": None, **per_forward[8],
+        "library": "torch._int_mm on im2col columns of the same M, N, K: "
+                   "GEMM only, not the same function",
+        "bound_by": ("operations" if by_ops >= per_forward[8][
+            "bound_ms_f32_out"] / 2 else "bytes"),
         "batch_32": per_forward[32],
-        "per_shape": {b: {n: {k: r[n][k] for k in (
+        "per_shape": {b: {n: {mode: {k: m[k] for k in (
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
-            "bound_by", "cudnn_bf16_ms")} for n in r}
+            "bound_by", "library_ms", "cudnn_bf16_ms")}
+            for mode, m in r[n].items()} for n in INT8_CONV_SHAPES}
             for b, r in int8_times.items()},
         "host_us_custom_op": op_overhead["int8_conv3d"]["op"],
         "host_us_direct": op_overhead["int8_conv3d"]["direct"]})

@@ -10,18 +10,26 @@ Port of ``multimodal_alzheimer_tpu/inference/quantize.py``:
 * **Symmetric PTQ**: per-output-channel int8 weights, per-tensor int8
   activations with scales from a one-pass absmax calibration that runs the
   folded float32 graph (``calibrate_backbone``).
-* **int8 dataflow**: every convolution is ``ops.int8_conv.int8_conv3d`` (the
-  Hopper kernel K9 on the card): int8 operands, int32 sums, and a float32
-  epilogue ``* scale + bias`` whose ``scale`` holds the input's scale. The
-  int8 carriers between convolutions are channels-last ``(B, D, H, W, C)``,
-  as JAX's NDHWC; the graph permutes only where it enters and leaves float32
-  NCDHW. The max pools run on int8 exactly, through a cast to float16 and
-  back with ``-inf`` padding (max commutes with the monotone requant).
-  Residual adds are float32.
+* **int8 dataflow**: every convolution is the Hopper kernel K9 on the card
+  (``ops.int8_conv``): int8 operands, int32 sums, and a float32 epilogue
+  ``* scale + bias`` whose ``scale`` holds the input's scale. In the ResNet
+  graph a convolution followed by ReLU and a requant
+  (``int8_conv3d_fused``) also adds its block's shortcut (the int8 carrier
+  dequantized, or the downsample's float32 output), applies the ReLU and
+  writes the next int8 carrier from the same epilogue, the same float32
+  operations in the same order; the downsamples, the last block's feature
+  map and the PET towers' convolutions (``int8_conv3d``) write float32.
+  The int8 carriers between convolutions are channels-last ``(B, D, H, W,
+  C)``, as JAX's NDHWC; the graph permutes only where it enters and leaves
+  float32 NCDHW. The max pools run on int8 exactly, through a cast to
+  float16 and back with ``-inf`` padding (max commutes with the monotone
+  requant). Residual adds are float32.
 
 One graph (``_backbone_forward``, ``_pet_tower_forward``) serves both modes:
-a context object supplies conv, pool and requant, so calibration and serving
-name their requant sites alike. The requant is ``clamp(round(x * f32(1/s)),
+a context object supplies conv (and ``conv_relu``: conv, shortcut, ReLU and
+requant), pool and requant, so calibration and serving name their requant
+sites alike; the int8 context passes a carrier that the fused epilogue
+already requantized through ``requant`` by its site's name. The requant is ``clamp(round(x * f32(1/s)),
 -127, 127)`` with round-half-to-even, ``1/s`` rounded to float32 once, as
 JAX's weakly typed multiply does.
 
@@ -54,6 +62,7 @@ from multimodal_alzheimer_tpu_torch.models import layers
 from multimodal_alzheimer_tpu_torch.models.resnet3d import BLOCK_CONFIGS
 from multimodal_alzheimer_tpu_torch.ops.int8_conv import (
     int8_conv3d,
+    int8_conv3d_fused,
     pack_weight,
 )
 
@@ -180,6 +189,18 @@ class _FloatCtx:
 
     conv = staticmethod(_conv_float)
 
+    def conv_relu(self, entry, x, stride, dilation, site=None,
+                  residual=None):
+        """``requant(site, relu(conv(x) + shortcut))``; ``residual`` is
+        ``(carrier_site, carrier)`` (dequantized at that site) or ``(None,
+        tensor)``; no requant without a site."""
+        y = self.conv(entry, x, stride, dilation)
+        if residual is not None:
+            res_site, res = residual
+            y = y + (res if res_site is None else self.dequant(res_site, res))
+        y = F.relu(y)
+        return y if site is None else self.requant(site, y)
+
     def enter(self, x):
         return x
 
@@ -226,7 +247,28 @@ class _Int8Ctx:
     def leave(self, y):
         return y.permute(0, 4, 1, 2, 3)
 
+    def conv_relu(self, entry, x, stride, dilation, site=None,
+                  residual=None):
+        """``_FloatCtx.conv_relu`` in one K9 launch: the shortcut, ReLU and
+        the requant at ``site`` in the epilogue. The carrier still passes
+        through ``requant`` by its site's name."""
+        kernel = entry["kernel"]
+        kw = {"relu": True, "pads": _torch_pad(kernel[0], dilation)}
+        if residual is not None:
+            res_site, kw["residual"] = residual
+            if res_site is not None:
+                kw["residual_scale"] = _f32(self.scales[res_site])
+        if site is not None:
+            kw["out_scale"] = self.scales[site]
+        y = int8_conv3d_fused(x, entry["wq"], entry["scale"], entry["bias"],
+                              kernel, stride, dilation, **kw)
+        return y if site is None else self.requant(site, y)
+
     def requant(self, site, x):
+        """float32 -> the int8 carrier of ``site``; a carrier that
+        ``conv_relu`` already requantized at ``site`` passes as it is."""
+        if x.dtype == torch.int8:
+            return x
         inv = _f32(1.0 / self.scales[site])
         return torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
 
@@ -246,8 +288,7 @@ def _backbone_forward(tree, x, ctx, *, depth, dilated):
     in both modes, so the calibration's keys are the serving scales'."""
     kind, layout = BLOCK_CONFIGS[depth]
     x = ctx.requant("stem_in", ctx.enter(x))
-    y = F.relu(ctx.conv(tree["conv1"], x, 2, 1))
-    carrier = ctx.pool(ctx.requant("pool_in", y))
+    carrier = ctx.pool(ctx.conv_relu(tree["conv1"], x, 2, 1, "pool_in"))
     carrier_site = "pool_in"
     for li, (_, stride, dilation) in enumerate(_layer_specs(dilated),
                                                start=1):
@@ -256,24 +297,26 @@ def _backbone_forward(tree, x, ctx, *, depth, dilated):
             blk = tree[name]
             st = stride if bi == 0 else 1
             if kind == "basic":
-                h = F.relu(ctx.conv(blk["conv1"], carrier, st, dilation))
-                h = ctx.requant(f"{name}/mid", h)
-                h = ctx.conv(blk["conv2"], h, 1, dilation)
+                h = ctx.conv_relu(blk["conv1"], carrier, st, dilation,
+                                  f"{name}/mid")
+                last, last_dilation = blk["conv2"], dilation
             else:  # bottleneck: 1^3 -> 3^3 (stride, dilation) -> 1^3 (x4)
-                h = F.relu(ctx.conv(blk["conv1"], carrier, 1, 1))
-                h = ctx.requant(f"{name}/mid1", h)
-                h = F.relu(ctx.conv(blk["conv2"], h, st, dilation))
-                h = ctx.requant(f"{name}/mid2", h)
-                h = ctx.conv(blk["conv3"], h, 1, 1)
+                h = ctx.conv_relu(blk["conv1"], carrier, 1, 1,
+                                  f"{name}/mid1")
+                h = ctx.conv_relu(blk["conv2"], h, st, dilation,
+                                  f"{name}/mid2")
+                last, last_dilation = blk["conv3"], 1
             if "downsample" in blk:
-                res = ctx.conv(blk["downsample"], carrier, st, 1)
+                res = (None, ctx.conv(blk["downsample"], carrier, st, 1))
             else:
-                res = ctx.dequant(carrier_site, carrier)
-            y = F.relu(h + res)
+                res = (carrier_site, carrier)
             if li == 4 and bi == layout[3] - 1:
-                return ctx.leave(y)  # float32 fmap for the float head
+                # float32 fmap for the float head
+                return ctx.leave(ctx.conv_relu(last, h, 1, last_dilation,
+                                               residual=res))
             carrier_site = f"{name}/out"
-            carrier = ctx.requant(carrier_site, y)
+            carrier = ctx.conv_relu(last, h, 1, last_dilation, carrier_site,
+                                    residual=res)
     raise AssertionError("unreachable")
 
 

@@ -33,6 +33,7 @@ from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
 
 LOG_DIRECTORY = "lightning_logs"
 EXPERIMENT_NAME = "optuna_two_class"
+EXPERIMENT_VERSION = None
 SEED = 5
 
 

@@ -150,7 +150,9 @@ def library() -> ctypes.CDLL:
     lib.maxpool_bwd.restype = ctypes.c_int
     lib.int8_conv3d_max_k.argtypes = []
     lib.int8_conv3d_max_k.restype = i64
-    lib.int8_conv3d.argtypes = [ptr] * 5 + [i64] * 19 + [ptr]
+    f32 = ctypes.c_float
+    lib.int8_conv3d.argtypes = ([ptr] * 5 + [i64, f32, i64, i64, f32, ptr]
+                                + [i64] * 19 + [ptr])
     lib.int8_conv3d.restype = ctypes.c_int
     return lib
 

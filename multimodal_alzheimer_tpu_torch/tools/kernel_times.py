@@ -90,6 +90,57 @@ INT8_CONV_SHAPES = {
     "layer4_down": (256, 512, 1, 1, 1, (12, 14, 12), 1),
     "layer4": (512, 512, 3, 1, 4, (12, 14, 12), 3),
 }
+# K9's epilogue modes the int8 ResNet graph uses: name -> (residual dtype,
+# relu, int8 output). "f32" is int8_conv3d itself (the downsamples and the
+# PET towers); the stem and each block's first conv take "relu_i8"; a block's
+# last conv adds its shortcut (the int8 carrier, or the downsample's float32
+# output), and the last block's writes the float32 feature map.
+INT8_MODES = {"f32": (None, False, False), "relu_i8": (None, True, True),
+              "res_i8_relu_i8": (torch.int8, True, True),
+              "res_f32_relu_i8": (torch.float32, True, True),
+              "res_i8_relu_f32": (torch.int8, True, False),
+              "res_f32_relu_f32": (torch.float32, True, False)}
+# The convolutions of one dilated ResNet-18 forward by shape and mode.
+INT8_FORWARD = {
+    "stem": {"relu_i8": 1},
+    "layer1": {"relu_i8": 2, "res_i8_relu_i8": 2},
+    "layer2_in": {"relu_i8": 1}, "layer2_down": {"f32": 1},
+    "layer2": {"res_f32_relu_i8": 1, "relu_i8": 1, "res_i8_relu_i8": 1},
+    "layer3_in": {"relu_i8": 1}, "layer3_down": {"f32": 1},
+    "layer3": {"res_f32_relu_i8": 1, "relu_i8": 1, "res_i8_relu_i8": 1},
+    "layer4_in": {"relu_i8": 1}, "layer4_down": {"f32": 1},
+    "layer4": {"res_f32_relu_i8": 1, "relu_i8": 1, "res_i8_relu_f32": 1},
+}
+# Further geometries K9 is held to on the card: (C_in, F, kernel, stride,
+# dilation, pads, input (D, H, W)): the C_in=2 stem, depth-50 1^3 convs, the
+# PET tower's SAME pads (k=5, and k=4 asymmetric), per-dimension pads,
+# ragged M, N and K tails (F=70, K=81), C not a multiple of 16 with K longer
+# than the shared-memory ring (64- and 128-wide tiles), and the CPU tests'
+# CONV_CASES (tests/test_torch_quantize.py) at their (9, 10, 8) input.
+INT8_GEOMETRIES = {
+    "stem_2ch": (2, 64, (7, 7, 7), 2, 1, ((3, 3),) * 3, (91, 109, 91)),
+    "d50_expand": (64, 256, (1, 1, 1), 1, 1, ((0, 0),) * 3, (23, 28, 23)),
+    "d50_reduce": (1024, 256, (1, 1, 1), 1, 1, ((0, 0),) * 3, (12, 14, 12)),
+    "d50_down": (1024, 2048, (1, 1, 1), 1, 1, ((0, 0),) * 3, (12, 14, 12)),
+    "pet_k5": (1, 8, (5, 5, 5), 1, 1, ((2, 2),) * 3, (91, 109, 91)),
+    "pet_k4": (8, 16, (4, 4, 4), 1, 1, ((1, 2),) * 3, (45, 54, 45)),
+    "per_dim_pads": (48, 70, (3, 2, 3), 2, 2, ((2, 1), (0, 1), (2, 2)),
+                     (9, 11, 10)),
+    "ragged": (3, 70, (3, 3, 3), 1, 1, ((1, 1),) * 3, (5, 7, 6)),
+    "long_k_64": (8, 16, (7, 7, 7), 1, 1, ((3, 3),) * 3, (9, 10, 8)),
+    "long_k_128": (3, 100, (7, 7, 7), 2, 1, ((3, 3),) * 3, (15, 14, 13)),
+    **{f"case{i}": case + ((9, 10, 8),) for i, case in enumerate([
+        (1, 8, (7, 7, 7), 2, 1, ((3, 3),) * 3),
+        (2, 8, (7, 7, 7), 2, 1, ((3, 3),) * 3),
+        (8, 16, (3, 3, 3), 1, 1, ((1, 1),) * 3),
+        (64, 16, (3, 3, 3), 2, 1, ((1, 1),) * 3),
+        (64, 24, (1, 1, 1), 2, 1, ((0, 0),) * 3),
+        (16, 8, (3, 3, 3), 1, 2, ((2, 2),) * 3),
+        (16, 8, (3, 3, 3), 1, 4, ((4, 4),) * 3),
+        (8, 4, (4, 4, 4), 1, 1, ((1, 2),) * 3),
+        (1, 4, (5, 5, 5), 1, 1, ((2, 2),) * 3),
+        (3, 5, (3, 2, 3), 1, 1, ((1, 1), (0, 1), (1, 1))),
+    ])}}
 # The int8 tensor cores of one H100 SXM, dense: 1,979 TOP/s.
 INT8_OPS_PER_MS = 1979e9
 # One H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s f32 outside the tensor cores,
@@ -433,64 +484,164 @@ def int8_conv_operands(name: str, batch: int, generator, device):
             ((k, k, k), stride, dilation, ((pad, pad),) * 3))
 
 
-def int8_conv_bound(name: str, batch: int) -> tuple:
+def int8_fused_operands(x, w, scale, bias, args, mode: str, generator):
+    """Keyword arguments of ``int8_conv3d_fused`` for ``INT8_MODES[mode]``
+    on K9's operands: a residual of the output's shape (float32 about a
+    quarter of the float32 output's largest magnitude, or int8 in [-127,
+    127] with the scale of a carrier of that range), and an output scale
+    that clamps the largest values, as a calibration on other data would."""
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    residual, relu, out_i8 = INT8_MODES[mode]
+    v = int8_conv.int8_conv3d_fused_plain(x[:1], w, scale, bias, *args)
+    amax = max(float(v.abs().max()), 1e-6)
+    shape = (x.shape[0],) + tuple(v.shape[1:])
+    kw = {"relu": relu, "out_scale": amax / 2 / 127 if out_i8 else None,
+          "residual_scale": amax / 127}
+    if residual == torch.float32:
+        kw["residual"] = torch.randn(shape, generator=generator,
+                                     device=x.device) * (amax / 4)
+    elif residual == torch.int8:
+        kw["residual"] = torch.randint(-127, 128, shape, generator=generator,
+                                       device=x.device,
+                                       dtype=torch.int32).to(torch.int8)
+    return kw
+
+
+def int8_fused_plain(x, w, scale, bias, args, kw):
+    """The plain version of ``int8_conv3d_fused(x, w, scale, bias, *args,
+    **kw)``, the output scale's reciprocal rounded as the wrapper rounds
+    it."""
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    out_inv = (None if kw["out_scale"] is None
+               else float(np.float32(1.0 / kw["out_scale"])))
+    return int8_conv.int8_conv3d_fused_plain(
+        x, w, scale, bias, *args, kw.get("residual"),
+        float(np.float32(kw["residual_scale"])), kw["relu"], out_inv)
+
+
+def int8_geometry_operands(name: str, batch: int, generator, device):
+    """K9's operands at ``INT8_GEOMETRIES[name]``, as
+    ``int8_conv_operands``."""
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    c, f, kernel, stride, dilation, pads, size = INT8_GEOMETRIES[name]
+    x = torch.randint(-127, 128, (batch,) + size + (c,), generator=generator,
+                      device=device, dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-127, 128, (f, c) + kernel, generator=generator,
+                      device=device, dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(f, generator=generator, device=device) * 1e-3
+    bias = torch.randn(f, generator=generator, device=device)
+    return (x, int8_conv.pack_weight(w), scale, bias,
+            (kernel, stride, dilation, pads))
+
+
+def int8_conv_bound(name: str, batch: int, mode: str = "f32") -> tuple:
     """K9's bound: 2 M F K operations on the int8 tensor cores, or the
-    input and weights read once (int8), scale and bias, and the float32
-    output written once, over the HBM rate; whichever is larger."""
+    input and weights read once (int8), scale and bias, the residual read
+    once and the output written once (4 bytes a value in float32, 1 in
+    int8), over the HBM rate; whichever is larger."""
     from multimodal_alzheimer_tpu_torch.ops import int8_conv
 
     c, f, k, stride, dilation, size, _ = INT8_CONV_SHAPES[name]
+    residual, _, out_i8 = INT8_MODES[mode]
     pad = dilation * (k - 1) // 2
     out = int8_conv.output_size(size, (k, k, k), stride, dilation,
                                 ((pad, pad),) * 3)
     m = batch * float(np.prod(out))
     kk = float(c * k ** 3)
     ops = 2.0 * m * f * kk
-    nbytes = batch * float(np.prod(size)) * c + f * kk + 8 * f + 4 * m * f
+    per_value = ((1 if out_i8 else 4)
+                 + {None: 0, torch.int8: 1, torch.float32: 4}[residual])
+    nbytes = (batch * float(np.prod(size)) * c + f * kk + 8 * f
+              + per_value * m * f)
     by_ops, by_bytes = ops / INT8_OPS_PER_MS, nbytes / HBM_BYTES_PER_MS
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
                                                              "bytes")
 
 
+def int_mm_gemm(name: str, batch: int, generator, device):
+    """K9's GEMM alone, as one PyTorch call: ``torch._int_mm`` of random
+    int8 im2col columns (M, K_pad) by the packed weights' transpose
+    (K_pad, F), int32 out. The same M, N and K as the convolution, not the
+    same function (no gather, no epilogue): a yardstick for the mainloop."""
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    c, f, k, stride, dilation, size, _ = INT8_CONV_SHAPES[name]
+    pad = dilation * (k - 1) // 2
+    out = int8_conv.output_size(size, (k, k, k), stride, dilation,
+                                ((pad, pad),) * 3)
+    m = batch * int(np.prod(out))
+    kk = int8_conv.padded_k(c * k ** 3)
+    a = torch.randint(-127, 128, (m, kk), generator=generator, device=device,
+                      dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-127, 128, (f, kk), generator=generator, device=device,
+                      dtype=torch.int32).to(torch.int8)
+    return [lambda: torch._int_mm(a, w.t())]
+
+
 def time_int8_conv(name: str, batch: int, generator, device,
-                   plain: bool = True) -> dict:
-    """K9 at ``INT8_CONV_SHAPES[name]``, batch ``batch``: its output held
-    to the plain version's on the same operands (``equal``, bit for bit,
-    and ``max_abs_err``), device and per-call ms, the plain version's ms
-    (float64 convolution; None unless ``plain``), the bound, and as context
-    cuDNN's bfloat16 ``F.conv3d`` of the same shape (not the same function:
-    no PyTorch call convolves int8 on the card). The input is cycled past
-    the L2, the weights are not."""
+                   plain: bool = True, mode: str = "f32") -> dict:
+    """K9 at ``INT8_CONV_SHAPES[name]``, batch ``batch``, epilogue mode
+    ``mode`` (``INT8_MODES``; anything but "f32" needs a port with
+    ``int8_conv3d_fused``): its output held to the plain version's on the
+    same operands (``equal``, bit for bit, and ``max_abs_err``), device and
+    per-call ms, the plain version's ms (float64 convolution; None unless
+    ``plain``), the bound, and in mode "f32" ``library_ms``, the GEMM of
+    the same M, N, K alone through ``torch._int_mm`` (``int_mm_gemm``: not
+    the same function), and as context cuDNN's bfloat16 ``F.conv3d`` of
+    the same shape (not the same function either). The input is cycled
+    past the L2, the weights are not."""
     from multimodal_alzheimer_tpu_torch.ops import int8_conv
 
     x, w, scale, bias, args = int8_conv_operands(name, batch, generator,
                                                  device)
-    got = int8_conv.int8_conv3d(x, w, scale, bias, *args)
-    want = int8_conv.int8_conv3d_plain(x, w, scale, bias, *args)
-    equal = torch.equal(got, want)
-    max_abs_err = float((got - want).abs().max())
+    if mode == "f32":
+        kw = {}
+
+        def call(xc):
+            return int8_conv.int8_conv3d(xc, w, scale, bias, *args)
+
+        def plain_call():
+            return int8_conv.int8_conv3d_plain(x, w, scale, bias, *args)
+    else:
+        kw = int8_fused_operands(x, w, scale, bias, args, mode, generator)
+
+        def call(xc):
+            return int8_conv.int8_conv3d_fused(xc, w, scale, bias, *args,
+                                               **kw)
+
+        def plain_call():
+            return int8_fused_plain(x, w, scale, bias, args, kw)
+    got, want = call(x), plain_call()
+    equal = got.dtype == want.dtype and torch.equal(got, want)
+    max_abs_err = float((got.float() - want.float()).abs().max())
     del got, want
     copies = [x] + [x.clone() for _ in range(n_copies(x.numel()) - 1)]
-    kernel = [lambda xc=xc: int8_conv.int8_conv3d(xc, w, scale, bias, *args)
-              for xc in copies]
-    plain_calls = [lambda: int8_conv.int8_conv3d_plain(x, w, scale, bias,
-                                                       *args)]
-    c = x.shape[-1]
-    xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last_3d)
-    wb = int8_conv.unpack_weight(w, args[0], c).to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last_3d)
-    pad = args[3][0][0]
-    cudnn = [lambda: torch.nn.functional.conv3d(xb, wb, None, args[1], pad,
-                                                args[2])]
-    bound_ms, bound_by = int8_conv_bound(name, batch)
-    return {"equal": equal, "max_abs_err": max_abs_err,
-            "ms": device_ms(kernel), "call_ms": call_ms(kernel),
-            "plain_ms": (device_ms(plain_calls, launches=3, reps=3,
-                                   spin=False) if plain else None),
-            "library_ms": None, "library_call_ms": None,
-            "cudnn_bf16_ms": device_ms(cudnn),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    kernel = [lambda xc=xc: call(xc) for xc in copies]
+    bound_ms, bound_by = int8_conv_bound(name, batch, mode)
+    r = {"mode": mode, "equal": equal, "max_abs_err": max_abs_err,
+         "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+         "plain_ms": (device_ms([plain_call], launches=3, reps=3,
+                                spin=False) if plain else None),
+         "library_ms": None, "library_call_ms": None, "cudnn_bf16_ms": None,
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    del kw
+    if mode == "f32":
+        gemm = int_mm_gemm(name, batch, generator, device)
+        r["library_ms"], r["library_call_ms"] = device_ms(gemm), call_ms(gemm)
+        del gemm
+        c = x.shape[-1]
+        xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d)
+        wb = int8_conv.unpack_weight(w, args[0], c).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        pad = args[3][0][0]
+        r["cudnn_bf16_ms"] = device_ms([
+            lambda: torch.nn.functional.conv3d(xb, wb, None, args[1], pad,
+                                               args[2])])
+    return r
 
 
 def nvidia_smi() -> str:
@@ -561,15 +712,38 @@ def main() -> int:
                      "dtype": str(dtype), **r})
         print(row_line(args.label, f"maxpool_bwd stem {STEM} {dtype}", r),
               flush=True)
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+
+    fused = hasattr(int8_conv, "int8_conv3d_fused")
     for batch in NORM_BATCHES if "int8_conv3d" in chosen else ():
+        total = {"f32": 0.0, "graph": 0.0, "bound_f32": 0.0,
+                 "bound_graph": 0.0}
         for name in INT8_CONV_SHAPES:
-            r = time_int8_conv(name, batch, gen, device,
-                               plain=batch == NORM_BATCHES[0])
-            rows.append({"kernel": "int8_conv3d", "shape": name,
-                         "batch": batch, **r})
-            print(row_line(args.label, f"int8_conv3d {name} B={batch}", r)
-                  + f", cuDNN bf16 {r['cudnn_bf16_ms']:.4f} ms, equal to "
-                  f"plain {r['equal']}", flush=True)
+            count = INT8_CONV_SHAPES[name][-1]
+            modes = ["f32"] + ([m for m in INT8_FORWARD[name] if m != "f32"]
+                               if fused else [])
+            for mode in modes:
+                r = time_int8_conv(name, batch, gen, device,
+                                   plain=batch == NORM_BATCHES[0], mode=mode)
+                rows.append({"kernel": "int8_conv3d", "shape": name,
+                             "batch": batch, **r})
+                extra = ("" if r["cudnn_bf16_ms"] is None else
+                         f", cuDNN bf16 {r['cudnn_bf16_ms']:.4f} ms")
+                print(row_line(args.label, f"int8_conv3d {name} B={batch} "
+                               f"{mode}", r) + extra
+                      + f", equal to plain {r['equal']}", flush=True)
+                if mode == "f32":
+                    total["f32"] += count * r["ms"]
+                    total["bound_f32"] += count * r["bound_ms"]
+                graph = INT8_FORWARD[name].get(mode, 0) if fused else (
+                    count if mode == "f32" else 0)
+                total["graph"] += graph * r["ms"]
+                total["bound_graph"] += graph * r["bound_ms"]
+        print(f"[{args.label}] int8_conv3d one ResNet-18 forward B={batch}: "
+              f"20 convs in float32-out mode {total['f32']:.4f} ms (bound "
+              f"{total['bound_f32']:.4f}); in the graph's modes "
+              f"{total['graph']:.4f} ms (bound {total['bound_graph']:.4f})",
+              flush=True)
     card = nvidia_smi()
     print(f"[{args.label}] {card}", flush=True)
     if args.out:

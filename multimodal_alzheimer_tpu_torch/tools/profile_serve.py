@@ -66,7 +66,7 @@ K1_KERNELS = ("select_cluster_kernel", "keys_kernel", "init_targets_kernel",
               "digit_hist_kernel", "digit_pick_kernel", "neighbour_kernel",
               "finish_kernel")
 K2_KERNELS = ("minmax_apply_kernel",)
-K9_KERNELS = ("int8_conv3d_kernel",)
+K9_KERNELS = ("int8_conv3d_kernel", "int8_conv3d_gathered")
 CONV_WORDS = ("conv", "fprop", "implicit", "gemm", "xmma", "winograd")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPAN = "serve_call"

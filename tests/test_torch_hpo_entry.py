@@ -7,6 +7,10 @@
 * ``tabular._full_arrays`` equals JAX's.
 * ``train_anat_fast``: the K-seed screen, then the checkpointed
   continuation, which starts from the screen winner's snapshot.
+* ``optuna_optimization()`` with ``parallel`` left at 0 (one trial after
+  another, each through the module's ``_objective`` and ``train``) of
+  ``train_anat_cnn``, ``train_pet_cnn``, ``train_pet_resnet_cnn`` and
+  ``train_tabular``: one trial, told a finite-or-inf value.
 * ``optuna_optimization(parallel=2)`` of ``train_anat_cnn``,
   ``train_tabular``, ``train_pet_cnn``, ``train_pet_resnet_cnn`` and
   ``train_anat_pet_featuremapfusion`` on splits written by the port: every
@@ -194,3 +198,21 @@ def test_optuna_optimization_parallel(name, splits, monkeypatch):
     values = [v for v, _ in study.trials]
     assert all(np.isfinite(v) or v == math.inf for v in values)
     assert np.isfinite(study.best_value)
+
+
+@pytest.mark.parametrize("name", ["anat_cnn", "pet_cnn", "pet_resnet_cnn",
+                                  "tabular"])
+def test_optuna_optimization_sequential(name, splits, monkeypatch):
+    """The default search, one trial after another, as each module's
+    ``__main__`` runs it: every name its objective reads is defined."""
+    module, split, make_study = ENTRIES[name]
+    monkeypatch.setenv("MMALZ_DATA_DIR", splits[split])
+    if make_study:
+        study = make_study(module)
+        monkeypatch.setattr(hpo, "create_study", lambda **_: study)
+    _capped(module, monkeypatch)
+    study = module.optuna_optimization(n_trials=1, device="cpu",
+                                       log_confusion_images=False)
+    assert len(study.trials) == 1
+    value = study.trials[0][0]
+    assert np.isfinite(value) or value == math.inf

@@ -73,6 +73,12 @@ from multimodal_alzheimer_tpu_torch.ops.maxpool import (
     pool_forward,
 )
 from multimodal_alzheimer_tpu_torch.ops.quantile import interpolate
+from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
+    INT8_CONV_SHAPES,
+    INT8_GEOMETRIES,
+    int8_conv_operands,
+    int8_geometry_operands,
+)
 from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     sync_tower_duplicates,
 )
@@ -1009,42 +1015,18 @@ def test_frozen_trial_keeps_its_backbone_on_the_card(device):
 # K9: the int8 convolution (ops/int8_conv.py, csrc/int8_conv3d.cu)
 # --------------------------------------------------------------------------
 
-# (C_in, F, kernel, stride, dilation, pads, input (D, H, W)) beyond the
-# flagship's shapes: the C_in=2 stem, depth-50 1^3 convs, the PET tower's
-# SAME pads (k=5, and k=4 asymmetric), per-dimension pads, and ragged M, N
-# and K tails (F=70, K=81).
-K9_EXTRA = {
-    "stem_2ch": (2, 64, (7, 7, 7), 2, 1, ((3, 3),) * 3, (91, 109, 91)),
-    "d50_expand": (64, 256, (1, 1, 1), 1, 1, ((0, 0),) * 3, (23, 28, 23)),
-    "d50_reduce": (1024, 256, (1, 1, 1), 1, 1, ((0, 0),) * 3, (12, 14, 12)),
-    "d50_down": (1024, 2048, (1, 1, 1), 1, 1, ((0, 0),) * 3, (12, 14, 12)),
-    "pet_k5": (1, 8, (5, 5, 5), 1, 1, ((2, 2),) * 3, (91, 109, 91)),
-    "pet_k4": (8, 16, (4, 4, 4), 1, 1, ((1, 2),) * 3, (45, 54, 45)),
-    "per_dim_pads": (48, 70, (3, 2, 3), 2, 2, ((2, 1), (0, 1), (2, 2)),
-                     (9, 11, 10)),
-    "ragged": (3, 70, (3, 3, 3), 1, 1, ((1, 1),) * 3, (5, 7, 6)),
-}
+# Geometries beyond the flagship's shapes (kernel_times.INT8_GEOMETRIES): the
+# C_in=2 stem, depth-50 1^3 convs, the PET tower's SAME pads, per-dimension
+# pads, ragged M, N and K tails, long K at C not a multiple of 16, and the
+# CPU tests' CONV_CASES.
+K9_EXTRA = INT8_GEOMETRIES
 
 
 def _k9_case(name, batch, device, seed):
-    from multimodal_alzheimer_tpu_torch.ops import int8_conv
-    from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
-        INT8_CONV_SHAPES,
-        int8_conv_operands,
-    )
-
     gen = torch.Generator(device=device).manual_seed(seed)
     if name in INT8_CONV_SHAPES:
         return int8_conv_operands(name, batch, gen, device)
-    c, f, kernel, stride, dilation, pads, size = K9_EXTRA[name]
-    x = torch.randint(-127, 128, (batch,) + size + (c,), generator=gen,
-                      device=device, dtype=torch.int32).to(torch.int8)
-    w = torch.randint(-127, 128, (f, c) + kernel, generator=gen,
-                      device=device, dtype=torch.int32).to(torch.int8)
-    scale = torch.rand(f, generator=gen, device=device) * 1e-3
-    bias = torch.randn(f, generator=gen, device=device)
-    return (x, int8_conv.pack_weight(w), scale, bias,
-            (kernel, stride, dilation, pads))
+    return int8_geometry_operands(name, batch, gen, device)
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -1063,6 +1045,34 @@ def test_int8_conv_equals_plain(device, name):
         torch.cuda.synchronize()
         want = int8_conv.int8_conv3d_plain(x, w, s, b, *args)
         assert got.is_contiguous() and torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("name", sorted(
+    ["stem", "layer1", "layer2_in", "layer2_down", "layer2", "layer3_in",
+     "layer3_down", "layer3", "layer4_in", "layer4_down", "layer4"]
+    + list(K9_EXTRA)))
+def test_int8_conv_fused_equals_plain(device, name):
+    """Every epilogue mode the int8 graph uses (residual none, float32 or
+    int8; ReLU; float32 or int8 out) bit for bit against the plain fused
+    version, one launch each, the output in the mode's dtype."""
+    from multimodal_alzheimer_tpu_torch.ops import int8_conv
+    from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
+        INT8_MODES,
+        int8_fused_operands,
+        int8_fused_plain,
+    )
+
+    x, w, scale, bias, args = _k9_case(name, 2, device, seed=44)
+    gen = torch.Generator(device=device).manual_seed(45)
+    for mode, (_, _, out_i8) in INT8_MODES.items():
+        kw = int8_fused_operands(x, w, scale, bias, args, mode, gen)
+        before = int8_conv.LAUNCHES["int8_conv3d"]
+        got = int8_conv.int8_conv3d_fused(x, w, scale, bias, *args, **kw)
+        torch.cuda.synchronize()
+        assert int8_conv.LAUNCHES["int8_conv3d"] == before + 1
+        want = int8_fused_plain(x, w, scale, bias, args, kw)
+        assert got.dtype == (torch.int8 if out_i8 else torch.float32)
+        assert torch.equal(got, want), (name, mode)
 
 
 def test_int8_conv_launches_once_without_a_workspace(device):
