@@ -198,7 +198,22 @@ Phases, each printing its lines:
      over random-weight checkpoints (K2 alone), on a split of 114 T1w and
      89 MRI+tabular training rows, so that every proposal's batch (up to
      64) takes a step an epoch: each study holds 2 finite values and
-     some trial's val loss moves between epochs.
+     some trial's val loss moves between epochs;
+ 28. the deployment chain: a reference-layout Anat_CNN (MedicalNet
+     ResNet-18 dilated, conv_seg head, 3 classes; a replica built here,
+     seeded weights, BatchNorm statistics of one batch of raw scans) saved
+     as a Lightning-style .ckpt and converted by tools/convert_reference's
+     main; the port checkpoint's logits at 91x109x91, batch 8, f32 with
+     TF32 off, within CONVERT_TOL of the replica's;
+ 29. tools/export_artifact's main on that checkpoint in float, folded and
+     int8 (a --calib npz of 8 raw scans), --batch 8: each artifact
+     reloaded bit for bit the eager core the tool builds, folded and int8
+     within the drift gates of float (argmax agreement 1.0, probabilities
+     within 0.01), one int8 artifact call launching K9 20 times and K1, K2
+     once; export seconds and artifact MB;
+ 30. tools/quality_eval's main at 91x109x91, depth 18, cut to
+     QUALITY_EVAL, then --fusion alone at 48x56x48: every core finite over
+     the eval set, folded agreeing with float.
 The kernels line before the last lists every kernel with the launches of
 the path that ran it, its error against its plain version, its device time,
 per-call time, plain and library time and bound; K4-K7 also per shape and
@@ -211,15 +226,16 @@ screen's run, the MRI search's normalization, the shared-tower fusion
 search per train step in f32, and the two entry-point studies); K1-K3
 also their host microseconds per call through the custom op and direct.
 K9's entry: launches from phase 7c's server run, per batch of the int8
-serve, int8 stage 3, the exported program and the fused route
-("launches_int8"), the largest |kernel - plain| over the batch-8 shapes
+serve, int8 stage 3, the exported program, the fused route and one
+call of phase 29's int8 artifact ("launches_int8"; K1 and K2 carry the
+same keys), the largest |kernel - plain| over the batch-8 shapes
 and modes, device and bound ms summed over one forward's 20 convolutions
 in the graph's modes at batch 8 (and 32), the same in float32-out mode
 with per-call and plain ms, library_ms the torch._int_mm GEMMs of the
 same shapes (not the same function), each shape's and mode's times, and
 cuDNN's bf16 time as context. The BatchNorm kernels' entries carry
-per-step totals (launches x time and launches x bound over the five
-shapes, f32 and bf16).
+per-step totals (launches x time, launches x bound and launches x
+aten's time over the five shapes, f32 and bf16).
 Any failed check raises,
 so the script exits non-zero without printing its last line,
 {"ok": true, "device": {...}}. It needs one card and imports the
@@ -232,6 +248,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import glob
+import io
 import json
 import math
 import operator
@@ -374,6 +391,11 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     time_int8_conv,
     time_norm,
     time_pool,
+)
+from multimodal_alzheimer_tpu_torch.tools import (
+    convert_reference,
+    export_artifact,
+    quality_eval,
 )
 from multimodal_alzheimer_tpu_torch.tools.cases import (
     BASELINES,
@@ -3498,6 +3520,281 @@ def phase_quality(cores: dict, device, grid=GRID) -> dict:
             for k, r in res.items()}
 
 
+# The deployment chain (convert, export, quality study). The reference's
+# Anat_CNN for MedicalNet ResNet-18 (dilated, conv_seg head, 3 classes) is
+# a replica built here (the JAX tests' replicas import JAX); the port's
+# converted model against it on the same normalised batch, f32 with TF32
+# off: the same cuDNN convolutions on the same weights, the BatchNorms
+# computed in another order, so within CONVERT_TOL.
+CONVERT_HPARAMS = {"n_classes": 3, "resnet_depth": 18, "linear_out": [],
+                   "batchnorm_begin": False, "norm_percentile": QUANTILE,
+                   "lr": 1e-3}
+CONVERT_TOL = dict(rtol=1e-4, atol=1e-5)
+# The quality study at 91x109x91, depth 18, cut to run in seconds: its
+# defaults are 384 train and 1024 eval volumes, 12 epochs, 1000 draws.
+QUALITY_EVAL = {"train_n": 192, "eval_n": 128, "epochs": 8, "batch": 8,
+                "bootstrap": 500}
+QUALITY_EVAL_FUSION_GRID = (48, 56, 48)
+
+
+class _Med3DBlock(torch.nn.Module):
+    """MedicalNet's BasicBlock (shortcut B)."""
+
+    def __init__(self, inplanes, planes, stride, dilation, downsample):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv3d(inplanes, planes, 3, stride=stride,
+                               padding=dilation, dilation=dilation,
+                               bias=False)
+        self.bn1 = nn.BatchNorm3d(planes)
+        self.conv2 = nn.Conv3d(planes, planes, 3, padding=dilation,
+                               dilation=dilation, bias=False)
+        self.bn2 = nn.BatchNorm3d(planes)
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + residual)
+
+
+class _Med3D(torch.nn.Module):
+    """MedicalNet resnet18 (dilated layers 3-4) with the reference's
+    ``conv_seg`` head: GAP, Flatten, Linear(512, n_classes), ReLU."""
+
+    def __init__(self, n_classes):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv3d(1, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm3d(64)
+        inplanes = 64
+        for i, (planes, stride, dilation) in enumerate(
+                ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4)), 1):
+            blocks = []
+            for b in range(2):
+                down = None
+                if b == 0 and (stride != 1 or inplanes != planes):
+                    down = nn.Sequential(
+                        nn.Conv3d(inplanes, planes, 1, stride=stride,
+                                  bias=False), nn.BatchNorm3d(planes))
+                blocks.append(_Med3DBlock(inplanes, planes,
+                                          stride if b == 0 else 1,
+                                          dilation, down))
+                inplanes = planes
+            setattr(self, f"layer{i}", nn.Sequential(*blocks))
+        self.conv_seg = nn.Sequential(nn.AdaptiveAvgPool3d(1), nn.Flatten(),
+                                      nn.Linear(512, n_classes), nn.ReLU())
+
+    def forward(self, x):
+        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.nn.functional.max_pool3d(x, 3, 2, 1)
+        for i in range(1, 5):
+            x = getattr(self, f"layer{i}")(x)
+        return self.conv_seg(x)
+
+
+class _AnatCNNReplica(torch.nn.Module):
+    """The reference Anat_CNN's attribute layout: ``model`` (the Med3D
+    backbone, its head at ``model.conv_seg``)."""
+
+    def __init__(self, n_classes):
+        super().__init__()
+        self.model = _Med3D(n_classes)
+
+    def forward(self, x):
+        return self.model(x)
+
+
+def _drift(got: dict, ref: dict) -> dict:
+    return {"argmax_agree": float((got["probs"].argmax(1)
+                                   == ref["probs"].argmax(1)).float()
+                                  .mean()),
+            "prob_max_abs_err": float((got["probs"] - ref["probs"]).abs()
+                                      .max())}
+
+
+def phase_convert(device, root, grid=GRID) -> str:
+    """A reference-layout Anat_CNN (ResNet-18 dilated, conv_seg head, 3
+    classes) from seeded tensors, its BatchNorm statistics those of one
+    batch of raw scans (momentum 1) and its classifier bias 1.0 (off the
+    trailing ReLU's floor), saved as a Lightning-style .ckpt; the port's
+    convert_reference.main converts it, and the checkpoint loads back into
+    an AnatCNN whose logits at ``grid``, batch 8, f32 with TF32 off match
+    the replica's within CONVERT_TOL. Returns the port checkpoint."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(SEED + 60)
+    replica = _AnatCNNReplica(CONVERT_HPARAMS["n_classes"]).to(device)
+    preprocess = make_device_preprocess(normalize_mri=MINMAX,
+                                        quantile=QUANTILE)
+    with torch.no_grad():
+        for m in replica.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.momentum = 1.0
+        replica.train()(preprocess(_stack(make_requests(
+            2, grid, SEED + 63), device))["mri"].unsqueeze(1))
+        for m in replica.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.momentum = 0.1
+        replica.model.conv_seg[2].bias.fill_(1.0)
+    replica.eval()
+    ckpt = os.path.join(root, "anat_cnn.ckpt")
+    torch.save({"state_dict": {k: v.cpu() for k, v in
+                               replica.state_dict().items()},
+                "hyper_parameters": CONVERT_HPARAMS, "epoch": 0}, ckpt)
+    out = os.path.join(root, "anat_cnn_port")
+    start = time.perf_counter()
+    convert_reference.main([ckpt, out, "--arch", "anat_cnn"])
+    convert_s = time.perf_counter() - start
+    state, hparams, _ = load_checkpoint(out)
+    check(hparams == CONVERT_HPARAMS, "converted hparams kept")
+    model = AnatCNN.from_hparams(hparams).to(device).eval()
+    model.load_state_dict(state)
+    batch = preprocess(_stack(make_requests(8, grid, SEED + 64), device))
+    with torch.no_grad():
+        want = replica(batch["mri"].unsqueeze(1))
+        got = model(batch)["logits"]
+    torch.cuda.synchronize()
+    gap = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, **CONVERT_TOL), f"converted AnatCNN logits within "
+        f"{CONVERT_TOL} of the replica's (max |diff| {gap:.3g})")
+    log(f"[convert] reference Anat_CNN ResNet-18 .ckpt "
+        f"({os.path.getsize(ckpt) / 1e6:.1f} MB, {len(state)} port "
+        f"entries) -> port checkpoint in {convert_s:.2f} s; logits at "
+        f"{tuple(grid)}, batch 8, f32 (TF32 off): max |port - replica| "
+        f"{gap:.3g}, largest |logit| {float(want.abs().max()):.4g} "
+        f"(tolerance {CONVERT_TOL})")
+    return out
+
+
+def phase_export_cli(device, root, checkpoint: str, grid=GRID) -> dict:
+    """export_artifact.main on the converted checkpoint in float, folded
+    and int8 (int8 calibrated on a --calib npz of 8 raw scans), --batch 8:
+    each artifact reloaded and held to the eager core the tool builds (its
+    own loader, preprocess and serve), bit for bit; folded and int8 held to
+    float by the drift gates (argmax agreement 1.0, probabilities within
+    0.01); one int8 artifact call launches K9 20 times and K1, K2 once.
+    Returns that call's launch counts."""
+    calib = os.path.join(root, "calib.npz")
+    np.savez(calib, **_stack(make_requests(8, grid, SEED + 61)))
+    model, state, norm, _ = export_artifact.REGISTRY["anat_cnn"](
+        checkpoint, None)
+    model.load_state_dict(state)
+    model = model.to(device).eval()
+    preprocess = export_artifact._build_preprocess(norm)
+    with np.load(calib) as z:
+        calib_batches = [{k: torch.from_numpy(z[k]).to(device)
+                          for k in z.files}]
+    batch = _stack(make_requests(8, grid, SEED + 62), device)
+    outs, launches = {}, None
+    for mode in ("float", "folded", "int8"):
+        path = os.path.join(root, f"anat_cnn_{mode}.pt2")
+        argv = [checkpoint, "--model", "anat_cnn", "--mode", mode,
+                "--batch", "8", "--volume-shape", *map(str, grid),
+                "--out", path] + (["--calib", calib] if mode == "int8"
+                                  else [])
+        start = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()) as summary:
+            export_artifact.main(argv)
+        export_s = time.perf_counter() - start
+        with open(path, "rb") as f:
+            loaded = load_exported(f.read())
+        eager = export_artifact._build_serve(mode, "anat_cnn", model,
+                                             preprocess, calib_batches,
+                                             False)
+        with torch.inference_mode():
+            want = eager(batch)
+        got = loaded(batch)
+        torch.cuda.synchronize()
+        for key in ("logits", "probs"):
+            check(torch.equal(got[key], want[key]),
+                  f"export cli {mode} artifact {key} bit for bit the "
+                  f"eager core's")
+        if mode == "int8":
+            reset_launch_counts()
+            loaded(batch)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            expect = dict(dict.fromkeys(launches, 0), minmax_select=1,
+                          minmax_apply=1, int8_conv3d=RESNET18_CONVS)
+            check(launches == expect,
+                  f"int8 artifact call launches {launches} == {expect}")
+        outs[mode] = got
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loaded(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        log(f"[export cli] {mode}: export_artifact.main {export_s:.2f} s, "
+            f"{os.path.getsize(path) / 1e6:.1f} MB artifact "
+            f"({summary.getvalue().strip().splitlines()[-1]}); reloaded "
+            f"outputs bit for bit "
+            f"the eager core's; {statistics.median(times[1:]):.3f} ms a "
+            f"call of the loaded artifact (host clock around a synchronised "
+            f"call, median of 5 after one)")
+    for mode in ("folded", "int8"):
+        err = _drift(outs[mode], outs["float"])
+        check(err["argmax_agree"] >= INT8_DRIFT["argmax_agree"]
+              and err["prob_max_abs_err"] < INT8_DRIFT["prob_max_abs_err"],
+              f"{mode} artifact drift {err} within {INT8_DRIFT}")
+        log(f"[export cli] {mode} artifact against float's: {err}")
+    log(f"[export cli] one int8 artifact call (batch 8) launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def phase_quality_eval(device) -> dict:
+    """quality_eval.main at 91x109x91, depth 18, cut to QUALITY_EVAL (a
+    bf16 fit, then the float, folded, int8, int8_badcalib and fast cores
+    over the held-out set), then --fusion alone at
+    QUALITY_EVAL_FUSION_GRID: its JSON record has every core with finite
+    metrics over the whole eval set, and folded agrees with float on at
+    least 90% of the predictions (exact algebra in bf16: only near-ties
+    may flip)."""
+    cut = ["--train-n", str(QUALITY_EVAL["train_n"]),
+           "--eval-n", str(QUALITY_EVAL["eval_n"]),
+           "--epochs", str(QUALITY_EVAL["epochs"]),
+           "--batch", str(QUALITY_EVAL["batch"]),
+           "--bootstrap", str(QUALITY_EVAL["bootstrap"])]
+    records = {}
+    for name, argv, want in (
+            ("flagship", ["--depth", "18"] + cut,
+             {"float", "folded", "int8", "int8_badcalib", "fast"}),
+            ("fusion", ["--depth", "18", "--fusion", "--skip-flagship",
+                        "--volume-shape", *map(str, QUALITY_EVAL_FUSION_GRID)]
+             + cut, {"float", "folded", "int8_mri", "int8_mri_pet"})):
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()) as tables:
+            record = quality_eval.main(argv)
+        seconds = time.perf_counter() - start
+        res = record[name]
+        check(set(res) == want, f"quality eval {name} cores {sorted(res)}")
+        for core, r in res.items():
+            check(r["n"] == QUALITY_EVAL["eval_n"] and all(
+                np.isfinite(r[k]) for k in ("f1", "mcc", "f1_ci",
+                                            "delta_f1_ci")),
+                f"quality eval {name} {core}: finite metrics over "
+                f"{QUALITY_EVAL['eval_n']} samples")
+        check(res["folded"]["agreement"] >= 0.9,
+              f"quality eval {name}: folded agrees with float "
+              f"({res['folded']['agreement']})")
+        for line in tables.getvalue().splitlines():
+            log(f"[quality eval] {line}")
+        log(f"[quality eval] {name} at {record['volume_shape']}, depth 18, cut to "
+            f"{QUALITY_EVAL} (defaults 384 / 1024 / 12 epochs / 16 / "
+            f"1000 draws): {seconds:.2f} s; " + "; ".join(
+                f"{core} f1 {r['f1']} Δf1 {r['delta_f1']}±"
+                f"{r['delta_f1_ci']} agreement {r['agreement']}"
+                for core, r in res.items()))
+        records[name] = record
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -3550,6 +3847,10 @@ def main() -> int:
     hpo_launches["mri_normalize"] = phase_hpo_mri(device)
     hpo_launches["fusion_per_step"] = phase_hpo_fusion(device)
     hpo_launches.update(phase_hpo_entry_points(device))
+    with tempfile.TemporaryDirectory() as root:
+        converted = phase_convert(device, root)
+        export_cli_launches = phase_export_cli(device, root, converted)
+    phase_quality_eval(device)
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
     norm_bound = norm_bounds(8, int(np.prod(GRID)))
@@ -3575,7 +3876,8 @@ def main() -> int:
             "launches_int8": {"serve": int8_launches[name],
                               "serve_per_batch": int8_per_batch[name],
                               "stage3_per_batch": stage3_int8[name],
-                              "export_int8": export_launches["int8"][name]},
+                              "export_int8": export_launches["int8"][name],
+                              "export_cli_int8": export_cli_launches[name]},
             "shape": [8, int(np.prod(GRID))], "ms": ms, "call_ms": per_call,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
@@ -3585,7 +3887,7 @@ def main() -> int:
     bn_per_step = {
         name: {dtype: {k: sum(BN_PER_STEP[shape] * t[shape][name][k]
                               for shape in BN_SHAPES)
-                       for k in ("ms", "bound_ms")}
+                       for k in ("ms", "bound_ms", "library_ms")}
                for dtype, t in (("float32", bn_times),
                                 ("bfloat16", bn_times_bf16))}
         for name in BN_KERNELS}
@@ -3593,7 +3895,8 @@ def main() -> int:
         log(f"[bn per step] {name}: " + "; ".join(
             f"{dtype} {v['ms']:.4f} ms a step (sum of launches x time over "
             f"the five shapes), bound {v['bound_ms']:.4f} ms, share "
-            f"{v['bound_ms'] / v['ms']:.3f}" for dtype, v in per.items()))
+            f"{v['bound_ms'] / v['ms']:.3f}, library (aten) "
+            f"{v['library_ms']:.4f} ms" for dtype, v in per.items()))
     for name in BN_KERNELS:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
@@ -3653,6 +3956,8 @@ def main() -> int:
                           "export_int8": export_launches["int8"][
                               "int8_conv3d"],
                           "export_folded": export_launches["folded"][
+                              "int8_conv3d"],
+                          "export_cli_int8": export_cli_launches[
                               "int8_conv3d"],
                           "fused_route_per_batch": fused_route[
                               "int8_conv3d"]},

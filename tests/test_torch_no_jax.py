@@ -105,3 +105,43 @@ def test_the_scan_sees_function_level_imports():
     assert not {_top(n) for n in _module_level_imports(RENDERING)} & PLOTTING
     assert "optuna" in {_top(n) for n in _imports(STUDY)}
     assert "optuna" not in {_top(n) for n in _module_level_imports(STUDY)}
+
+
+# The entry points a user calls; each takes ``device`` and defaults to the
+# card (the tests pass "cpu").
+ENTRY_POINTS = {"main", "train", "train_anat", "train_anat_fast",
+                "optuna_optimization", "run_training", "evaluate",
+                "evaluate_checkpoint", "evaluate_tabpfn"}
+CLIS = ("convert_medicalnet", "convert_reference", "export_artifact",
+        "quality_eval")
+
+
+def _device_defaults(path: Path):
+    """{function name: the default of its ``device`` argument} for the
+    module-level entry-point functions of ``path`` that take one."""
+    out = {}
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if not (isinstance(node, ast.FunctionDef)
+                and node.name in ENTRY_POINTS):
+            continue
+        args = node.args.args + node.args.kwonlyargs
+        defaults = ([None] * (len(node.args.args) - len(node.args.defaults))
+                    + node.args.defaults + node.args.kw_defaults)
+        for arg, default in zip(args, defaults):
+            if arg.arg == "device":
+                out[node.name] = (default.value if isinstance(
+                    default, ast.Constant) else default)
+    return out
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_entry_points_default_to_the_card(path):
+    for name, default in _device_defaults(path).items():
+        assert default == "cuda", f"{path.name}:{name} device={default!r}"
+
+
+@pytest.mark.parametrize("name", CLIS)
+def test_deployment_clis_take_a_device(name):
+    path = PORT / "tools" / f"{name}.py"
+    assert _device_defaults(path) == {"main": "cuda"}
