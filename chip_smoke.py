@@ -3,8 +3,9 @@ BN-folded and int8 through the int8 convolution kernel, exported
 artifacts, dataset-level quality), training and the entry points from
 NIfTI files on disk, the PET family with the stem max-pool backward
 kernel, TabPFN, the stage-2 fusions, stage 3 (int8 too), the two fusion
-baselines, and the hyperparameter search (K-trial trainer, seed screen,
-shared-tower fusion search, the entry points' studies).
+baselines, the hyperparameter search (K-trial trainer, seed screen,
+shared-tower fusion search, the entry points' studies), and data
+provisioning from a raw ADNI layout through the native NIfTI decoder.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,9 @@ Phases, each printing its lines:
      csrc/zscore_norm.cu, csrc/maxpool_bwd.cu and csrc/int8_conv3d.cu with
      nvcc for sm_90a, one
      process per source, all started together, into one library; prints
-     ptxas register counts;
+     ptxas register counts; then the native NIfTI decoder
+     (csrc/host/nifti_io.cc, g++ with the JAX package's flags), which must
+     load: the data path has no fallback to the plain reader here;
   3. min-max kernels against their plain PyTorch versions at the real
      91x109x91 grid, batch 8: order statistics equal (also with a scan of no
      valid voxel, +inf for it), apply within 1e-6; 10^6-voxel scans, too
@@ -127,6 +130,9 @@ Phases, each printing its lines:
      validation step) for one epoch, and test_anat_cnn.main() on the best
      train_anat checkpoint over the paired three-modality test split, each
      with its launch counts, finite metrics and the checkpoint loaded back;
+     the volumes decode through the native decoder, and train_anat runs
+     four times, native decoder and plain reader in turns (N P P N), their
+     epoch times printed side by side;
  16. the PET entry points on phase 15's split: train_pet_cnn.train and
      train_pet_resnet_cnn.train for one epoch each and test_pet_cnn.main()
      on the best train_pet_cnn checkpoint, with finite metrics, the
@@ -179,6 +185,25 @@ Phases, each printing its lines:
  24. on phase 15's split, train_anat_fast (ResNet-18 dilated=False, bf16):
      a K=2 seed screen of 1 epoch, then 1 epoch of the checkpointed
      continuation, which must start from the screen winner's snapshot;
+ 24b. provisioning: a raw ADNI layout at 91x109x91 in a temporary directory
+     (data/synthetic.write_synthetic_adni: 40 subjects, T1w sessions with
+     brain masks, tau-PET for some, Adni_merged, tau status and DXSUM
+     tables with the manifest builder's edge cases), then
+     tools/prepare_data's main: the split sizes (round(0.1 n) to test,
+     then to val), no leakage, each split's T1w, PET and tabular rows
+     against a count from the files and tables, check_manifest_shapes;
+     every train-split T1w and mask decoded three ways (native_io.decode
+     one by one, decode_batch on 8 threads, load_nifti), bit for bit
+     equal, with volumes/s and bench_host's line; train_anat for one epoch
+     on prepare_data's manifests (K2 once per train step and val batch),
+     four times with the native decoder and the plain reader in turns
+     (N P P N), then once more with one train step inside
+     utils.profiling.trace, whose trace must hold K2's device event
+     (minmax_apply_kernel); the epoch times, train
+     volumes/s and the decode share (native ms per T1w + mask x the scans
+     of the epoch / the epoch time); test_anat_cnn.main() on the test
+     manifest (K2 once per test batch); soft_vote over the three runs'
+     models on a val batch on the card, equal to the CPU's;
  25. the MRI search at full width: percentile_normalizer at q=0.99 over 16
      train + 8 val raw scans (K1 and K2 once per split, none for the
      resident q again), then run_parallel_trials with K=2 flagship AnatCNN
@@ -223,8 +248,10 @@ stage-3 step's, frozen and towers trained ("launches_stage3"), the f32
 early-fusion step's under both normalisations ("launches_early_fusion"),
 and every kernel the HPO phases' launches ("launches_hpo": the seed
 screen's run, the MRI search's normalization, the shared-tower fusion
-search per train step in f32, and the two entry-point studies); K1-K3
-also their host microseconds per call through the custom op and direct.
+search per train step in f32, and the two entry-point studies), and the
+provisioning phase's train_anat run plus its test ("launches_provision");
+K1-K3 also their host microseconds per call through the custom op and
+direct.
 K9's entry: launches from phase 7c's server run, per batch of the int8
 serve, int8 stage 3, the exported program, the fused route and one
 call of phase 29's int8 artifact ("launches_int8"; K1 and K2 carry the
@@ -263,6 +290,9 @@ import time
 import numpy as np
 import torch
 
+from multimodal_alzheimer_tpu_torch.data import native_io
+from multimodal_alzheimer_tpu_torch.data.csv_table import read_csv_rows
+from multimodal_alzheimer_tpu_torch.data.nifti import load_nifti
 from multimodal_alzheimer_tpu_torch.data.pipeline import DataLoader
 from multimodal_alzheimer_tpu_torch.data.preprocess import (
     make_device_preprocess,
@@ -270,6 +300,7 @@ from multimodal_alzheimer_tpu_torch.data.preprocess import (
 from multimodal_alzheimer_tpu_torch.data.synthetic import (
     ArrayDataset,
     make_labeled_volumes,
+    write_synthetic_adni,
     write_synthetic_split,
 )
 from multimodal_alzheimer_tpu_torch.inference import (
@@ -393,8 +424,10 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     time_pool,
 )
 from multimodal_alzheimer_tpu_torch.tools import (
+    bench_host,
     convert_reference,
     export_artifact,
+    prepare_data,
     quality_eval,
 )
 from multimodal_alzheimer_tpu_torch.tools.cases import (
@@ -423,6 +456,7 @@ from multimodal_alzheimer_tpu_torch.tools.cases import (
 from multimodal_alzheimer_tpu_torch.train import (
     fusion_hpo,
     hpo,
+    loop,
     seed_screen,
     vmap_hpo,
 )
@@ -448,6 +482,12 @@ from multimodal_alzheimer_tpu_torch.train.optim import (
 from multimodal_alzheimer_tpu_torch.train.state import (
     TrainState,
     make_train_step,
+)
+from multimodal_alzheimer_tpu_torch.utils import profiling
+from multimodal_alzheimer_tpu_torch.utils.majority_voting import soft_vote
+from multimodal_alzheimer_tpu_torch.utils.plots_dataset import (
+    check_manifest_shapes,
+    check_no_subject_leakage,
 )
 from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
 
@@ -527,6 +567,12 @@ BF16_SERVE_TOL = 2e-2
 # class gives that class the weight 1 - 1 = 0, and the weighted loss of a
 # batch of it is 0/0, as in the reference.)
 SPLIT = {"n_subjects": (8, 4, 4), "seed": 10}
+# The raw ADNI layout the provisioning phase writes at 91x109x91
+# (data/synthetic.write_synthetic_adni): 40 subjects split 32 / 4 / 4 by
+# prepare_data, one or two T1w sessions each, tau-PET for the val and test
+# subjects and every third training subject.
+PROVISION = {"n_subjects": 40, "seed": 13}
+DECODE_THREADS = 8
 # A fixed trial for train_anat_cnn.sample_hparams: ResNet-18, batch 8.
 TRIAL = {"lr": 1e-3, "freeze": False, "lr_pretrained": 1e-5,
          "batchnorm_begin": False, "batchnorm_dense": False, "batch_size": 8,
@@ -614,6 +660,16 @@ def phase_build() -> None:
         for line in _native.build_log_path().read_text().splitlines():
             if "entry function" in line or "Used" in line:
                 log(f"[build]   {line.strip()}")
+    fresh = not native_io.library_path().exists()
+    start = time.perf_counter()
+    native_io.build()  # raises with the compiler's output
+    seconds = time.perf_counter() - start
+    check(native_io.available(), f"the native decoder loads: "
+          f"{native_io.build_log()}")
+    log(f"[build] {native_io.library_path().name} "
+        f"{'built' if fresh else 'found'} in {seconds:.2f} s "
+        f"({native_io.CXX} {' '.join(native_io.CXXFLAGS)} "
+        f"{' '.join(native_io.LDFLAGS)}: {native_io.SOURCE.name})")
 
 
 def make_scans(kind: str, batch: int, grid, generator, device):
@@ -1544,6 +1600,62 @@ def entry_split(grid=GRID, split=SPLIT):
             os.environ.pop("MMALZ_DATA_DIR", None)
 
 
+@contextlib.contextmanager
+def plain_reader():
+    """The dataset and the volume cache decode with the plain reader
+    (data/nifti.load_nifti) meanwhile, as they did before the native
+    decoder was on their path."""
+    decode = native_io.decode
+    native_io.decode = load_nifti
+    try:
+        yield
+    finally:
+        native_io.decode = decode
+
+
+def run_train_anat(device, root, hp: dict, name: str, want: dict) -> tuple:
+    """train_anat as experiment ``name`` in ``root`` (the CWD), its launch
+    counts checked against ``want``; returns (seconds, the epoch record,
+    the launch counts, the val-loss checkpoint, the last val loss)."""
+    reset_launch_counts()
+    start = time.perf_counter()
+    last = train_anat_cnn.train_anat(hp, name, log_confusion_images=False,
+                                     device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    run_dir = os.path.join(root, train_anat_cnn.LOG_DIRECTORY, name,
+                           "version_0")
+    record = _epoch_record(run_dir)
+    check(record["val_loss_epoch"] == last, f"{name}: val loss returned")
+    check(launches == want, f"{name} launches {launches} == {want}")
+    best = sorted(glob.glob(os.path.join(run_dir, "checkpoints",
+                                         "*val_loss=*")))
+    check(len(best) == 1, f"{name}: one val-loss checkpoint: {best}")
+    return seconds, record, launches, best[0], last
+
+
+def decoder_turns(device, root, hp: dict, name: str, want: dict) -> tuple:
+    """train_anat four times on one split, the native decoder and the
+    plain reader in turns (native, plain, plain, native), each checked
+    against ``want``; returns the first run's ``run_train_anat`` tuple and
+    the epoch records of each way."""
+    records = {"native": [], "plain": []}
+    first = None
+    for i, way in enumerate(("native", "plain", "plain", "native")):
+        with plain_reader() if way == "plain" else contextlib.nullcontext():
+            run = run_train_anat(device, root, hp,
+                                 name if i == 0 else f"{name}_{way}{i}",
+                                 want)
+        first = first or run
+        records[way].append(run[1])
+    return first, records["native"], records["plain"]
+
+
+def _epochs(records: list, key: str = "epoch_time_s") -> str:
+    return " / ".join(f"{r[key]:.4f}" for r in records)
+
+
 def phase_entry_points(device, root) -> tuple:
     """train_anat, a z-score run_training and test_anat_cnn.main() on the
     split in ``root`` (the CWD); returns each path's launch counts and the
@@ -1560,32 +1672,23 @@ def phase_entry_points(device, root) -> tuple:
     steps = _batches(n_train, hp["batch_size"])
     val_batches = _batches(n_val, hp["batch_size"])
 
-    reset_launch_counts()
-    start = time.perf_counter()
-    last = train_anat_cnn.train_anat(
-        hp, "chip_smoke_anat", log_confusion_images=False,
-        device=device)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
-    launches["train_anat"] = launch_counts()
-    run_dir = os.path.join(root, train_anat_cnn.LOG_DIRECTORY,
-                           "chip_smoke_anat", "version_0")
-    record = _epoch_record(run_dir)
-    check(record["val_loss_epoch"] == last, "val loss returned")
     want = {**dict.fromkeys(launch_counts(), 0),
             "minmax_apply": steps + val_batches}
-    check(launches["train_anat"] == want,
-          f"train_anat launches {launches['train_anat']} == {want}")
-    best = sorted(glob.glob(os.path.join(run_dir, "checkpoints",
-                                         "*val_loss=*")))
-    check(len(best) == 1, f"one val-loss checkpoint: {best}")
-    _load_back(best[0])
+    (seconds, record, launches["train_anat"], best, last), native, plain = \
+        decoder_turns(device, root, hp, "chip_smoke_anat", want)
+    _load_back(best)
     log(f"[entry] train_anat: 1 epoch of {n_train} train + {n_val} "
         f"val scans from disk at batch {hp['batch_size']} "
-        f"(ResNet-18, memoised min-max): {seconds:.2f} s in all, "
-        f"epoch {record['epoch_time_s']:.2f} s, "
+        f"(ResNet-18, memoised min-max, native decoder): {seconds:.2f} s "
+        f"in all, epoch {record['epoch_time_s']:.2f} s, "
         f"{record['train_volumes_per_s']:.2f} train volumes/s, val "
         f"loss {last:.6f}, launches {launches['train_anat']}")
+    log(f"[entry] train_anat epochs, native decoder / plain reader (the "
+        f"decoding before the native decoder) in turns N P P N on the same "
+        f"split: native "
+        f"{_epochs(native)} s, plain {_epochs(plain)} s; train volumes/s "
+        f"native {_epochs(native, 'train_volumes_per_s')}, plain "
+        f"{_epochs(plain, 'train_volumes_per_s')}")
 
     hp_z = dict(hp)
     trainset, valset = build_datasets(hp_z, ["t1w"],
@@ -1620,7 +1723,7 @@ def phase_entry_points(device, root) -> tuple:
     with open("path_config.yaml", "w") as f:
         f.write("relative:\n"
                 "  test_set_csv: 'data/test_path_data_labels.csv'\n"
-                f"mri_cnn_2_class: '{best[0]}'\n")
+                f"mri_cnn_2_class: '{best}'\n")
     n_test = len(harness.build_testset(hp))
     check(n_test > 0, "the paired three-modality test set has rows")
     reset_launch_counts()
@@ -1647,7 +1750,259 @@ def phase_entry_points(device, root) -> tuple:
         f"{metrics['test_f1_epoch_boot']:.4f} +- "
         f"{metrics['test_f1_epoch_ci']:.4f}), confusion counts "
         f"{counts}, launches {launches['test']}")
-    return launches, best[0]
+    return launches, best
+
+
+@contextlib.contextmanager
+def provision_root(grid=GRID, layout=PROVISION):
+    """A raw ADNI layout at ``grid`` (data/synthetic.write_synthetic_adni)
+    in a temporary directory, which is the CWD, with ``MMALZ_DATA_DIR`` at
+    its ``data/`` meanwhile; yields (root, the layout's paths)."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        start = time.perf_counter()
+        tables = write_synthetic_adni(os.path.join(root, "raw"),
+                                      volume_shape=tuple(grid), **layout)
+        n_files = sum(len(files) for _, _, files in
+                      os.walk(tables["bids_root"]))
+        log(f"[provision] wrote the raw ADNI layout {layout} at {grid}: "
+            f"{n_files} files under bids/ and three tables in "
+            f"{time.perf_counter() - start:.2f} s")
+        os.environ["MMALZ_DATA_DIR"] = os.path.join(root, "data")
+        os.chdir(root)
+        try:
+            yield root, tables
+        finally:
+            os.chdir(cwd)
+            os.environ.pop("MMALZ_DATA_DIR", None)
+
+
+def _expected_rows(tables: dict, subjects: list, dropped: set) -> dict:
+    """Manifest rows the layout holds for ``subjects``, counted from the
+    files and tables: T1w sessions (less the subjects whose diagnosis is
+    missing or too far), tau rows, and tabular rows without a gap."""
+    bids = tables["bids_root"]
+    mri = sum(len(glob.glob(os.path.join(bids, sub, "anat", "ses-*",
+                                         "*_reg_ants2_MNI_2mm.nii.gz")))
+              for sub in subjects if sub not in dropped)
+    pet = sum(r["ID"] in subjects for r in read_csv_rows(
+        tables["tau_status"]))
+    tab = sum(r["RID"] in subjects and all(
+        v is not None for k, v in r.items() if k != "VISCODE")
+        for r in read_csv_rows(tables["adni_merged"]))
+    return {"t1w": mri, "pet1451": pet, "tabular": tab}
+
+
+def _bits_equal(a, b) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype == np.float32
+            and np.array_equal(a.view(np.uint32), b.view(np.uint32)))
+
+
+@contextlib.contextmanager
+def traced_step(log_dir: str, step: int = 1):
+    """The ``step``-th train step (from 0) of every Trainer built meanwhile
+    runs inside utils.profiling.trace(log_dir), the card synchronised
+    before the trace stops."""
+    make = loop.make_train_step
+
+    def traced_make(*args, **kwargs):
+        train_step, calls = make(*args, **kwargs), [0]
+
+        def traced(state, batch):
+            calls[0] += 1
+            if calls[0] != step + 1:
+                return train_step(state, batch)
+            with profiling.trace(log_dir):
+                out = train_step(state, batch)
+                torch.cuda.synchronize()
+            return out
+        return traced
+
+    loop.make_train_step = traced_make
+    try:
+        yield
+    finally:
+        loop.make_train_step = make
+
+
+def phase_provision(device, root, tables: dict, grid=GRID) -> dict:
+    """prepare_data on the raw layout, the train split decoded three ways,
+    train_anat (native decoder, plain reader, one step traced) and
+    test_anat_cnn.main() on its manifests, soft_vote on the card; returns
+    the launch counts of the native run and the test."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(native_io.available(), "the native decoder is on the data path")
+    printed = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        paths = prepare_data.main([
+            "--adni-merged", tables["adni_merged"],
+            "--bids-root", tables["bids_root"],
+            "--tau-status", tables["tau_status"],
+            "--diagnosis", tables["diagnosis"],
+            "--out-dir", "data", "--split-json", "data_set_split.json"])
+    seconds = time.perf_counter() - start
+    for line in printed.getvalue().splitlines():
+        log(f"[provision] prepare_data: {line}")
+    with open("data_set_split.json") as f:
+        split = json.load(f)
+    n = len({r["RID"] for r in read_csv_rows(tables["adni_merged"])})
+    n_test = round(0.1 * n)
+    sizes = {"train": n - n_test - round(0.1 * (n - n_test)),
+             "val": round(0.1 * (n - n_test)), "test": n_test}
+    check({k: len(v) for k, v in split.items()} == sizes,
+          f"split sizes {[len(v) for v in split.values()]} == {sizes}")
+    check_no_subject_leakage(split)
+    rows = {mode: read_csv_rows(path) for mode, path in paths.items()}
+    # the layout's first two training subjects have no diagnosis within
+    # 150 days of their scans (write_synthetic_adni)
+    dropped = set(split["train"][:2])
+    for mode, got in rows.items():
+        want = _expected_rows(tables, split[mode], dropped)
+        counts = {"t1w": sum(r["path_anat"] is not None for r in got),
+                  "pet1451": sum(r["path_pet1451"] is not None for r in got),
+                  "tabular": sum(r["AGE"] is not None for r in got)}
+        check(counts == want and len(got) == sum(want.values()),
+              f"{mode} manifest rows {counts} == {want}")
+        check_manifest_shapes(got, expected_shape=tuple(grid))
+        log(f"[provision] {mode}: {len(split[mode])} subjects, rows "
+            f"{counts}, shapes {tuple(grid)}")
+    log(f"[provision] prepare_data.main in {seconds:.2f} s, no leakage")
+
+    # decode only: every train-split T1w and mask, three ways
+    t1w = [r["path_anat"] for r in rows["train"] if r["path_anat"]]
+    masks = [r["path_anat_mask"] for r in rows["train"] if r["path_anat"]]
+    times, decoded = {}, {}
+    for way, fn in (
+            ("native", lambda ps: [native_io.decode(p) for p in ps]),
+            ("native_batch", lambda ps: list(native_io.decode_batch(
+                ps, tuple(grid), DECODE_THREADS))),
+            ("plain", lambda ps: [load_nifti(p) for p in ps])):
+        for kind, files in (("t1w", t1w), ("mask", masks)):
+            start = time.perf_counter()
+            decoded[way, kind] = fn(files)
+            times[way, kind] = time.perf_counter() - start
+    for kind in ("t1w", "mask"):
+        check(all(_bits_equal(a, b) and _bits_equal(a, c)
+                  for a, b, c in zip(decoded["native", kind],
+                                     decoded["native_batch", kind],
+                                     decoded["plain", kind])),
+              f"{kind}: the three decodes equal")
+    n_files = len(t1w)
+    for way in ("native", "native_batch", "plain"):
+        threads = f" ({DECODE_THREADS} threads)" * (way == "native_batch")
+        log(f"[provision] decode {way}{threads}: {n_files} T1w in "
+            f"{times[way, 't1w']:.4f} s ({n_files / times[way, 't1w']:.2f} "
+            f"volumes/s), {n_files} masks in {times[way, 'mask']:.4f} s "
+            f"({n_files / times[way, 'mask']:.2f} volumes/s)")
+    log(f"[provision] the three decodes equal bit for bit "
+        f"({2 * n_files} volumes at {tuple(grid)}; T1w "
+        f"{os.path.getsize(t1w[0]) / 2 ** 20:.2f} MiB gzipped, mask "
+        f"{os.path.getsize(masks[0]) / 2 ** 20:.3f} MiB)")
+    host = io.StringIO()
+    with contextlib.redirect_stdout(host):
+        bench_host.main()
+    log(f"[provision] host: {host.getvalue().strip()}")
+    del decoded
+
+    hp = train_anat_cnn.sample_hparams(FixedTrial())
+    hp["max_epochs"] = 1
+    trainset, valset = build_datasets(hp, ["t1w"])
+    n_train, n_val = len(trainset), len(valset)
+    check(not np.isnan(trainset.get_label_distribution()[0]).any(),
+          "every class in the training split")
+    steps = _batches(n_train, hp["batch_size"])
+    val_batches = _batches(n_val, hp["batch_size"])
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "minmax_apply": steps + val_batches}
+    launches = {}
+    (seconds, record, launches["train_anat"], best, last), native, plain = \
+        decoder_turns(device, root, hp, "provision_anat", want)
+    # decode share: ms per T1w + mask (one thread) x the scans an epoch
+    # decodes (train and val) / the epoch's time, each way's mean epoch
+    shares = {}
+    for way, records in (("native", native), ("plain", plain)):
+        ms = 1e3 * (times[way, "t1w"] + times[way, "mask"]) / n_files
+        epoch = statistics.mean(r["epoch_time_s"] for r in records)
+        shares[way] = (ms, epoch, ms * (n_train + n_val) / (1e3 * epoch))
+    log(f"[provision] train_anat: 1 epoch of {n_train} train + {n_val} val "
+        f"scans from prepare_data's manifests at batch {hp['batch_size']}: "
+        f"{seconds:.2f} s in all, val loss {last:.6f}, launches "
+        f"{launches['train_anat']}; epochs in turns N P P N: native "
+        f"{_epochs(native)} s, plain {_epochs(plain)} s; train volumes/s "
+        f"native {_epochs(native, 'train_volumes_per_s')}, plain "
+        f"{_epochs(plain, 'train_volumes_per_s')}")
+    for way, (ms, epoch, share) in shares.items():
+        log(f"[provision] decode share, {way}: {ms:.3f} ms a T1w + mask "
+            f"(one thread) x {n_train + n_val} scans / {epoch:.4f} s (mean "
+            f"epoch) = {share:.4f}")
+
+    trace_dir = os.path.join(root, "trace")
+    with traced_step(trace_dir):
+        run_train_anat(device, root, hp, "provision_anat_traced", want)
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"one trace written: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    k2 = [e for e in events if e.get("cat") == "kernel"
+          and "minmax_apply_kernel" in e.get("name", "")]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    check(len(k2) == 1, f"the traced step holds one K2 device event "
+          f"(csrc/minmax_norm.cu minmax_apply_kernel): {len(k2)} of "
+          f"{kernels} kernel events")
+    log(f"[provision] one train step traced by utils.profiling.trace: "
+        f"{os.path.getsize(files[0]) / 2 ** 20:.2f} MiB, {kernels} kernel "
+        f"events, K2 (name, us) {[(e['name'][:48], e['dur']) for e in k2]}")
+
+    with open("path_config.yaml", "w") as f:
+        f.write("relative:\n"
+                "  test_set_csv: 'data/test_path_data_labels.csv'\n"
+                f"mri_cnn_2_class: '{best}'\n")
+    n_test = len(harness.build_testset(hp))
+    check(n_test > 0, "the paired three-modality test set has rows")
+    reset_launch_counts()
+    start = time.perf_counter()
+    metrics = test_anat_cnn.main(confusion_pngs=False,
+                                 device=device)["mri_cnn_2_class"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches["test"] = launch_counts()
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"finite test metrics {metrics}")
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "minmax_apply": _batches(n_test, hp["batch_size"])}
+    check(launches["test"] == want,
+          f"test launches {launches['test']} == {want}")
+    log(f"[provision] test_anat_cnn.main(): {n_test} paired test rows in "
+        f"{seconds:.2f} s, test loss {metrics['test_loss_epoch']:.6f}, F1 "
+        f"{metrics['test_f1_epoch']:.4f}, launches {launches['test']}")
+
+    # soft vote over the three runs' models on a val batch, on the card
+    preprocess = valset.get_device_preprocess()
+    batch = preprocess(_stack([valset[i] for i in range(min(n_val, 8))],
+                              device))
+    logits = []
+    for name in ("provision_anat", "provision_anat_plain1",
+                 "provision_anat_traced"):
+        checkpoint = glob.glob(os.path.join(
+            root, train_anat_cnn.LOG_DIRECTORY, name, "version_0",
+            "checkpoints", "*val_loss=*"))[0]
+        state_dict, hparams, _ = load_checkpoint(checkpoint)
+        model = AnatCNN.from_hparams(hparams).to(device).eval()
+        model.load_state_dict(state_dict)
+        with torch.inference_mode():
+            logits.append(model(batch)["logits"].float())
+    for weights in (None, [0.9, 0.6, 0.75]):
+        got = soft_vote(logits, weights)
+        want = soft_vote([l.cpu() for l in logits], weights)
+        check(got.device.type == "cuda" and torch.equal(got.cpu(), want),
+              f"soft_vote on the card {got.tolist()} == CPU {want.tolist()}")
+    log(f"[provision] soft_vote of 3 models' logits over {len(got)} val "
+        f"scans on the card equals the CPU's, unweighted and weighted: "
+        f"{got.tolist()}")
+    return {k: launches["train_anat"][k] + launches["test"][k]
+            for k in launches["test"]}
 
 
 def phase_maxpool(device, shape=STEM) -> dict:
@@ -3844,6 +4199,8 @@ def main() -> int:
         phase_stage3_entry_points(device, root, mri_checkpoint,
                                   pet_checkpoint, stage2)
         hpo_launches = {"screen": phase_hpo_screen(device, root)}
+    with provision_root() as (root, tables):
+        provision_launches = phase_provision(device, root, tables)
     hpo_launches["mri_normalize"] = phase_hpo_mri(device)
     hpo_launches["fusion_per_step"] = phase_hpo_fusion(device)
     hpo_launches.update(phase_hpo_entry_points(device))
@@ -3873,6 +4230,7 @@ def main() -> int:
             "launches_early_fusion": {k: v[name] for k, v in
                                       early_launches.items()},
             "launches_hpo": {k: v[name] for k, v in hpo_launches.items()},
+            "launches_provision": provision_launches[name],
             "launches_int8": {"serve": int8_launches[name],
                               "serve_per_batch": int8_per_batch[name],
                               "stage3_per_batch": stage3_int8[name],

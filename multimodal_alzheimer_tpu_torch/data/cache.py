@@ -12,7 +12,8 @@ collate and the host-to-device copy; the device preprocess
 (``data/preprocess.py``) casts them to float32 before any arithmetic.
 
 Entries are keyed by the file's path, size, mtime and the dtype, so a
-changed file or another dtype never reads a stale entry.
+changed file or another dtype never reads a stale entry. A miss decodes
+through the native decoder (``data/native_io.py``), as in JAX.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Optional
 
 import numpy as np
 
-from multimodal_alzheimer_tpu_torch.data.nifti import load_nifti
+from multimodal_alzheimer_tpu_torch.data import native_io
 
 
 class VolumeCache:
@@ -46,7 +47,7 @@ class VolumeCache:
         entry = self._key(path)
         if entry.exists():
             return np.load(entry, mmap_mode="r")
-        volume = np.ascontiguousarray(load_nifti(path))
+        volume = np.ascontiguousarray(native_io.decode(path))
         if self.dtype is not None:
             volume = volume.astype(self.dtype)
         tmp = entry.with_suffix(f".{os.getpid()}.tmp.npy")

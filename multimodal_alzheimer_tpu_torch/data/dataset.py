@@ -7,17 +7,17 @@ pkg/utils/dataloader.py:21-344) with the same constructor and semantics.
 (``get_device_preprocess()``), so the host only decodes files.
 ``host_normalized_item`` reproduces the reference's host-side output.
 
-The manifest is read with the ``csv`` module into a list of row dicts,
-``rows``, in file order: an empty cell (or another of ``pd.read_csv``'s
-missing-value markers) is ``None``, as the JAX package's
+The manifest is read by ``data/csv_table.read_csv_rows`` into a list of
+row dicts, ``rows``, in file order: an empty cell (or another of
+``pd.read_csv``'s missing-value markers) is ``None``, as the JAX package's
 ``replace({np.nan: None})`` leaves it, and a column whose every non-empty
 cell is a number holds Python ints or floats, as ``pd.read_csv`` infers
-int64 or float64 (a column of ints with a gap becomes floats).
+int64 or float64 (a column of ints with a gap becomes floats). Volumes are
+decoded by the native decoder (``data/native_io.py``), as in JAX.
 """
 
 from __future__ import annotations
 
-import csv
 import hashlib
 import os
 from datetime import datetime
@@ -26,8 +26,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from multimodal_alzheimer_tpu_torch.data import native_io
 from multimodal_alzheimer_tpu_torch.data.cache import VolumeCache
-from multimodal_alzheimer_tpu_torch.data.nifti import load_nifti
+from multimodal_alzheimer_tpu_torch.data.csv_table import (
+    read_csv_rows as read_manifest,
+)
 from multimodal_alzheimer_tpu_torch.data.pairing import expand_pairings
 from multimodal_alzheimer_tpu_torch.data.preprocess import (
     make_device_preprocess,
@@ -44,44 +47,11 @@ from multimodal_alzheimer_tpu_torch.ops.quantile import (
 LABELS_3 = {"CN": 0, "MCI": 1, "Dementia": 2}
 LABELS_2 = {"CN": 0, "Dementia": 1}
 
-# pd.read_csv's default missing-value markers.
-_NA_CELLS = frozenset({
-    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
-    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
-    "nan", "null"})
-
 _MODALITY_SUBSET = {
     "pet1451": "path_pet1451",
     "t1w": "path_anat",
     "tabular": "AGE",
 }
-
-
-def _parse_column(cells: list) -> list:
-    """One column's cells as pandas would infer them: all ints -> int,
-    all numbers -> float (ints with a gap too), else strings."""
-    present = [c for c in cells if c is not None]
-    for kind in ((int,) if len(present) == len(cells) else ()) + (float,):
-        try:
-            parsed = [kind(c) for c in present]
-        except ValueError:
-            continue
-        it = iter(parsed)
-        return [None if c is None else next(it) for c in cells]
-    return cells
-
-
-def read_manifest(path: str) -> List[Dict[str, Any]]:
-    """The manifest CSV as row dicts; empty cells are ``None``."""
-    with open(path, newline="") as f:
-        reader = csv.reader(f)
-        header = next(reader)
-        cells = [[None if c in _NA_CELLS else c for c in row]
-                 for row in reader]
-    columns = [_parse_column([row[i] for row in cells])
-               for i in range(len(header))]
-    return [dict(zip(header, values)) for values in zip(*columns)] \
-        if cells else []
 
 
 class MultiModalDataset:
@@ -173,7 +143,7 @@ class MultiModalDataset:
     def _load_volume(self, path):
         if self._cache is not None:
             return self._cache.get(path)
-        return load_nifti(path)
+        return native_io.decode(path)
 
     def _minmax_bounds(self, index, mri_path, mask_path, mri, mask):
         """(2,) f32 [Q(1-q), Q(q)] of this sample, memoised.

@@ -6,8 +6,9 @@ pkg/utils/dataloader.py:206-207, 228-229), which returns the raw array with
 the file's ``scl_slope``/``scl_inter`` applied. Same contract here for
 single-file ``.nii`` and ``.nii.gz`` volumes of either byte order: header
 parse, Fortran-order data, optional scaling, and the same errors as the JAX
-package's reader. The data loader's thread pool decodes volumes in
-parallel; there is no native decoder.
+package's reader. It is the plain reader: the dataset and the volume
+cache decode through the native decoder (``data/native_io.py``), which
+falls back to this reader where it cannot be built.
 """
 
 from __future__ import annotations

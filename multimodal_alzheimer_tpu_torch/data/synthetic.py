@@ -9,12 +9,12 @@ row dicts with ``None`` where a row has no value.
 
 from __future__ import annotations
 
-import csv
 import os
 from datetime import datetime, timedelta
 
 import numpy as np
 
+from multimodal_alzheimer_tpu_torch.data.csv_table import write_csv_rows
 from multimodal_alzheimer_tpu_torch.data.nifti import save_nifti
 
 MANIFEST_COLUMNS = [
@@ -96,13 +96,7 @@ def write_manifest(rows: list, path: str) -> None:
     """The rows as a CSV in ``MANIFEST_COLUMNS`` order, as pandas'
     ``to_csv(index=False)`` writes them: empty cells for ``None``, floats
     in their shortest round-trip form."""
-    with open(path, "w", newline="") as f:
-        writer = csv.writer(f, lineterminator="\n")
-        writer.writerow(MANIFEST_COLUMNS)
-        for row in rows:
-            writer.writerow(["" if row[c] is None else repr(row[c])
-                             if isinstance(row[c], float) else row[c]
-                             for c in MANIFEST_COLUMNS])
+    write_csv_rows(path, rows, MANIFEST_COLUMNS)
 
 
 def write_synthetic_split(out_dir: str,
@@ -126,6 +120,163 @@ def write_synthetic_split(out_dir: str,
         csv_path = os.path.join(out_dir, f"{mode}_path_data_labels.csv")
         write_manifest(rows, csv_path)
         paths[mode] = csv_path
+    return paths
+
+
+# ADNI diagnosis codes of each label, one per coding column (get_diag):
+# DXCURREN (ADNI1), DXCHANGE (ADNI2, conversions included), DIAGNOSIS
+# (ADNI3).
+DX_CODES = {"CN": (("DXCURREN", 1), ("DXCHANGE", 1), ("DXCHANGE", 7),
+                   ("DXCHANGE", 9), ("DIAGNOSIS", 1)),
+            "MCI": (("DXCURREN", 2), ("DXCHANGE", 2), ("DXCHANGE", 4),
+                    ("DXCHANGE", 8), ("DIAGNOSIS", 2)),
+            "Dementia": (("DXCURREN", 3), ("DXCHANGE", 3), ("DXCHANGE", 5),
+                         ("DXCHANGE", 6), ("DIAGNOSIS", 3))}
+# Subject labels, cycled within each split: every split of four or more
+# subjects holds both binary classes.
+ADNI_LABELS = ("CN", "Dementia", "CN", "Dementia", "MCI")
+ADNI_TAB_FEATURES = ("Ventricles", "Hippocampus", "WholeBrain", "Entorhinal",
+                     "Fusiform", "MidTemp", "ICV")
+
+
+def _brain_volumes(rng, shape):
+    """(T1w float32, brain mask uint8): an ellipsoid brain of N(900, 400)
+    intensities, zero outside it, as a skull-stripped MNI volume is."""
+    radius = 0.8 + rng.uniform(-0.05, 0.05)
+    grids = np.meshgrid(*[np.linspace(-1, 1, n) for n in shape],
+                        indexing="ij")
+    mask = (sum(g ** 2 for g in grids) < radius ** 2).astype(np.uint8)
+    t1w = rng.normal(900, 400, shape).astype(np.float32) * mask
+    return t1w, mask
+
+
+def write_synthetic_adni(root: str, n_subjects: int = 40, seed: int = 0,
+                         volume_shape=(91, 109, 91)) -> dict:
+    """A raw ADNI layout for ``tools/prepare_data.py`` under ``root``.
+
+    ``bids/`` holds ``sub-NNNN/anat/ses-YYYY-MM-DD/`` T1w volumes
+    (``..._reg_ants2_MNI_2mm.nii.gz``, float32) with their brain masks
+    (``antsCorticalThickness/BrainExtractionMask_ants2_MNI_2mm.nii.gz``,
+    uint8), one or two sessions a subject, and ``pet-AV1451`` sessions for
+    the val and test subjects and every third training subject. Beside it:
+    ``Adni_merged.csv`` (its ``RID`` holds the directory names, a row per
+    session, ``EXAMDATE`` as %d/%m/%Y), the tau status table and the
+    ``DXSUM`` diagnosis table (int ``RID``, ADNI codes, %Y-%m-%d).
+
+    Labels follow the patient split ``prepare_data`` will draw (seeds
+    3551/4381 over the ``RID`` column), cycled through ``ADNI_LABELS`` in
+    each split, so that every split holds CN and Dementia and the test
+    subjects pair all three modalities. The first training subjects take
+    the provisioning's edge cases: a diagnosis 200 days from the scan
+    (dropped), no diagnosis (dropped), two equally near diagnoses (the
+    first row wins), a diagnosis without a date (skipped), a PET session
+    without a tau row and one with two MNI files (both skipped), and an
+    ``Adni_merged`` row with a gap (dropped). A subject outside the table
+    (``sub-9999``) and decoy files (``..._native.nii.gz``, empty) are never
+    read. Returns the paths: ``bids_root``, ``adni_merged``,
+    ``tau_status``, ``diagnosis``.
+    """
+    from multimodal_alzheimer_tpu_torch.data.split import split_ids
+
+    rng = np.random.default_rng(seed)
+    bids = os.path.join(root, "bids")
+    subjects = [f"sub-{2000 + i}" for i in range(n_subjects)]
+    split = split_ids(subjects)
+    label_of = {sub: ADNI_LABELS[i % len(ADNI_LABELS)]
+                for ids in split.values() for i, sub in enumerate(ids)}
+    train = split["train"]
+    edge = dict(zip(("far", "undiagnosed", "tie", "undated", "untaued",
+                     "two_mni", "gap"), train))
+    with_pet = set(split["val"] + split["test"] + train[::3] + train[4:6])
+    merged, tau, dxsum = [], [], []
+
+    def touch(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        open(path, "wb").close()
+
+    def dx_row(rid, date, label, code=0):
+        column, value = DX_CODES[label][code % len(DX_CODES[label])]
+        return {"RID": rid, "EXAMDATE": date, "DXCURREN": None,
+                "DXCHANGE": None, "DIAGNOSIS": None, column: value}
+
+    for subject in subjects:
+        label, rid = label_of[subject], int(subject[-4:])
+        other = "CN" if label != "CN" else "Dementia"
+        base = datetime(2015, 1, 1) + timedelta(days=int(rng.integers(0,
+                                                                   1500)))
+        age = float(np.round(rng.uniform(60, 85), 1))
+        for k in range(int(rng.integers(1, 3))):
+            date = base + timedelta(days=400 * k)
+            ses_dir = os.path.join(bids, subject, "anat",
+                                   date.strftime("ses-%Y-%m-%d"))
+            os.makedirs(os.path.join(ses_dir, "antsCorticalThickness"))
+            t1w, mask = _brain_volumes(rng, volume_shape)
+            stem = f"{subject}_{date:ses-%Y-%m-%d}_T1w"
+            save_nifti(os.path.join(ses_dir,
+                                    f"{stem}_reg_ants2_MNI_2mm.nii.gz"), t1w)
+            save_nifti(os.path.join(
+                ses_dir, "antsCorticalThickness",
+                "BrainExtractionMask_ants2_MNI_2mm.nii.gz"), mask)
+            touch(os.path.join(ses_dir, f"{stem}_native.nii.gz"))
+            near = date + timedelta(days=int(rng.integers(-60, 61)))
+            if subject == edge.get("far"):
+                dxsum.append(dx_row(rid, (date + timedelta(days=200))
+                                    .strftime("%Y-%m-%d"), label))
+            elif subject == edge.get("tie"):
+                for days, dx in ((-10, label), (10, other)):
+                    dxsum.append(dx_row(rid, (date + timedelta(days=days))
+                                        .strftime("%Y-%m-%d"), dx))
+            elif subject != edge.get("undiagnosed"):
+                if subject == edge.get("undated"):
+                    dxsum.append(dx_row(rid, None, other))
+                dxsum.append(dx_row(rid, near.strftime("%Y-%m-%d"), label,
+                                    int(rng.integers(0, 5))))
+            visit = date + timedelta(days=int(rng.integers(-30, 31)))
+            merged.append({
+                "RID": subject, "VISCODE": f"m{12 * k:02d}",
+                "EXAMDATE": visit.strftime("%d/%m/%Y"),
+                **{f: float(np.round(rng.uniform(1e3, 1e6), 1))
+                   for f in ADNI_TAB_FEATURES},
+                "AGE": age,
+                "Years_bl": float(np.round(k * 400 / 365.25, 2)),
+                "PTEDUCAT": int(rng.integers(8, 21)), "DX": label})
+        if subject == edge.get("gap"):
+            merged[-1]["Ventricles"] = None
+        if subject in with_pet:
+            pet_date = base + timedelta(days=int(rng.integers(-60, 61)))
+            sessions = [pet_date]
+            if subject in (edge.get("untaued"), edge.get("two_mni")):
+                sessions.append(pet_date + timedelta(days=300))
+            for j, date in enumerate(sessions):
+                session = date.strftime("ses-%Y-%m-%d")
+                ses_dir = os.path.join(bids, subject, "pet-AV1451", session)
+                os.makedirs(ses_dir)
+                name = f"{subject}_{session}_pet"
+                if j == 0:
+                    pet = (rng.normal(0.5, 0.5, volume_shape)
+                           .astype(np.float32)
+                           * _brain_volumes(rng, volume_shape)[1])
+                    save_nifti(os.path.join(ses_dir, f"{name}_MNI_2mm.nii.gz"),
+                               pet)
+                    tau.append({"ID": subject, "ses": session,
+                                "pet.modality": "pet-AV1451", "DX": label})
+                elif subject == edge["untaued"]:  # no tau row: skipped
+                    touch(os.path.join(ses_dir, f"{name}_MNI_2mm.nii.gz"))
+                else:  # two MNI files: skipped
+                    touch(os.path.join(ses_dir, f"{name}_MNI_2mm.nii.gz"))
+                    touch(os.path.join(ses_dir, f"{name}_MNI_2mm_2.nii.gz"))
+                touch(os.path.join(ses_dir, f"{name}_native.nii.gz"))
+    touch(os.path.join(bids, "sub-9999", "anat", "ses-2018-01-01",
+                       "sub-9999_T1w_reg_ants2_MNI_2mm.nii.gz"))
+
+    paths = {"bids_root": bids,
+             "adni_merged": os.path.join(root, "Adni_merged.csv"),
+             "tau_status": os.path.join(
+                 root, "ADNI_Tau_Amyloid_SUVR_amyloid_tau_status_dems.csv"),
+             "diagnosis": os.path.join(root, "DXSUM_PDXCONV_ADNIALL.csv")}
+    for key, rows in (("adni_merged", merged), ("tau_status", tau),
+                      ("diagnosis", dxsum)):
+        write_csv_rows(paths[key], rows, list(rows[0]))
     return paths
 
 

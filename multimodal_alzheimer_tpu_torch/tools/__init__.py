@@ -1,1 +1,2 @@
-"""Measurement scripts for the port, run on a machine with an NVIDIA GPU."""
+"""Command-line tools of the port: data provisioning, the deployment CLIs
+and the measurement scripts."""

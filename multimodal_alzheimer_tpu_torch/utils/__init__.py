@@ -1,1 +1,2 @@
-"""Seeding helpers."""
+"""Utilities: seeding, devices, the path registry, soft voting, profiling
+and the plots."""

@@ -4,11 +4,13 @@ package, and needs nothing that the machine with the card lacks.
 A static scan: the test process itself has jax loaded (conftest.py), so
 ``sys.modules`` cannot tell what the port pulls in. The card's machine has
 no pandas, yaml, plotting packages or optuna: no module of the port, and
-not chip_smoke.py, imports one of them at module level, only the
-confusion-matrix rendering (``metrics/confusion_plot.py``, reached only when
-a caller asks for images) imports plotting packages, inside its functions,
-and only ``train/hpo.py``'s ``create_study`` tries optuna, inside the
-function, falling back to the TPE shim.
+not chip_smoke.py, imports one of them at module level, only the rendering
+modules (the confusion-matrix images of ``metrics/confusion_plot.py``,
+reached only when a caller asks for images, and the figures of
+``utils/plot_performance.py`` and ``utils/plots_dataset.py``) import
+plotting packages, inside their functions, and only ``train/hpo.py``'s
+``create_study`` tries optuna, inside the function, falling back to the TPE
+shim. The data provisioning modules import no pandas at all.
 """
 
 import ast
@@ -24,6 +26,11 @@ NOT_ON_THE_CARD = {"pandas", "yaml", "matplotlib", "seaborn", "PIL",
                    "optuna"}
 PLOTTING = {"pandas", "matplotlib", "seaborn", "PIL"}
 RENDERING = PORT / "metrics" / "confusion_plot.py"
+FIGURES = (PORT / "utils" / "plot_performance.py",
+           PORT / "utils" / "plots_dataset.py")
+PROVISIONING = (PORT / "data" / "manifest.py", PORT / "data" / "split.py",
+                PORT / "data" / "native_io.py", PORT / "data" / "csv_table.py",
+                PORT / "tools" / "prepare_data.py")
 STUDY = PORT / "train" / "hpo.py"
 # What the serving front end may import: it runs no tensor code itself.
 SERVER_IMPORTS = {"__future__", "concurrent", "numpy", "queue", "threading",
@@ -88,13 +95,25 @@ def test_port_module_imports_nothing_the_card_lacks_at_module_level(path):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_only_the_rendering_route_imports_plotting_packages(path):
     """yaml nowhere; pandas and the plotting packages only in the functions
-    of metrics/confusion_plot.py; optuna only in train/hpo.py's
-    functions."""
-    allowed = {RENDERING: PLOTTING, STUDY: {"optuna"}}.get(path, set())
+    of metrics/confusion_plot.py, utils/plot_performance.py and
+    utils/plots_dataset.py; optuna only in train/hpo.py's functions."""
+    allowed = {RENDERING: PLOTTING, STUDY: {"optuna"},
+               **dict.fromkeys(FIGURES, {"pandas", "matplotlib"})}.get(
+        path, set())
     for name in _imports(path):
         top = _top(name)
         assert top not in NOT_ON_THE_CARD or top in allowed, \
             f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", PROVISIONING,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_provisioning_imports_no_pandas_anywhere(path):
+    """The manifest builder, the split, the decoder's bindings, the CSV
+    tables and the prepare_data CLI run on the card's machine whole: no
+    pandas, not even inside a function."""
+    assert path.exists()
+    assert "pandas" not in {_top(name) for name in _imports(path)}
 
 
 def test_the_scan_sees_function_level_imports():
@@ -103,6 +122,9 @@ def test_the_scan_sees_function_level_imports():
     and only there."""
     assert {_top(n) for n in _imports(RENDERING)} >= PLOTTING
     assert not {_top(n) for n in _module_level_imports(RENDERING)} & PLOTTING
+    for path in FIGURES:
+        assert {_top(n) for n in _imports(path)} >= {"pandas", "matplotlib"}
+        assert not {_top(n) for n in _module_level_imports(path)} & PLOTTING
     assert "optuna" in {_top(n) for n in _imports(STUDY)}
     assert "optuna" not in {_top(n) for n in _module_level_imports(STUDY)}
 
