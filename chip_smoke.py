@@ -238,7 +238,26 @@ Phases, each printing its lines:
      once; export seconds and artifact MB;
  30. tools/quality_eval's main at 91x109x91, depth 18, cut to
      QUALITY_EVAL, then --fusion alone at 48x56x48: every core finite over
-     the eval set, folded agreeing with float.
+     the eval set, folded agreeing with float;
+ 31. [dp] data parallelism (parallel/), a correctness run on the one card,
+     no speed-up: (a) one nccl rank: Trainer(mesh=make_mesh()) SGD steps of
+     the flagship AnatCNN at batch 8 of raw scans, fused_bn="full" and
+     False, bit for bit the mesh-free steps, with step ms of both and the
+     collectives per step; (b) two gloo ranks sharing the card (spawned,
+     4 rows each): 3 SGD steps with fused_bn "full", False and "hybrid"
+     against the one-process batch-8 run within JAX's DP tolerances (loss
+     rtol 1e-5, state rtol 2e-4 atol 1e-5), one bf16 "full" step's loss
+     within 1e-2, per-rank launches per step (K1 1, K2 1, K4-K7 20 each,
+     K8 1: the [dp] steps are deterministic, cuDNN's deterministic
+     algorithms and the stem pool's backward through K8);
+     Predictor(mesh=) at rung 8 over the float32 and int8 cores (K9 20 a
+     rank per call) within rtol 1e-3, atol 1e-3 of the one-process
+     predictor with the argmax equal, and a BatchingServer round trip of
+     8 requests on rank 0 while rank 1 follows; run_parallel_trials with
+     the K=2 trials of phase 25 sharded (1 epoch), val history within rtol
+     2e-3 of the unsharded run; TabPFNClassifier with its 4 members split,
+     probabilities within 1e-5; (c) two nccl ranks on the one card: the
+     outcome printed (NCCL refuses a GPU twice in one communicator).
 The kernels line before the last lists every kernel with the launches of
 the path that ran it, its error against its plain version, its device time,
 per-call time, plain and library time and bound; K4-K7 also per shape and
@@ -250,6 +269,8 @@ and every kernel the HPO phases' launches ("launches_hpo": the seed
 screen's run, the MRI search's normalization, the shared-tower fusion
 search per train step in f32, and the two entry-point studies), and the
 provisioning phase's train_anat run plus its test ("launches_provision");
+every kernel the [dp] phase's per-rank launches of one "full" train step
+and of one int8 predictor call on a two-rank mesh ("launches_dp");
 K1-K3 also their host microseconds per call through the custom op and
 direct.
 K9's entry: launches from phase 7c's server run, per batch of the int8
@@ -396,6 +417,8 @@ from multimodal_alzheimer_tpu_torch.ops.maxpool import (
     winner_offsets,
 )
 from multimodal_alzheimer_tpu_torch.ops.quantile import interpolate
+from multimodal_alzheimer_tpu_torch.parallel import make_mesh
+from multimodal_alzheimer_tpu_torch.parallel.launch import run_ranks
 from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     BN_EPS,
     BN_KERNELS,
@@ -4150,6 +4173,332 @@ def phase_quality_eval(device) -> dict:
     return records
 
 
+# ------------------------------------------------------------------ [dp] --
+# Data parallelism on the one card (parallel/): correctness and the cost of
+# the collective path only, never a speed-up. The flagship AnatCNN trained
+# with SGD through Trainer(mesh=)'s step on batch 8 of raw scans (min-max in
+# the step), class weights [0.4, 0.6]. SGD at lr 1e-4: at 1e-2 one step
+# takes the loss from 0.75 to 0.10, and the ranks' other summation order
+# (1e-7) flips ReLU and max-pool near-ties of the masked scans, as a
+# one-ulp move of the scans does (ROADMAP section C): first-step gradients
+# then part by up to 8% of a tensor's largest entry (CPU rehearsal at
+# 32x36x32; 5e-6 on unmasked normal scans), which lr 1e-2 carries past
+# JAX's DP tolerances within 3 steps. The steps are deterministic, so that
+# one nccl rank can be held to the mesh-free step bit for bit: cuDNN's
+# deterministic algorithms, and the stem pool's backward through K8
+# (maxpool_impl="wf"; aten's adds with atomics, and two of its steps part).
+DP_HPARAMS = dict(TRAIN_HPARAMS, loss_class_weights=[0.4, 0.6])
+DP_LR = 1e-4
+DP_WORLD, DP_STEPS, DP_TIMED = 2, 3, 3
+DP_FUSED = ("full", False, "hybrid")
+# Two gloo ranks against the one-process run: JAX's DP tolerances
+# (tests/test_parallel.py); one bf16 "full" step's loss within 1e-2.
+DP_LOSS_RTOL = 1e-5
+DP_TOL = dict(rtol=2e-4, atol=1e-5)
+DP_BF16_LOSS_RTOL = 1e-2
+# The mesh predictor against the one-process one at rung 8: JAX
+# _serve_dryrun's bounds, argmax equal; TabPFN's probabilities within 1e-5.
+DP_SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
+DP_TABPFN_TOL = 1e-5
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dp_steps(weights: dict, fused, device, mesh=None,
+             steps: int = DP_STEPS, dtype=torch.float32, grid=GRID,
+             timed: int = 0) -> dict:
+    """``steps`` SGD steps of the flagship AnatCNN from ``weights``
+    (``train_model``'s) through ``Trainer(mesh=mesh)``'s train step on
+    batch 8 of raw scans, the rank's rows under a mesh. Returns the reported losses, the
+    state dict on the CPU, the first step's launches, the collectives of
+    the ``steps`` steps, and the median ms of ``timed`` further steps."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model = AnatCNN.from_hparams(DP_HPARAMS, fused_bn=fused, dtype=dtype,
+                                 maxpool_impl="wf")
+    model.load_state_dict(weights)
+    optimizer = torch.optim.SGD(model.parameters(), lr=DP_LR)
+    trainer = Trainer(model, DP_HPARAMS, optimizer,
+                      make_criterion(DP_HPARAMS),
+                      preprocess=make_device_preprocess(
+                          normalize_mri=MINMAX, quantile=QUANTILE),
+                      log_confusion_images=False, device=device, mesh=mesh)
+    state = trainer.init_state()
+    data = make_labeled_volumes(8, tuple(grid), n_classes=2, seed=SEED + 6)
+    batch = trainer._place({k: torch.from_numpy(data[k]) for k in
+                            ("mri", "mri_mask", "label")})
+    if mesh is not None:
+        mesh.reset_counts()
+    losses = []
+    for i in range(steps):
+        _sync(device)
+        reset_launch_counts()
+        state, aux = trainer.train_step(state, batch)
+        losses.append(aux["loss"].item())
+        if i == 0:
+            launches = launch_counts()
+    out = {"losses": losses, "launches": launches,
+           "collectives": dict(mesh.counts) if mesh is not None else {},
+           "state": {k: v.detach().float().cpu().clone()
+                     for k, v in model.state_dict().items()}}
+    times = []
+    for _ in range(timed):
+        _sync(device)
+        start = time.perf_counter()
+        trainer.train_step(state, batch)
+        _sync(device)
+        times.append((time.perf_counter() - start) * 1e3)
+    out["ms"] = statistics.median(times) if times else None
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _state_gap(got: dict, want: dict) -> tuple:
+    """(every entry within DP_TOL, the largest |got - want|)."""
+    ok, worst = set(got) == set(want), 0.0
+    for key, value in want.items():
+        diff = (got[key] - value).abs()
+        worst = max(worst, float(diff.max()))
+        ok = ok and bool((diff <= DP_TOL["atol"]
+                          + DP_TOL["rtol"] * value.abs()).all())
+    return ok, worst
+
+
+def phase_dp_nccl(device, grid=GRID) -> dict:
+    """[dp] 1: one nccl rank, the mesh over the card: Trainer(mesh=
+    make_mesh()) steps with fused_bn="full" and False must be the
+    mesh-free steps bit for bit (losses, parameters, running statistics);
+    step ms of both and the collectives per step."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'init')}",
+            world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            weights = train_model(False).state_dict()
+            for fused in ("full", False):
+                free = dp_steps(weights, fused, device, None, grid=grid,
+                                timed=DP_TIMED)
+                on = dp_steps(weights, fused, device, mesh, grid=grid,
+                              timed=DP_TIMED)
+                check(on["losses"] == free["losses"] and all(
+                    torch.equal(on["state"][k], v)
+                    for k, v in free["state"].items()),
+                    f"[dp] nccl world 1, fused_bn={fused!r}: bit for bit "
+                    f"the mesh-free step ({on['losses']} vs "
+                    f"{free['losses']})")
+                per_step = {k: v / DP_STEPS
+                            for k, v in on["collectives"].items()}
+                out[fused] = {"ms": on["ms"], "free_ms": free["ms"],
+                              "collectives": per_step}
+                log(f"[dp] nccl, world 1, fused_bn={fused!r}: {DP_STEPS} "
+                    f"SGD steps bit for bit the mesh-free steps (losses "
+                    f"{on['losses']}); step ms {on['ms']:.2f} on the mesh, "
+                    f"{free['ms']:.2f} mesh-free (median of {DP_TIMED}); "
+                    f"collectives per step {per_step}")
+        finally:
+            torch.distributed.destroy_process_group()
+    return out
+
+
+def dp_serve(device, mesh=None, grid=GRID) -> dict:
+    """The float32 and int8 serve cores of tools/cases.py behind a
+    Predictor at rung 8 on 8 raw requests (each rank runs 4 under a mesh);
+    the launches of one call; under a mesh a BatchingServer round trip of
+    the 8 requests on the int8 predictor, served from rank 0."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, preprocess = serve_model(device=device), serve_preprocess()
+    requests = make_requests(8, grid, SEED + 41)
+    batch = _stack(requests)
+    out = {}
+    for name in ("float", "int8"):
+        pred = Predictor(model, batch_size=8, serve_fn=serve_core(
+            name, model, preprocess, device, grid), device=device, mesh=mesh)
+        pred.predict_batch(batch)
+        _sync(device)
+        reset_launch_counts()
+        got = pred.predict_batch(batch)
+        _sync(device)
+        out[name] = {"logits": got["logits"], "launches": launch_counts()}
+    if mesh is None:
+        return out
+    if mesh.rank == 0:
+        start = time.perf_counter()
+        with BatchingServer(pred, max_wait_s=0.05) as server:
+            futures = [server.submit(r) for r in requests]
+            out["served"] = np.stack([f.result(timeout=120)["logits"]
+                                      for f in futures])
+        out["served_s"] = time.perf_counter() - start
+        out["batches"] = dict(server.batch_histogram)
+    else:
+        out["followed"] = pred.follow()
+    return out
+
+
+def dp_trials(device, mesh=None, grid=GRID, epochs: int = 1):
+    """The MRI search's K=2 trials (HPO_TRIALS, phase 25's split and
+    kwargs) sharded over the mesh's ranks; the val history."""
+    torch.backends.cudnn.allow_tf32 = False
+    data = _raw_split(24, grid, SEED + 21)
+    train, val = train_anat_cnn.percentile_normalizer(
+        _RawSplit(), {k: v[:16] for k, v in data.items()},
+        {k: v[16:] for k, v in data.items()}, device)(QUANTILE)
+    model = AnatCNN.from_hparams(TRAIN_HPARAMS, freeze_backbone=False)
+    hp = vmap_hpo.stack_trial_hparams(HPO_TRIALS,
+                                      extra_keys=("lr_pretrained",))
+    _, info = vmap_hpo.run_parallel_trials(
+        model, hp, train, val, batch_size=8, max_epochs=epochs,
+        patience=epochs, class_weights=[0.5, 0.5], seed=SEED,
+        apply_fn=vmap_hpo.plain_apply, init_fn=_live_init,
+        lr_select=train_anat_cnn.head_backbone_lr, device=device, mesh=mesh)
+    return info["val_history"]
+
+
+def dp_tabpfn(device, mesh=None) -> np.ndarray:
+    """TabPFN at its published width on seeded random weights, 4 members
+    (split over the mesh's ranks): the probabilities of the test rows."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x_tr, y_tr, x_te, _ = tabpfn_table(SEED + 13)
+    clf = TabPFNClassifier(model=TabPFNTransformer(**TABPFN_WIDTH),
+                           ensemble_size=TABPFN_DATA["ensemble_size"],
+                           seed=SEED + 14, device=device, mesh=mesh)
+    return clf.fit(x_tr, y_tr).predict_proba(x_te)
+
+
+def dp_rank(mesh, grid, hpo_epochs: int) -> dict:
+    """[dp] 2-5 on one of two gloo ranks sharing the card."""
+    device = mesh.device
+    weights = train_model(False).state_dict()
+    train = {}
+    for fused in DP_FUSED:
+        train[fused] = dp_steps(weights, fused, device, mesh, grid=grid,
+                                timed=DP_TIMED)
+        train[fused]["collectives"] = {
+            k: v / DP_STEPS for k, v in train[fused]["collectives"].items()}
+    bf16 = dp_steps(weights, "full", device, mesh, steps=1,
+                    dtype=torch.bfloat16, grid=grid)
+    return {"train": train, "bf16": bf16["losses"][0],
+            "serve": dp_serve(device, mesh, grid),
+            "trials": dp_trials(device, mesh, grid, hpo_epochs),
+            "tabpfn": dp_tabpfn(device, mesh)}
+
+
+def phase_dp_gloo(device, grid=GRID, hpo_epochs: int = 1) -> dict:
+    """[dp] 2-5: two gloo ranks on the one card (NCCL refuses two ranks on
+    one device) against the one-process runs of this phase; returns the
+    per-rank launches of a train step and of a predictor call."""
+    weights = train_model(False).state_dict()
+    want = {fused: dp_steps(weights, fused, device, grid=grid)
+            for fused in DP_FUSED}
+    want_bf16 = dp_steps(weights, "full", device, steps=1,
+                         dtype=torch.bfloat16, grid=grid)["losses"][0]
+    want_serve = dp_serve(device, grid=grid)
+    want_trials = dp_trials(device, grid=grid, epochs=hpo_epochs)
+    want_tabpfn = dp_tabpfn(device)
+    start = time.perf_counter()
+    ranks = run_ranks(dp_rank, DP_WORLD, "gloo", grid, hpo_epochs,
+                      device=device.type, timeout=900)
+    spawn_s = time.perf_counter() - start
+    for r, rank in enumerate(ranks):
+        for fused in DP_FUSED:
+            got, ref = rank["train"][fused], want[fused]
+            ok, worst = _state_gap(got["state"], ref["state"])
+            losses_ok = np.allclose(got["losses"], ref["losses"],
+                                    rtol=DP_LOSS_RTOL, atol=0)
+            check(losses_ok and ok,
+                  f"[dp] gloo rank {r}, fused_bn={fused!r}: losses "
+                  f"{got['losses']} vs {ref['losses']}, largest state gap "
+                  f"{worst:.3g} (tolerance {DP_TOL})")
+            log(f"[dp] gloo rank {r}/{DP_WORLD}, fused_bn={fused!r}: "
+                f"{DP_STEPS} SGD steps at global batch 8 (4 a rank), losses "
+                f"{got['losses']} vs one process {ref['losses']}, largest "
+                f"|state - one process| {worst:.3g}; launches per step "
+                f"{got['launches']}; collectives per step "
+                f"{got['collectives']}; step ms {got['ms']:.2f} (two ranks "
+                f"sharing one card: not a scaling figure; one process at "
+                f"batch 8 is phase 8's)")
+        full = rank["train"]["full"]["launches"]
+        want_launches = dict(dict.fromkeys(full, 0), minmax_select=1,
+                             minmax_apply=1, maxpool_bwd=1,
+                             **dict.fromkeys(BN_KERNELS, BN_LAYERS))
+        check(full == want_launches, f"[dp] rank {r} launches per step "
+              f"{full} == {want_launches}")
+        check(abs(rank["bf16"] - want_bf16) <= DP_BF16_LOSS_RTOL
+              * abs(want_bf16), f"[dp] rank {r} bf16 full step loss "
+              f"{rank['bf16']} vs {want_bf16}")
+        for name in ("float", "int8"):
+            got = rank["serve"][name]
+            ref = want_serve[name]["logits"]
+            check(np.allclose(got["logits"], ref, **DP_SERVE_TOL)
+                  and (got["logits"].argmax(-1) == ref.argmax(-1)).all(),
+                  f"[dp] rank {r} {name} predictor logits within "
+                  f"{DP_SERVE_TOL} of one process, argmax equal")
+            want_call = dict(dict.fromkeys(got["launches"], 0),
+                             minmax_select=1, minmax_apply=1,
+                             int8_conv3d=RESNET18_CONVS
+                             if name == "int8" else 0)
+            check(got["launches"] == want_call,
+                  f"[dp] rank {r} {name} predictor launches "
+                  f"{got['launches']} == {want_call}")
+        gap = float(np.max(np.abs(rank["trials"] - want_trials)
+                           / np.abs(want_trials)))
+        check(gap <= HPO_SOLO_RTOL, f"[dp] rank {r} sharded trials val "
+              f"{rank['trials'].tolist()} vs {want_trials.tolist()}")
+        tab_gap = float(np.abs(rank["tabpfn"] - want_tabpfn).max())
+        check(tab_gap <= DP_TABPFN_TOL,
+              f"[dp] rank {r} TabPFN probabilities {tab_gap:.3g}")
+        serve_gap = {name: float(np.abs(rank["serve"][name]["logits"]
+                                        - want_serve[name]["logits"]).max())
+                     for name in ("float", "int8")}
+        log(f"[dp] gloo rank {r}: bf16 full step loss {rank['bf16']} vs "
+            f"{want_bf16}; Predictor(mesh=) at rung 8, largest |logit - one "
+            f"process| {serve_gap}, launches per call float "
+            f"{rank['serve']['float']['launches']}, int8 "
+            f"{rank['serve']['int8']['launches']}; K=2 trials sharded, val "
+            f"{rank['trials'].tolist()} vs unsharded "
+            f"{want_trials.tolist()} (rel gap {gap:.3g}); TabPFN 4 members "
+            f"split, largest |probability gap| {tab_gap:.3g}")
+    lead = ranks[0]["serve"]
+    check(np.allclose(lead["served"], want_serve["int8"]["logits"],
+                      **DP_SERVE_TOL) and ranks[1]["serve"]["followed"]
+          == sum(lead["batches"].values()),
+          f"[dp] BatchingServer over the int8 mesh predictor: 8 requests "
+          f"served, batches {lead['batches']}, rank 1 followed "
+          f"{ranks[1]['serve']['followed']}")
+    log(f"[dp] BatchingServer on rank 0 over the int8 mesh predictor: 8 "
+        f"requests in {lead['served_s']:.3f} s, batches {lead['batches']}, "
+        f"rank 1 followed {ranks[1]['serve']['followed']}; two-rank spawn "
+        f"{spawn_s:.1f} s")
+    return {"train_step_per_rank": ranks[0]["train"]["full"]["launches"],
+            "int8_call_per_rank": ranks[0]["serve"]["int8"]["launches"]}
+
+
+def _nccl_rank(mesh) -> float:
+    return mesh.all_reduce_(torch.ones(1, device=mesh.device)).item()
+
+
+def phase_dp_nccl_two_ranks() -> None:
+    """[dp] why the two-rank runs name gloo: two nccl ranks on the one
+    card. The outcome is printed, not gated."""
+    start = time.perf_counter()
+    try:
+        run_ranks(_nccl_rank, DP_WORLD, "nccl", timeout=120,
+                  group_timeout=60)
+        outcome = "accepted: the all-reduce returned"
+    except Exception as exc:  # the outcome is what this phase reports
+        text = " ".join(str(exc).split())
+        outcome = f"refused: {type(exc).__name__}: {text[-300:]}"
+    log(f"[dp] nccl, two ranks on one card: {outcome} "
+        f"({time.perf_counter() - start:.1f} s)")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4208,6 +4557,9 @@ def main() -> int:
         converted = phase_convert(device, root)
         export_cli_launches = phase_export_cli(device, root, converted)
     phase_quality_eval(device)
+    phase_dp_nccl(device)
+    dp_launches = phase_dp_gloo(device)
+    phase_dp_nccl_two_ranks()
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
     norm_bound = norm_bounds(8, int(np.prod(GRID)))
@@ -4231,6 +4583,7 @@ def main() -> int:
                                       early_launches.items()},
             "launches_hpo": {k: v[name] for k, v in hpo_launches.items()},
             "launches_provision": provision_launches[name],
+            "launches_dp": {k: v[name] for k, v in dp_launches.items()},
             "launches_int8": {"serve": int8_launches[name],
                               "serve_per_batch": int8_per_batch[name],
                               "stage3_per_batch": stage3_int8[name],
@@ -4266,6 +4619,7 @@ def main() -> int:
             "launches_early_fusion": {k: v[name] for k, v in
                                       early_launches.items()},
             "launches_hpo": {k: v[name] for k, v in hpo_launches.items()},
+            "launches_dp": {k: v[name] for k, v in dp_launches.items()},
             "max_abs_err": err[name], "batch": 8,
             "shape": list(BN_SHAPES["stem"]),
             **{k: bn_times["stem"][name][k] for k in keys},
@@ -4289,6 +4643,8 @@ def main() -> int:
         "launches": pet_step["wf"]["maxpool_bwd"], "max_abs_err": err_k8,
         "launches_hpo": {k: v["maxpool_bwd"] for k, v in
                          hpo_launches.items()},
+        "launches_dp": {k: v["maxpool_bwd"] for k, v in
+                        dp_launches.items()},
         "batch": 8, "shape": list(STEM), **{k: k8[k] for k in keys},
         "bfloat16": {k: pool[torch.bfloat16][1][k] for k in keys}})
     per_forward = {b: {
@@ -4319,6 +4675,7 @@ def main() -> int:
                               "int8_conv3d"],
                           "fused_route_per_batch": fused_route[
                               "int8_conv3d"]},
+        "launches_dp": {k: v["int8_conv3d"] for k, v in dp_launches.items()},
         "max_abs_err": max(m["max_abs_err"] for n, r in int8_times[8].items()
                            if n != "total" for m in r.values()),
         "batch": 8,

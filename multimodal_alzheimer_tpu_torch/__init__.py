@@ -12,9 +12,10 @@ kernels are the per-scan quantile min-max normalisation
 (``csrc/minmax_norm.cu``) and z-score (``csrc/zscore_norm.cu``), both
 wrapped by ``ops.hopper_norm``, and the training-mode BatchNorm that
 ``fused_bn="full"`` selects (``csrc/batch_norm.cu``, wrapped by
-``ops.hopper_bn``). It imports ``torch`` and never ``jax``, nor pandas,
-yaml or a plotting package at module level; its entry points run on the
-card unless the caller asks for the CPU.
+``ops.hopper_bn``). ``parallel`` runs these paths data-parallel over
+``torch.distributed`` (``mesh=``). It imports ``torch`` and never ``jax``,
+nor pandas, yaml or a plotting package at module level; its entry points
+run on the card unless the caller asks for the CPU.
 """
 
 __version__ = "0.3.0"

@@ -8,6 +8,16 @@ are recycled, and copied with ``non_blocking`` on a side stream, so the
 copy overlaps the training step; the consumer's stream waits for each copy
 before using it. Batch order is the JAX loader's: the same shuffle from the
 same seed.
+
+With ``sharding=parallel.batch_sharding(mesh)`` every rank of the mesh
+walks the same global batches (the same shuffle from the same seed) and
+decodes only its own contiguous block of each: it yields
+``parallel.BatchShard`` dicts on the mesh's device. A batch whose rows do
+not split evenly over the ranks is decoded whole on every rank and yielded
+as a plain dict, the layout the train step runs without collectives;
+``pad_last``
+zero-pads the tail to the full batch instead and adds ``sample_mask`` (1.0
+for a real row), as the JAX loader does.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from typing import Callable, Iterator, Sequence
 import numpy as np
 import torch
 
+from multimodal_alzheimer_tpu_torch.parallel.mesh import BatchShard
 from multimodal_alzheimer_tpu_torch.utils.device import resolve_device
 
 
@@ -70,11 +81,17 @@ class DataLoader:
       prefetch: max ready batches in flight.
       seed: seed of the shuffle.
       device: where the batches go, as tensors; the card by default.
+      sharding: a ``parallel.Sharding``: batch-sharded, each rank decodes
+        its rows (on the mesh's device, which replaces ``device``);
+        replicated, every rank decodes every row.
+      pad_last: when not dropping, zero-pad the trailing batch to
+        ``batch_size`` and add a float32 'sample_mask' key to every batch.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int | None = None,
-                 prefetch: int = 2, seed: int = 0, device="cuda"):
+                 prefetch: int = 2, seed: int = 0, device="cuda",
+                 sharding=None, pad_last: bool = False):
         self.dataset = dataset
         if batch_size < 1:
             raise ValueError(
@@ -93,7 +110,10 @@ class DataLoader:
         if prefetch < 1:
             raise ValueError("prefetch must be >= 1")
         self.prefetch = prefetch
-        self.device = resolve_device(device)
+        self.sharding = sharding
+        self.pad_last = pad_last
+        self.device = (sharding.mesh.device if sharding is not None
+                       else resolve_device(device))
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -111,6 +131,24 @@ class DataLoader:
         for start in range(0, end, self.batch_size):
             yield idx[start:start + self.batch_size]
 
+    def _plan(self, indices):
+        """(the dataset rows this rank decodes, zero rows appended, the
+        shard's (global rows, offset) or None for a whole batch)."""
+        n = len(indices)
+        rows = self.batch_size if self.pad_last else n
+        pad = rows - n
+        if self.sharding is None or self.sharding.is_fully_replicated or \
+                rows % self.sharding.mesh.size:
+            return indices, pad, None
+        block = self.sharding.mesh.rows(rows)
+        mine = indices[block.start:min(block.stop, n)]
+        return mine, block.stop - block.start - len(mine), (rows,
+                                                            block.start)
+
+    def _mask(self, n_real: int, n_pad: int) -> np.ndarray:
+        return np.concatenate([np.ones(n_real, np.float32),
+                               np.zeros(n_pad, np.float32)])
+
     def __iter__(self) -> Iterator[dict]:
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
@@ -123,9 +161,23 @@ class DataLoader:
             free_q.put({})
         error: list = []  # producer exception, re-raised in the consumer
 
-        def load(indices, bufs=None, alloc=np.empty) -> dict:
-            samples = list(pool.map(self.dataset.__getitem__, indices))
-            return collate_into(samples, bufs, alloc)
+        def load(indices, bufs=None, alloc=np.empty) -> tuple:
+            mine, pad, shard = self._plan(indices)
+            # a block of padding alone takes its shapes from the batch's
+            # first sample
+            samples = list(pool.map(self.dataset.__getitem__,
+                                    mine if len(mine) else indices[:1]))
+            if pad:
+                zeros = {k: np.zeros_like(np.asarray(v))
+                         for k, v in samples[0].items()}
+                samples = samples[:len(mine)] + [zeros] * pad
+            batch = collate_into(samples, bufs, alloc)
+            if self.pad_last:
+                batch["sample_mask"] = self._mask(len(mine), pad)
+            return batch, shard
+
+        def place(batch: dict, shard) -> dict:
+            return batch if shard is None else BatchShard(batch, *shard)
 
         def producer():
             pending: deque = deque()  # (host buffers, copy event) in flight
@@ -135,19 +187,20 @@ class DataLoader:
                         break
                     if not cuda:
                         # fresh arrays: the tensors share their memory
-                        out_q.put(({k: torch.from_numpy(v) for k, v
-                                    in load(indices).items()}, None))
+                        batch, shard = load(indices)
+                        out_q.put((place({k: torch.from_numpy(v) for k, v
+                                          in batch.items()}, shard), None))
                         continue
                     while pending and len(pending) >= self.prefetch:
                         old_bufs, old_event = pending.popleft()
                         old_event.synchronize()  # copy done: reuse buffers
                         free_q.put(old_bufs)
                     bufs = free_q.get()
-                    batch = load(indices, bufs, _pinned)
+                    batch, shard = load(indices, bufs, _pinned)
                     with torch.cuda.stream(copy_stream):
-                        dev = {k: torch.from_numpy(v).to(self.device,
-                                                         non_blocking=True)
-                               for k, v in batch.items()}
+                        dev = place({k: torch.from_numpy(v).to(
+                            self.device, non_blocking=True)
+                            for k, v in batch.items()}, shard)
                         event = torch.cuda.Event()
                         event.record(copy_stream)
                     pending.append((bufs, event))

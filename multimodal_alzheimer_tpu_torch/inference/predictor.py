@@ -1,13 +1,24 @@
 """Serving-oriented predictor: fixed-rung batched inference + embeddings.
 
-Port of ``multimodal_alzheimer_tpu/inference/predictor.py`` for one device.
-A ragged batch pads to the smallest rung of the batch-size ladder, so the
+Port of ``multimodal_alzheimer_tpu/inference/predictor.py``. A ragged batch
+pads to the smallest rung of the batch-size ladder, so the
 card runs a few fixed batch shapes; padding rows are stripped before the
 outputs return as numpy. ``BatchingServer`` (``inference/server.py``) drives
 it through ``batch_size``, ``stage_sample`` and ``predict_parts``. The serve
 core is the model's eval forward (``model_serve_fn``) or a prebuilt one
 (``serve_fn=``: the BN-folded and int8 graphs of ``inference/quantize.py``,
 an exported artifact of ``inference/export.py``).
+
+With ``mesh=`` (a ``parallel.Mesh``) every rung must be a multiple of the
+ranks, each
+rank runs its contiguous block of rows of the padded rung through the core
+and the outputs are gathered to every rank (an all-reduce of a zero-filled
+buffer). ``predict_batch`` and ``predict`` are SPMD calls: every rank
+passes the same batch. ``predict_parts`` serves rank 0's samples: it
+broadcasts the stacked batch, so that the other ranks either make the same
+call or wait in ``follow()``, which serves every batch rank 0 sends until
+``release_followers()``. That is how a ``BatchingServer`` on rank 0 drives
+a mesh predictor.
 """
 
 from __future__ import annotations
@@ -15,6 +26,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multimodal_alzheimer_tpu_torch.parallel.mesh import (
+    DataParallel,
+    gather_rows,
+)
 from multimodal_alzheimer_tpu_torch.utils.device import resolve_device
 
 
@@ -74,14 +89,14 @@ class Predictor:
         own preprocessing and holds its own weights: the predictor then runs
         no ``preprocess`` and does not touch ``model``, which (when given)
         only names the class count of an empty ``predict``. ``mesh``
-        (data-parallel serving over several cards) is not ported yet.
+        serves data-parallel on the mesh's device (it replaces ``device``):
+        a rung that is not a multiple of the ranks raises ``ValueError``.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "Predictor(mesh=...) is not ported yet: one device only")
         if model is None and serve_fn is None:
             raise ValueError("Predictor needs a model or a serve_fn")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         self.model = model
         if serve_fn is None:
             self.model = model.to(self.device).eval()
@@ -93,6 +108,14 @@ class Predictor:
             raise ValueError(
                 f"ladder rungs {rungs} exceed batch_size {batch_size}")
         self.ladder = tuple(rungs)
+        if mesh is not None:
+            bad = [r for r in self.ladder if r % mesh.size]
+            if bad:
+                # at construction: a rung that cannot be split would fail
+                # only at request time, on a live serving path
+                raise ValueError(
+                    f"ladder rungs {bad} are not multiples of the mesh's "
+                    f"{mesh.size} ranks; every rung must shard evenly")
 
     def _pad_target(self, n: int) -> int:
         """Smallest ladder rung that fits n samples."""
@@ -110,10 +133,23 @@ class Predictor:
                 for k, v in batch.items()}
 
     def _serve(self, batch: dict, n: int) -> dict:
+        """Outputs of the first n rows of a rung's batch (host or device
+        tensors), as numpy; under a mesh the rank serves its rows and the
+        outputs are gathered."""
+        rung = int(next(iter(batch.values())).shape[0])
+        dp = None
+        if self.mesh is not None:
+            rows = self.mesh.rows(rung)
+            batch = {k: v[rows] for k, v in batch.items()}
+            dp = DataParallel(self.mesh, rung, rows.start)
         with torch.inference_mode():
-            out = self.serve_fn(batch)
-            return _to_numpy({"logits": out["logits"], "probs": out["probs"],
-                              "embeddings": out.get("embeddings", {})}, n)
+            out = self.serve_fn({k: v.to(self.device)
+                                 for k, v in batch.items()})
+            out = {"logits": out["logits"], "probs": out["probs"],
+                   "embeddings": out.get("embeddings", {})}
+            if dp is not None:
+                out = gather_rows(out, dp)
+            return _to_numpy(out, n)
 
     def warmup(self, example_batch: dict, parts: bool = False) -> None:
         """Run every ladder rung once (one call per rung), and with
@@ -143,6 +179,8 @@ class Predictor:
         """Serve a list of per-sample dicts (no batch axis), stacking them
         on the device and padding to the rung by repeating the last sample,
         so only the real samples cross the host-device link."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return self._follow_one()
         n = len(samples)
         rung = self._pad_target(n)
         samples = [getattr(s, "arrays", s) for s in samples]
@@ -150,16 +188,51 @@ class Predictor:
         batch = {k: torch.stack([torch.as_tensor(p[k], device=self.device)
                                  for p in parts])
                  for k in parts[0]}
+        if self.mesh is not None:
+            self.mesh.broadcast_object(
+                (n, {k: (tuple(v.shape), str(v.dtype)[len("torch."):])
+                     for k, v in batch.items()}))
+            for v in batch.values():
+                self.mesh.broadcast_(v)
         return self._serve(batch, n)
+
+    def _follow_one(self):
+        """Serve the batch rank 0's ``predict_parts`` broadcasts; None when
+        it broadcasts the release instead."""
+        header = self.mesh.broadcast_object(None)
+        if header is None:
+            return None
+        n, spec = header
+        batch = {k: self.mesh.broadcast_(torch.empty(
+            shape, dtype=getattr(torch, dtype), device=self.device))
+            for k, (shape, dtype) in spec.items()}
+        return self._serve(batch, n)
+
+    def follow(self) -> int:
+        """On a rank other than 0 of a mesh: serve each batch rank 0's
+        ``predict_parts`` sends, until rank 0 calls ``release_followers``;
+        returns the number of batches served."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of "
+                               "a mesh predictor")
+        served = 0
+        while self._follow_one() is not None:
+            served += 1
+        return served
+
+    def release_followers(self) -> None:
+        """On rank 0 of a mesh: end the other ranks' ``follow()``. A no-op
+        without a mesh."""
+        if self.mesh is not None and self.mesh.rank == 0:
+            self.mesh.broadcast_object(None)
 
     def predict_batch(self, batch: dict) -> dict:
         """One batch dict (any leading size <= batch_size) -> outputs,
         zero-padded on the host to the smallest rung that fits."""
         n = len(next(iter(batch.values())))
         padded = self._pad({k: np.asarray(v) for k, v in batch.items()}, n)
-        tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                   for k, v in padded.items()}
-        return self._serve(tensors, n)
+        return self._serve({k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in padded.items()}, n)
 
     def predict(self, dataset_or_batches) -> dict:
         """Iterate batches (or an indexable dataset, through the port's

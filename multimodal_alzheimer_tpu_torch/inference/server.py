@@ -27,6 +27,10 @@ The server talks to its predictor only through ``batch_size``,
 ``stage_sample`` (called at submit time, so the host-to-device copy
 overlaps the batching window) and ``predict_parts``; every staged sample is
 ``release()``-d once its request is served, failed, cancelled or rejected.
+A predictor over a mesh (``Predictor(mesh=...)``) is served from rank 0:
+its ``predict_parts`` broadcasts each stacked batch to the other ranks,
+which wait in ``predictor.follow()``, and the server's worker calls
+``predictor.release_followers()`` when it stops.
 """
 
 from __future__ import annotations
@@ -126,6 +130,15 @@ class BatchingServer:
 
     # -- server side ---------------------------------------------------
     def _loop(self) -> None:
+        try:
+            self._collate()
+        finally:
+            # a mesh predictor's other ranks wait for batches until this
+            release = getattr(self.predictor, "release_followers", None)
+            if release is not None:
+                release()
+
+    def _collate(self) -> None:
         batch_size = self.predictor.batch_size
         while True:
             item = self._q.get()

@@ -11,6 +11,14 @@ Port of ``multimodal_alzheimer_tpu/losses/classification.py``:
 
 Both run in float32, as the JAX package does (the reference uses float64
 logits; PARITY.md divergence 2).
+
+Inside a ``parallel.data_parallel`` block the logits are the rank's rows of
+a global batch, and each loss is the rank's share of the global one:
+``sum_local(w * nll) / sum_global(w)`` (the denominator all-reduced, without
+gradient), a mean divided by the global row count. The ranks' losses sum to
+the single-device loss and their gradients to its gradient, which an
+average of per-rank weighted means would not give when the ranks hold
+different classes.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from multimodal_alzheimer_tpu_torch.parallel.mesh import split
 
 
 def _gather_log_probs(logits: torch.Tensor,
@@ -32,11 +42,14 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """``sum_i w[y_i] * nll_i / sum_i w[y_i]`` (the plain mean without
     ``class_weights``)."""
     nll = -_gather_log_probs(logits, labels)
+    dp = split()
     if class_weights is None:
-        return nll.mean()
+        return nll.mean() if dp is None else nll.sum() / dp.global_rows
     w = torch.as_tensor(class_weights, dtype=nll.dtype,
                         device=nll.device)[labels.long()]
-    return (w * nll).sum() / w.sum()
+    if dp is None:
+        return (w * nll).sum() / w.sum()
+    return (w * nll).sum() / dp.mesh.all_reduce_(w.sum().detach())
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -52,7 +65,10 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
             alpha = torch.stack([alpha, 1.0 - alpha])
         logpt = logpt * alpha[labels.long()]
     loss = -1.0 * (1.0 - pt) ** gamma * logpt
-    return loss.mean() if size_average else loss.sum()
+    if not size_average:
+        return loss.sum()
+    dp = split()
+    return loss.mean() if dp is None else loss.sum() / dp.global_rows
 
 
 def make_criterion(hparams: dict) -> Callable:

@@ -37,6 +37,19 @@ goes wrong quietly:
 * ``Conv3d`` and ``Linear`` (flax ``nn.Conv``/``nn.Dense`` with float32
   params): input, weight and bias cast to ``dtype``, the product in it.
 
+Data parallelism (``parallel.data_parallel``): inside the block every
+BatchNorm in train mode normalises over the global batch, as GSPMD does
+under JAX's mesh. ``FusedBatchNorm`` and ``HybridBatchNorm`` all-reduce the
+kernels' sums (``ops/hopper_bn.py``); ``FlaxBatchNorm`` and
+``TorchStatsBatchNorm``, whose ``F.batch_norm`` or mean can see only the
+rank's rows, take the moments from the all-reduced sums of x and x^2 in
+float32 (``parallel.all_reduce_sum``, which autograd differentiates) and
+keep their own formula, rounded to ``dtype`` once. The running statistics
+track the global moments on every rank. ``Dropout`` and
+``traced_dropout`` draw the keep mask at the global batch shape and keep
+the rank's rows, so that the ranks together draw the single-device mask.
+Outside the block nothing changes.
+
 Also ``max_pool3d`` with torch's floor semantics and the JAX package's guard
 against a tower too deep for its volume, ``global_avg_pool``, flax's
 weight initialisation from an explicit ``torch.Generator``, flax's
@@ -63,6 +76,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_alzheimer_tpu_torch.ops import hopper_bn
+from multimodal_alzheimer_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    split,
+)
 
 BN_EPS = 1e-5
 FLAX_MOMENTUM = 0.9  # running = 0.9 * running + 0.1 * batch statistic
@@ -175,6 +192,19 @@ class _BatchNorm(nn.Module):
         return f"{self.num_features}, eps={self.eps}"
 
 
+def _global_moments(x: torch.Tensor, dp):
+    """float32 (mean, E[x^2] - mean^2) per channel over the global batch of
+    which ``x`` holds the rank's rows: the sums of x and x^2 all-reduced in
+    one differentiable collective."""
+    xf = x.to(torch.float32)
+    axes = [0] + list(range(2, x.ndim))
+    sums = all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]),
+                          dp.mesh)
+    n = dp.global_count(x)
+    mean = sums[0] / n
+    return mean, sums[1] / n - mean * mean
+
+
 class FlaxBatchNorm(_BatchNorm):
     """flax ``nn.BatchNorm``: the running variance tracks the biased batch
     variance ``max(0, E[x^2] - E[x]^2)``. ``F.batch_norm`` computes in
@@ -189,6 +219,16 @@ class FlaxBatchNorm(_BatchNorm):
         return self._train_forward(x)
 
     def _train_forward(self, x):
+        dp = split()
+        if dp is not None:
+            mean, var = _global_moments(x, dp)
+            var = torch.clamp(var, min=0.0)
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = ((x.to(torch.float32) - mean.reshape(shape))
+                 * mul.reshape(shape) + self.bias.reshape(shape))
+            self._track(mean.detach(), var.detach())
+            return y.to(self.dtype)
         y = F.batch_norm(x, None, None, self.weight, self.bias,
                          training=True, eps=self.eps).to(self.dtype)
         with torch.no_grad():
@@ -208,11 +248,16 @@ class TorchStatsBatchNorm(_BatchNorm):
     arithmetic."""
 
     def _train_forward(self, x):
-        xf = x.to(torch.float32)
-        axes = [0] + list(range(2, x.ndim))
-        mean = xf.mean(axes)
-        var = (xf * xf).mean(axes) - mean * mean
-        n = x.numel() // x.shape[1]
+        dp = split()
+        if dp is not None:
+            mean, var = _global_moments(x, dp)
+            n = dp.global_count(x)
+        else:
+            xf = x.to(torch.float32)
+            axes = [0] + list(range(2, x.ndim))
+            mean = xf.mean(axes)
+            var = (xf * xf).mean(axes) - mean * mean
+            n = x.numel() // x.shape[1]
         self._track(mean.detach(), var.detach() * (n / max(n - 1, 1)))
         return self._affine(x, mean, var)
 
@@ -273,6 +318,18 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3, 4))
 
 
+def _uniform(x: torch.Tensor, generator) -> torch.Tensor:
+    """U[0, 1) float32 of x's shape from ``generator``; inside a
+    ``data_parallel`` block the rank's rows of a draw at the global batch
+    shape."""
+    dp = split()
+    if dp is None:
+        return torch.rand(x.shape, generator=generator, device=x.device)
+    u = torch.rand((dp.global_rows,) + tuple(x.shape[1:]),
+                   generator=generator, device=x.device)
+    return u[dp.offset:dp.offset + x.shape[0]]
+
+
 class Dropout(nn.Module):
     """flax ``nn.Dropout`` in train mode: keep each element with
     probability ``1 - p`` and scale the survivors by ``1 / (1 - p)``; the
@@ -291,8 +348,7 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        mask = _uniform(x, self.generator) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -314,8 +370,7 @@ def traced_dropout(x: torch.Tensor, rate: float,
         return x
     keep = (torch.ones((), dtype=torch.float32)
             - torch.tensor(float(rate), dtype=torch.float32))
-    mask = torch.rand(x.shape, generator=generator,
-                      device=x.device) < keep.item()
+    mask = _uniform(x, generator) < keep.item()
     # both values are exact as Python floats, so no operand is rounded
     return torch.where(mask, x / keep.to(dtype).item(),
                        torch.zeros((), dtype=x.dtype, device=x.device))

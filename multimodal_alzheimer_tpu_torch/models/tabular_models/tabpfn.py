@@ -32,8 +32,11 @@ hard-coded +-2 sigma band not centred on the mean, upstream's [-100, 100]
 clip is missing, and ``class_shifts``/``feature_shifts`` are cut to the
 ensemble size without a length check. The JAX ``_forward`` is jitted with
 the classifier itself static, so a refit with another class count can reuse
-a stale program; the port has no such cache and recomputes. The ``mesh=``
-ensemble parallelism is not ported.
+a stale program; the port has no such cache and recomputes.
+``TabPFNClassifier(mesh=)`` splits the members over the ranks: each runs
+its block, and the sums of the members' probabilities and decoder taps are
+all-reduced, then divided by the ensemble size (JAX shards the member
+axis of its ``vmap``).
 
 ``dtype`` is the compute dtype: Linear and LayerNorm compute in it, and as
 in JAX the query scaled by a NumPy scalar promotes the attention scores,
@@ -55,6 +58,7 @@ from multimodal_alzheimer_tpu_torch.models.layers import (
     Linear,
     reset_parameters,
 )
+from multimodal_alzheimer_tpu_torch.parallel.mesh import coalesced_
 from multimodal_alzheimer_tpu_torch.utils.device import resolve_device
 from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
 
@@ -277,7 +281,10 @@ class TabPFNClassifier:
     ``state_dict``: the transformer's weights (port names; ``model`` gives
     the shapes, ``TabPFNTransformer()`` by default); None draws random
     weights from ``seed`` (tests and smoke runs only). The model runs on
-    ``device``, the card unless the caller asks for the CPU.
+    ``device``, the card unless the caller asks for the CPU. ``mesh`` (a
+    ``parallel.Mesh``; every rank makes the same calls) runs each rank's
+    block of members on the mesh's device; ``ensemble_size`` must be a
+    multiple of the ranks.
     """
 
     def __init__(self, state_dict: dict | None = None,
@@ -286,8 +293,13 @@ class TabPFNClassifier:
                  feature_shifts: Sequence[int] | None = None,
                  softmax_temperature: float = 1.0,
                  model: TabPFNTransformer | None = None,
-                 seed: int = 0, device="cuda"):
-        self.device = resolve_device(device)
+                 seed: int = 0, device="cuda", mesh=None):
+        if mesh is not None and ensemble_size % mesh.size:
+            raise ValueError(f"ensemble_size={ensemble_size} is not a "
+                             f"multiple of the mesh's {mesh.size} ranks")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         self.model = model or TabPFNTransformer()
         self.state_dict = state_dict
         self.ensemble_size = ensemble_size
@@ -325,6 +337,10 @@ class TabPFNClassifier:
                                          device=self.device)
         self.feature_shifts = torch.tensor(list(fs)[:self.ensemble_size],
                                            device=self.device)
+        if self.mesh is not None:  # this rank's block of members
+            block = self.mesh.rows(self.ensemble_size)
+            self.class_shifts = self.class_shifts[block]
+            self.feature_shifts = self.feature_shifts[block]
         return self
 
     @torch.inference_mode()
@@ -348,7 +364,12 @@ class TabPFNClassifier:
         slots = (torch.arange(n_c, device=self.device)[None]
                  + self.class_shifts[:, None]) % n_c  # (M, n_c)
         probs = torch.take_along_dim(probs, slots[:, None, :], dim=-1)
-        return probs.mean(0), out["embeddings"]["decoder"].mean(0)
+        dec = out["embeddings"]["decoder"]
+        if self.mesh is None:
+            return probs.mean(0), dec.mean(0)
+        sums = [probs.sum(0), dec.sum(0)]
+        coalesced_(sums, self.mesh, "all_reduce")
+        return sums[0] / self.ensemble_size, sums[1] / self.ensemble_size
 
     def predict_proba(self, x_test, normalize_with_test=False) -> np.ndarray:
         del normalize_with_test  # train-stat normalisation only (default)

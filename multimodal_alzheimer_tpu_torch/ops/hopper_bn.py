@@ -22,7 +22,13 @@ float32, contiguous, one device). Every kernel launch adds one to
 
 ``batch_norm_train`` (forward K4 then K5, backward K6 then K7) and
 ``lane_packed_stats`` (K4, with the closed-form statistics VJP) are the
-``torch.autograd.Function`` counterparts of the JAX custom VJPs.
+``torch.autograd.Function`` counterparts of the JAX custom VJPs. Inside a
+``parallel.data_parallel`` block they normalise over the global batch, as
+GSPMD does under JAX's mesh: K4's sums are all-reduced before the moments
+and K5, K6's before K7, which divides by the global count; the
+``lane_packed_stats`` VJP all-reduces the statistics' cotangents. The
+scale and bias gradients stay the rank's own sums: the train step sums
+every parameter gradient over the ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_alzheimer_tpu_torch.ops import _native
+from multimodal_alzheimer_tpu_torch.parallel.mesh import current
 
 LAUNCHES = {"bn_stats": 0, "bn_apply": 0, "bn_grad_sum": 0, "bn_dx": 0}
 
@@ -211,10 +218,23 @@ def _moments(sums: torch.Tensor, n: int):
     return mean, sums[1] / n - mean * mean
 
 
+def _global_moments(ctx, x: torch.Tensor):
+    """K4's (mean, var) of ``x`` over the batch, global inside a
+    ``data_parallel`` block (the sums all-reduced, one collective); keeps
+    the block and the count N on ``ctx`` for the backward."""
+    sums = bn_stats(x)
+    ctx.dp = current()
+    ctx.n = _count(x)
+    if ctx.dp is not None:
+        ctx.dp.mesh.all_reduce_(sums)
+        ctx.n = ctx.dp.global_count(x)
+    return _moments(sums, ctx.n)
+
+
 class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        mean, var = _moments(bn_stats(x), _count(x))
+        mean, var = _global_moments(ctx, x)
         y = bn_apply(x, mean, torch.rsqrt(var + eps), scale, bias)
         ctx.save_for_backward(x, scale, mean, var)
         ctx.eps = eps
@@ -227,8 +247,11 @@ class _BatchNormTrain(torch.autograd.Function):
         x, scale, mean, var = ctx.saved_tensors
         inv = torch.rsqrt(var + ctx.eps)
         gy = gy.contiguous()
-        sums = bn_grad_sum(gy, x, mean, inv)  # [dbias; dscale]
-        dx = bn_dx(gy, x, mean, inv, scale, sums / _count(x))
+        sums = bn_grad_sum(gy, x, mean, inv)  # [dbias; dscale], this rank's
+        red = sums
+        if ctx.dp is not None:
+            red = ctx.dp.mesh.all_reduce_(sums.clone())
+        dx = bn_dx(gy, x, mean, inv, scale, red / ctx.n)
         return dx, sums[1], sums[0], None
 
 
@@ -242,14 +265,16 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
 class _LanePackedStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        mean, var = _moments(bn_stats(x), _count(x))
+        mean, var = _global_moments(ctx, x)
         ctx.save_for_backward(x, mean)
         return mean, var
 
     @staticmethod
     def backward(ctx, gmean, gvar):
         x, mean = ctx.saved_tensors
-        n = _count(x)
+        n = ctx.n
+        if ctx.dp is not None:  # every rank's loss reaches the statistics
+            gmean, gvar = ctx.dp.mesh.all_reduce_(torch.stack([gmean, gvar]))
         c = _per_channel
         # d mean/dx = 1/N; d var/dx = 2 (x - mean) / N (biased variance), in
         # float32, returned in x's dtype

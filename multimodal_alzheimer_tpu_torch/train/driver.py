@@ -21,6 +21,7 @@ from multimodal_alzheimer_tpu_torch.data.pipeline import DataLoader
 from multimodal_alzheimer_tpu_torch.losses.classification import (
     make_criterion,
 )
+from multimodal_alzheimer_tpu_torch.parallel.mesh import batch_sharding
 from multimodal_alzheimer_tpu_torch.train.logging import ExperimentLogger
 from multimodal_alzheimer_tpu_torch.train.loop import Trainer
 from multimodal_alzheimer_tpu_torch.train.optim import (
@@ -121,7 +122,7 @@ def run_training(model, hparams: dict, trainset, valset,
                  drop_last: bool = False,
                  variables_transform: Optional[Callable] = None,
                  log_confusion_images: bool = True,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """Build loaders and a Trainer, fit; return (trainer, state, last val
     loss).
 
@@ -132,15 +133,22 @@ def run_training(model, hparams: dict, trainset, valset,
     loading and the move to ``device`` keep the parameter objects.
     ``log_confusion_images`` renders a confusion-matrix image per epoch for
     TensorBoard, which needs the plotting packages.
+
+    ``mesh`` (a ``parallel.Mesh``; every rank calls ``run_training`` alike)
+    trains data-parallel: both loaders decode each rank's rows on the
+    mesh's device, and the Trainer sums the gradients over the ranks. Rank
+    0 alone makes the logger and writes the checkpoints.
     """
     seed_everything(seed)
 
+    sharding = batch_sharding(mesh) if mesh is not None else None
     train_loader = DataLoader(trainset, hparams["batch_size"], shuffle=True,
                               num_workers=num_workers, seed=seed,
-                              drop_last=drop_last, device=device)
+                              drop_last=drop_last, device=device,
+                              sharding=sharding)
     val_loader = DataLoader(valset, hparams["batch_size"],
                             num_workers=num_workers, drop_last=drop_last,
-                            device=device)
+                            device=device, sharding=sharding)
 
     criterion = make_criterion(hparams)
     if optimizer is None:
@@ -149,15 +157,18 @@ def run_training(model, hparams: dict, trainset, valset,
     if variables_transform is not None:
         model.load_state_dict(variables_transform(model.state_dict()))
 
-    logger = ExperimentLogger(save_dir=log_dir, name=experiment_name,
-                              version=experiment_version)
-    logger.log_hparams(hparams)
+    logger = checkpoint_dir = None
+    if mesh is None or mesh.rank == 0:
+        logger = ExperimentLogger(save_dir=log_dir, name=experiment_name,
+                                  version=experiment_version)
+        logger.log_hparams(hparams)
+        checkpoint_dir = str(logger.log_dir / "checkpoints")
     trainer = Trainer(
         model, hparams, optimizer, criterion,
         preprocess=trainset.get_device_preprocess(),
-        logger=logger,
-        checkpoint_dir=str(logger.log_dir / "checkpoints"),
-        seed=seed, log_confusion_images=log_confusion_images, device=device)
+        logger=logger, checkpoint_dir=checkpoint_dir,
+        seed=seed, log_confusion_images=log_confusion_images, device=device,
+        mesh=mesh)
 
     state = trainer.init_state()
     state, last_val_loss = trainer.fit(state, train_loader, val_loader,

@@ -1,8 +1,8 @@
 """The training loop (Lightning Trainer replacement).
 
-Port of ``multimodal_alzheimer_tpu/train/loop.py`` for one device, after
-the reference training template (train_pet_cnn.py:121-205): an epoch loop
-with train and validation phases, per-epoch macro/per-class F1 and loss,
+Port of ``multimodal_alzheimer_tpu/train/loop.py``, after the reference
+training template (train_pet_cnn.py:121-205): an epoch loop with train and
+validation phases, per-epoch macro/per-class F1 and loss,
 TensorBoard logging with confusion-matrix images, EarlyStopping on
 ``val_loss_epoch``, two top-k checkpoint managers (val_loss min, val_f1
 max), ReduceLROnPlateau on ``val_loss_epoch``, and a ``val_loss`` history
@@ -12,6 +12,15 @@ fusion) has its duplicate towers synced in every checkpoint it saves.
 ``test`` adds bootstrap F1 and MCC with CIs,
 writes the confusion counts to ``confusion_matrix.json`` and, when the
 caller asks for them, the three confusion-matrix PNGs (base_model.py:135-217).
+
+With ``mesh=`` (a ``parallel.Mesh``, one process per rank, every rank
+running the same loop) the state is replicated from rank 0, each batch is
+placed as the rank's rows (``_place``; a ragged tail whose rows do not
+split evenly over the ranks runs whole on every rank), and the steps
+return the global batch's outputs. The epoch metrics, F1, MCC and the
+bootstrap are computed from them on rank 0 and broadcast, so early
+stopping and the plateau scheduler decide alike on every rank; the logger,
+the top-k checkpoints and the test files are written by rank 0 only.
 
 Rendering images needs matplotlib, seaborn, pandas and PIL, which a machine
 that only trains may not have: the PNGs of ``test`` (``confusion_pngs``) and
@@ -37,6 +46,13 @@ from multimodal_alzheimer_tpu_torch.metrics.classification import (
     f1_macro,
     matthews_corrcoef,
     predictions_from_logits,
+)
+from multimodal_alzheimer_tpu_torch.parallel.mesh import (
+    BatchShard,
+    Mesh,
+    batch_rows,
+    replicate,
+    shard_batch,
 )
 from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     TopKCheckpointManager,
@@ -98,16 +114,21 @@ class Trainer:
                  checkpoint_dir: Optional[str] = None,
                  seed: int = 5,
                  log_confusion_images: bool = True,
-                 device="cuda"):
-        """``model`` moves to ``device``; build ``optimizer`` on the moved
-        model's parameters (``Module.to`` keeps the parameter objects)."""
-        self.device = resolve_device(device)
+                 device="cuda", mesh: Optional[Mesh] = None):
+        """``model`` moves to ``device`` (the mesh's device with ``mesh``);
+        build ``optimizer`` on the moved model's parameters (``Module.to``
+        keeps the parameter objects). Under a mesh only rank 0 uses
+        ``logger`` and ``checkpoint_dir``."""
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         self.model = model.to(self.device)
         self.hparams = dict(hparams)
         self.optimizer = optimizer
         self.criterion = criterion
         self.preprocess = preprocess
-        self.logger = logger
+        self.logger = logger if self.lead else None
         self.n_classes = hparams["n_classes"]
         self.label_ind_by_names = LABEL_NAMES[self.n_classes]
         self.log_confusion_images = log_confusion_images
@@ -116,15 +137,17 @@ class Trainer:
         # its root key, train/loop.py:226)
         self.dropout_generator = make_generator(seed, self.device)
         self.train_step = (make_train_step(self.model, criterion, optimizer,
-                                           preprocess, self.dropout_generator)
+                                           preprocess, self.dropout_generator,
+                                           mesh)
                            if optimizer is not None else None)
-        self.eval_step = make_eval_step(self.model, criterion, preprocess)
+        self.eval_step = make_eval_step(self.model, criterion, preprocess,
+                                        mesh)
 
         # bootstrap resampling runs on the host copies of the outputs
         self.generator = make_generator(seed)
         self.val_loss_history: list[float] = []
         self.ckpt_managers = []
-        if checkpoint_dir is not None:
+        if checkpoint_dir is not None and self.lead:
             k = int(hparams.get("best_k_checkpoints", 3))
             self.ckpt_managers = [
                 TopKCheckpointManager(checkpoint_dir, "val_loss_epoch",
@@ -134,13 +157,31 @@ class Trainer:
             ]
 
     def init_state(self) -> TrainState:
-        """The train state over the model's current weights; load a
-        ``state_dict`` into the model first to start from one."""
-        return TrainState(self.model, self.optimizer)
+        """The train state over the model's current weights (rank 0's,
+        replicated, under a mesh); load a ``state_dict`` into the model
+        first to start from one."""
+        state = TrainState(self.model, self.optimizer)
+        if self.mesh is not None:
+            replicate(state, self.mesh)
+        return state
 
-    def _to_device(self, batch: dict) -> dict:
+    def _place(self, batch: dict) -> dict:
+        """The batch on the device: under a mesh the rank's rows, unless
+        the loader placed them already or the rows do not split evenly over
+        the ranks (then every rank runs the whole batch)."""
+        if isinstance(batch, BatchShard):
+            return batch
+        if self.mesh is not None and \
+                batch_rows(batch) % self.mesh.size == 0:
+            return shard_batch(batch, self.mesh)
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
+
+    def _on_lead(self, fn):
+        """``fn()``, computed on rank 0 and broadcast under a mesh."""
+        if self.mesh is None:
+            return fn()
+        return self.mesh.broadcast_object(fn() if self.lead else None)
 
     def fit(self, state: TrainState, train_loader, val_loader,
             max_epochs: Optional[int] = None) -> tuple[TrainState, float]:
@@ -196,7 +237,7 @@ class Trainer:
         all_labels = _HostAccumulator(window)
         n_samples = 0
         for batch in loader:
-            state, aux = self.train_step(state, self._to_device(batch))
+            state, aux = self.train_step(state, self._place(batch))
             losses.append(aux["loss"])
             all_logits.append(aux["logits"])
             all_labels.append(aux["labels"])
@@ -204,32 +245,15 @@ class Trainer:
         losses = [float(l) for l in losses.values()]
         logits = all_logits.concatenated()
         labels = all_labels.concatenated()
-        m = epoch_metrics(logits, labels, self.n_classes)
-        scalars = {
-            "train_loss_epoch": float(np.mean(losses)),
-            "train_f1_epoch": float(m["f1"]),
-        }
-        for i in range(self.n_classes):
-            scalars[f"train_f1_epoch_class_{i}"] = float(m[f"f1_class_{i}"])
+        scalars = self._on_lead(lambda: self._epoch_scalars(
+            "train", losses, logits, labels))
         self._log_confusion("train_confusion_matrix", logits, labels)
         return state, scalars, n_samples
 
-    def _run_eval_epoch(self, loader, prefix: str = "val"):
-        window = int(self.hparams.get("host_offload_every", 32))
-        losses = _HostAccumulator(window)
-        all_logits = _HostAccumulator(window)
-        all_labels = _HostAccumulator(window)
-        for batch in loader:
-            aux = self.eval_step(self._to_device(batch))
-            losses.append(aux["loss"])
-            all_logits.append(aux["logits"])
-            all_labels.append(aux["labels"])
-        losses = [float(l) for l in losses.values()]
-        logits = all_logits.concatenated()
-        labels = all_labels.concatenated()
-        m = epoch_metrics(logits, labels, self.n_classes)
+    def _epoch_scalars(self, prefix: str, losses, logits, labels) -> dict:
         # Lightning averages the per-batch losses (unweighted mean over
         # batches, base_model.py:113-115)
+        m = epoch_metrics(logits, labels, self.n_classes)
         scalars = {
             f"{prefix}_loss_epoch": float(np.mean(losses)),
             f"{prefix}_f1_epoch": float(m["f1"]),
@@ -237,6 +261,23 @@ class Trainer:
         for i in range(self.n_classes):
             scalars[f"{prefix}_f1_epoch_class_{i}"] = \
                 float(m[f"f1_class_{i}"])
+        return scalars
+
+    def _run_eval_epoch(self, loader, prefix: str = "val"):
+        window = int(self.hparams.get("host_offload_every", 32))
+        losses = _HostAccumulator(window)
+        all_logits = _HostAccumulator(window)
+        all_labels = _HostAccumulator(window)
+        for batch in loader:
+            aux = self.eval_step(self._place(batch))
+            losses.append(aux["loss"])
+            all_logits.append(aux["logits"])
+            all_labels.append(aux["labels"])
+        losses = [float(l) for l in losses.values()]
+        logits = all_logits.concatenated()
+        labels = all_labels.concatenated()
+        scalars = self._on_lead(lambda: self._epoch_scalars(
+            prefix, losses, logits, labels))
         self._log_confusion(f"{prefix}_confusion_matrix", logits, labels)
         self._last_eval = {"logits": logits, "labels": labels}
         return scalars
@@ -250,21 +291,11 @@ class Trainer:
         scalars = self._run_eval_epoch(test_loader, prefix="test")
         logits = self._last_eval["logits"]
         labels = self._last_eval["labels"]
-        f1_mean, f1_ci = bootstrap_metric(f1_macro, logits, labels,
-                                          self.n_classes, self.generator,
-                                          n_bootstrap)
-        mcc_mean, mcc_ci = bootstrap_metric(matthews_corrcoef, logits,
-                                            labels, self.n_classes,
-                                            self.generator, n_bootstrap)
-        scalars.update({
-            "test_f1_epoch_boot": float(f1_mean),
-            "test_f1_epoch_ci": float(f1_ci),
-            "test_mcc_epoch_boot": float(mcc_mean),
-            "test_mcc_epoch_ci": float(mcc_ci),
-        })
+        scalars.update(self._on_lead(
+            lambda: self._bootstrap(logits, labels, n_bootstrap)))
         if out_dir is None and self.logger is not None:
             out_dir = str(self.logger.log_dir)
-        if out_dir is not None:
+        if out_dir is not None and self.lead:
             cm = self._confusion(logits, labels)
             os.makedirs(out_dir, exist_ok=True)
             with open(os.path.join(out_dir, "confusion_matrix.json"),
@@ -281,6 +312,18 @@ class Trainer:
         if self.logger is not None:
             self.logger.log_scalars(scalars, 0)
         return scalars
+
+    def _bootstrap(self, logits, labels, n_bootstrap: int) -> dict:
+        f1_mean, f1_ci = bootstrap_metric(f1_macro, logits, labels,
+                                          self.n_classes, self.generator,
+                                          n_bootstrap)
+        mcc_mean, mcc_ci = bootstrap_metric(matthews_corrcoef, logits,
+                                            labels, self.n_classes,
+                                            self.generator, n_bootstrap)
+        return {"test_f1_epoch_boot": float(f1_mean),
+                "test_f1_epoch_ci": float(f1_ci),
+                "test_mcc_epoch_boot": float(mcc_mean),
+                "test_mcc_epoch_ci": float(mcc_ci)}
 
     def _confusion(self, logits, labels) -> np.ndarray:
         preds = predictions_from_logits(logits)

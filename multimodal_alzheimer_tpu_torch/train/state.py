@@ -6,16 +6,32 @@ the preprocess runs inside the step, on the device, and a step returns
 pet_cnn.py:60-70). PyTorch updates the model and the optimizer in place, so
 ``TrainState`` holds them with the step count and the plateau multiplier
 ``lr_scale``; the step returns the same state object.
+
+With a ``parallel.Mesh`` a step given a ``BatchShard`` (the rank's rows,
+``parallel.shard_batch``) runs them inside ``parallel.data_parallel``, sums
+every gradient over the ranks in one flat buffer before the update, and
+returns the global loss and the gathered logits and labels: the
+single-device step, as GSPMD runs it under JAX's mesh. A batch that is
+not a shard (a ragged tail whose rows do not split evenly over the ranks)
+runs whole on every rank, with no collective, as JAX replicates it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
 
 from multimodal_alzheimer_tpu_torch.models.layers import set_dropout_generator
+from multimodal_alzheimer_tpu_torch.parallel.mesh import (
+    BatchShard,
+    Mesh,
+    coalesced_,
+    data_parallel,
+    gather_rows,
+)
 
 
 @dataclass
@@ -49,10 +65,25 @@ def _zero_unreached_grads(optimizer: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
+def _sharded(batch: dict, mesh: Optional[Mesh]):
+    """The ``data_parallel`` block of a shard, a null context else."""
+    if not isinstance(batch, BatchShard):
+        return contextlib.nullcontext()
+    if mesh is None:
+        raise ValueError("a BatchShard needs a step built with mesh=")
+    return data_parallel(mesh, batch.global_rows, batch.offset)
+
+
+def _gathered(dp, tree: dict) -> dict:
+    """The global batch's outputs of a shard's step, ``tree`` else."""
+    return tree if dp is None else gather_rows(tree, dp)
+
+
 def make_train_step(model: torch.nn.Module, criterion: Callable,
                     optimizer: torch.optim.Optimizer,
                     preprocess: Optional[Callable] = None,
-                    dropout_generator: Optional[torch.Generator] = None):
+                    dropout_generator: Optional[torch.Generator] = None,
+                    mesh: Optional[Mesh] = None):
     """Build ``step(state, batch) -> (state, aux)``: preprocess, forward in
     train mode (BatchNorm statistics update), loss, backward, Adam update.
     ``aux`` holds the detached 'loss', 'logits' and 'labels'.
@@ -66,36 +97,46 @@ def make_train_step(model: torch.nn.Module, criterion: Callable,
 
     def train_step(state: TrainState, batch: dict):
         model.train()
-        if preprocess is not None:
-            batch = preprocess(batch)
-        _set_learning_rates(optimizer, state.lr_scale)
-        optimizer.zero_grad(set_to_none=True)
-        out = model(batch)
-        loss = criterion(out["logits"], batch["label"])
+        with _sharded(batch, mesh) as dp:
+            if preprocess is not None:
+                batch = preprocess(batch)
+            _set_learning_rates(optimizer, state.lr_scale)
+            optimizer.zero_grad(set_to_none=True)
+            out = model(batch)
+            loss = criterion(out["logits"], batch["label"])
         loss.backward()
         _zero_unreached_grads(optimizer)
+        if dp is not None:
+            coalesced_([p.grad for group in optimizer.param_groups
+                        for p in group["params"]], mesh, "all_reduce")
+            loss = mesh.all_reduce_(loss.detach().clone())
         optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach(),
-                       "logits": out["logits"].detach(),
-                       "labels": batch["label"]}
+                       **_gathered(dp, {"logits": out["logits"].detach(),
+                                        "labels": batch["label"]})}
 
     return train_step
 
 
 def make_eval_step(model: torch.nn.Module, criterion: Callable,
-                   preprocess: Optional[Callable] = None):
+                   preprocess: Optional[Callable] = None,
+                   mesh: Optional[Mesh] = None):
     """``step(batch) -> {'loss', 'logits', 'labels', 'embeddings'}`` in eval
-    mode (running BatchNorm statistics), without autograd."""
+    mode (running BatchNorm statistics), without autograd; with ``mesh``, a
+    ``BatchShard``'s outputs are the global batch's on every rank."""
 
     def eval_step(batch: dict) -> dict:
         model.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), _sharded(batch, mesh) as dp:
             if preprocess is not None:
                 batch = preprocess(batch)
             out = model(batch)
             loss = criterion(out["logits"], batch["label"])
-        return {"loss": loss, "logits": out["logits"],
-                "labels": batch["label"], "embeddings": out["embeddings"]}
+            if dp is not None:
+                loss = mesh.all_reduce_(loss)
+            return {"loss": loss, **_gathered(dp, {
+                "logits": out["logits"], "labels": batch["label"],
+                "embeddings": out["embeddings"]})}
 
     return eval_step

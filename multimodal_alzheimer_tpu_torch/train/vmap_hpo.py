@@ -46,8 +46,16 @@ The state of the trial axis comes back stacked as (K, ...) tensors
 ``apply_fn(model, variables, batch, hp, rng, train[, shared])``: a torch
 module holds its variables and its dropout generator. ``init_fn(model,
 generator, example, shared_example) -> module`` builds one trial's module
-(JAX returns its variables). ``mesh=`` (trial parallelism over devices)
-belongs to the parallelism slice and is refused here.
+(JAX returns its variables).
+
+``mesh=`` (a ``parallel.Mesh``) shards the trial axis, JAX's zero-collective
+trial sharding: rank r trains trials ``[r K/W, (r+1) K/W)`` on the whole
+(replicated) data, each with the generators it has without a mesh, so a
+trial computes the same wherever it runs. The epoch's val losses are
+gathered (one all-reduce an epoch), every rank replays the stop rule for
+all K and the loop ends when no trial on any rank is active; the stacked
+snapshots and final state are gathered at the end, so every rank returns
+the unsharded info dict.
 """
 
 from __future__ import annotations
@@ -63,6 +71,10 @@ import torch
 from multimodal_alzheimer_tpu_torch.models.layers import (
     reset_parameters,
     set_dropout_generator,
+)
+from multimodal_alzheimer_tpu_torch.parallel.mesh import (
+    coalesced_,
+    tensors_of,
 )
 from multimodal_alzheimer_tpu_torch.train.hpo import (
     free_device_memory,
@@ -261,11 +273,21 @@ def run_parallel_trials(model, hp: dict, train_data: dict, val_data: dict, *,
     ``return_state`` the final ``carry`` = (params, stats, adam) and
     ``shared_carry``. ``adam`` holds the stacked ``exp_avg``,
     ``exp_avg_sq`` and ``step``.
+
+    ``mesh`` shards the trials over the ranks (every rank calls this
+    alike; the trials run on the mesh's device, which replaces
+    ``device``): K must be a multiple of the ranks.
     """
+    k_trials = int(hp["lr"].shape[0])
+    mine = range(k_trials)
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (trials sharded over devices) is not ported; the trials "
-            "run on one device")
+        if k_trials % mesh.size:
+            raise ValueError(
+                f"K={k_trials} trials is not a multiple of the mesh's "
+                f"{mesh.size} ranks (pad with stack_trial_hparams(pad_to="
+                f"...))")
+        mine = range(k_trials)[mesh.rows(k_trials)]
+        device = mesh.device
     device = resolve_device(device)
     train_data = _to_device(train_data, device)
     val_data = _to_device(val_data, device)
@@ -273,7 +295,6 @@ def run_parallel_trials(model, hp: dict, train_data: dict, val_data: dict, *,
     n_val = int(val_data["label"].shape[0])
     b = int(min(batch_size, n_train))
     n_batches = n_train // b
-    k_trials = int(hp["lr"].shape[0])
     class_weights = torch.as_tensor(class_weights, dtype=torch.float32,
                                     device=device)
 
@@ -299,8 +320,8 @@ def run_parallel_trials(model, hp: dict, train_data: dict, val_data: dict, *,
             return apply_fn(module, batch, row, train)
         return apply_fn(module, batch, row, train, shared)
 
-    trials = []
-    for i in range(k_trials):
+    trials = {}
+    for i in mine:
         row = trial_row(hp, i)
         init_gen = make_generator(
             trial_generator_seed(seed, row["trial_seed"], 0))
@@ -310,8 +331,8 @@ def run_parallel_trials(model, hp: dict, train_data: dict, val_data: dict, *,
             trial_generator_seed(seed, row["trial_seed"], 1), device))
         optimizer = adam_group(_param_groups(module, row, lr_select),
                                row["lr"], row["l2_reg"])
-        trials.append(_Trial(module, optimizer, row))
-    param_names, stat_names = _state_names(trials[0].module)
+        trials[i] = _Trial(module, optimizer, row)
+    param_names, stat_names = _state_names(trials[mine[0]].module)
 
     def train_step(trial, batch, shared):
         trial.module.train()
@@ -343,6 +364,11 @@ def run_parallel_trials(model, hp: dict, train_data: dict, val_data: dict, *,
         val = np.full(k_trials, np.nan)
         if live:
             val[live] = (torch.stack(totals) / n_vb).cpu().numpy()
+        if mesh is not None:  # every rank's trials, NaN where not live
+            mine_live = torch.zeros(k_trials, dtype=torch.float64)
+            mine_live[live] = torch.from_numpy(val[live])
+            got = mesh.all_reduce_(mine_live.to(device)).cpu().numpy()
+            val = np.where(active, got, np.nan)
         return val
 
     shuffle_rng = np.random.default_rng(seed)
@@ -354,12 +380,12 @@ def run_parallel_trials(model, hp: dict, train_data: dict, val_data: dict, *,
     history = []
     best_snapshot = None
     if track_best:
-        best_snapshot = [_clone(t.state()) for t in trials]
+        best_snapshot = {i: _clone(t.state()) for i, t in trials.items()}
     for epoch in range(max_epochs):
         perm = torch.as_tensor(
             shuffle_rng.permutation(n_train)[:n_batches * b]
             .reshape(n_batches, b), device=device)
-        live = [i for i in range(k_trials) if active[i]]
+        live = [i for i in mine if active[i]]
         for s in range(n_batches):
             batch = {k: v[perm[s]] for k, v in train_data.items()}
             shared = None
@@ -378,6 +404,8 @@ def run_parallel_trials(model, hp: dict, train_data: dict, val_data: dict, *,
         improved = val < best
         if track_best:
             for i in np.flatnonzero(active & improved):
+                if i not in trials:
+                    continue
                 for name, value in trials[i].state().items():
                     best_snapshot[i][name].copy_(value)
         best = np.where(active & improved, val, best)
@@ -389,24 +417,52 @@ def run_parallel_trials(model, hp: dict, train_data: dict, val_data: dict, *,
     info = {"val_history": np.stack(history),
             "stopped_epoch": stopped_epoch}
     if track_best:
-        info["best_carry"] = (_stack(best_snapshot, param_names),
-                              _stack(best_snapshot, stat_names))
+        snapshots = list(best_snapshot.values())
+        info["best_carry"] = _gather_trials(
+            (_stack(snapshots, param_names), _stack(snapshots, stat_names)),
+            mesh, k_trials, mine)
         info["best_val"] = best
     if return_state:
-        states = [t.state() for t in trials]
+        states = [t.state() for t in trials.values()]
         adam = {"exp_avg": {}, "exp_avg_sq": {}, "step": None}
-        named = [dict(t.module.named_parameters()) for t in trials]
+        named = [dict(t.module.named_parameters()) for t in trials.values()]
         for name in param_names:
             moments = [t.optimizer.state[p[name]] for t, p in
-                       zip(trials, named)]
+                       zip(trials.values(), named)]
             for key in ("exp_avg", "exp_avg_sq"):
                 adam[key][name] = torch.stack([m[key] for m in moments])
             adam["step"] = torch.stack([torch.as_tensor(m["step"])
                                         for m in moments])
-        info["carry"] = (_stack(states, param_names),
-                         _stack(states, stat_names), adam)
+        info["carry"] = _gather_trials(
+            (_stack(states, param_names), _stack(states, stat_names), adam),
+            mesh, k_trials, mine)
         info["shared_carry"] = shared_carry
     return last_val, info
+
+
+def _gather_trials(tree, mesh, k_trials: int, mine: range):
+    """A nest of the rank's (len(mine), ...) trial stacks -> the (K, ...)
+    stacks of every rank (one all-reduce per dtype); ``tree`` itself
+    without a mesh."""
+    if mesh is None:
+        return tree
+
+    def widen(t):
+        out = torch.zeros((k_trials,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=mesh.device)
+        out[mine.start:mine.stop] = t
+        return out
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            return widen(t)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return type(t)(walk(v) for v in t)
+
+    out = walk(tree)
+    coalesced_(tensors_of(out), mesh, "all_reduce")
+    return out
 
 
 def optimize_batched(study, sample_hparams: Callable,

@@ -1,5 +1,7 @@
 """The PyTorch port imports no JAX-family package and nothing of the JAX
-package, and needs nothing that the machine with the card lacks.
+package, and needs nothing that the machine with the card lacks; nor do the
+data-parallel tests' rank functions (tests/torch_dp_ranks.py), which run in
+spawned processes.
 
 A static scan: the test process itself has jax loaded (conftest.py), so
 ``sys.modules`` cannot tell what the port pulls in. The card's machine has
@@ -66,7 +68,10 @@ def _top(name: str) -> str:
     return name.split(".")[0]
 
 
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# The rank functions of the data-parallel tests run in spawned children,
+# which must stay free of JAX too.
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                           REPO / "tests" / "torch_dp_ranks.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

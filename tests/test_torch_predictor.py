@@ -10,7 +10,13 @@
   scans, within the model-parity tolerance of tests/test_torch_serve.py
   (rtol 1e-3, atol 1e-4); an empty set gives JAX's (0, n_classes) outputs.
 - A core without embedding taps (an exported artifact) predicts with an
-  empty ``embeddings`` dict, as in JAX; ``mesh=`` is refused.
+  empty ``embeddings`` dict, as in JAX.
+- ``mesh=`` over two gloo ranks (``tests/torch_dp_ranks.py``): ``predict``,
+  ``predict_batch`` and a ``BatchingServer`` round trip served from rank 0
+  (rank 1 following) equal the one-process predictor within rtol 1e-5,
+  atol 1e-6 (each rank runs half the rung) with the argmax equal; a rung
+  that does not split over the ranks is refused at construction, as in
+  JAX.
 """
 
 import types
@@ -33,6 +39,9 @@ from multimodal_alzheimer_tpu_torch.data.synthetic import ArrayDataset
 from multimodal_alzheimer_tpu_torch.inference import export as E
 from multimodal_alzheimer_tpu_torch.inference import quantize as Q
 from multimodal_alzheimer_tpu_torch.inference.predictor import Predictor
+from multimodal_alzheimer_tpu_torch.parallel import Mesh
+from multimodal_alzheimer_tpu_torch.parallel.launch import run_ranks
+from torch_dp_ranks import predictor_on_ranks
 from torch_port_helpers import model_pair
 from torch_threads import torch_threads  # noqa: F401 (autouse)
 
@@ -130,8 +139,53 @@ def test_predict_over_exported_artifact(pair):
     np.testing.assert_array_equal(out["logits"], ref["logits"])
 
 
+def _two_ranks():
+    """A mesh of two ranks, for checks that refuse before any collective."""
+    return Mesh(None, 0, 2, torch.device("cpu"), "gloo")
+
+
 def test_mesh_and_missing_model_are_refused():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Predictor(torch.nn.Linear(1, 1), device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="not multiples"):
+        Predictor(torch.nn.Linear(1, 1), batch_size=4, ladder=(1, 2),
+                  device="cpu", mesh=_two_ranks())
+    Predictor(torch.nn.Linear(1, 1), batch_size=4, ladder=(2,),
+              mesh=_two_ranks())
     with pytest.raises(ValueError, match="model or a serve_fn"):
         Predictor(device="cpu")
+
+
+def test_mesh_predictor_and_server_match_one_process(pair):
+    _, port_pred, port, _ = pair
+    data = _data(7, seed=5)
+    ranks = run_ranks(predictor_on_ranks, 2, "gloo", port.state_dict(),
+                      {"n_classes": 3, "resnet_depth": 10}, data,
+                      device="cpu", timeout=180)
+    want = port_pred.predict(ArrayDataset(data))
+    parts = [{k: v[lo:hi] for k, v in data.items() if k != "label"}
+             for lo, hi in ((0, 1), (1, 4), (3, 7))]
+    want_batches = [port_pred.predict_batch(p) for p in parts]
+
+    def close(got, ref):
+        for key in ("logits", "probs"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-5,
+                                       atol=1e-6)
+        np.testing.assert_allclose(got["embeddings"]["backbone_gap"],
+                                   ref["embeddings"]["backbone_gap"],
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(got["logits"].argmax(-1),
+                                      ref["logits"].argmax(-1))
+
+    for rank in ranks:
+        close(rank["predict"], want)
+        for got, ref in zip(rank["batches"], want_batches):
+            close(got, ref)
+    served = ranks[0]["served"]
+    assert len(served) == 7
+    for i, result in enumerate(served):
+        close({k: v[None] if k != "embeddings" else
+               {t: e[None] for t, e in v.items()}
+               for k, v in result.items()},
+              {k: v[i:i + 1] if k != "embeddings" else
+               {t: e[i:i + 1] for t, e in v.items()}
+               for k, v in want.items()})
+    assert ranks[1]["followed"] == sum(ranks[0]["histogram"].values())

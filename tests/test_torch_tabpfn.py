@@ -44,7 +44,10 @@ from multimodal_alzheimer_tpu_torch.models.tabular_models.tabpfn import (
 from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
     TabularMLP,
 )
+from multimodal_alzheimer_tpu_torch.parallel import Mesh
+from multimodal_alzheimer_tpu_torch.parallel.launch import run_ranks
 from test_tabpfn import EMSIZE, NFEAT, NHEAD, NHID, NLAYERS, TorchTabPFN
+from torch_dp_ranks import tabpfn_on_ranks
 from torch_port_helpers import dist, random_variables
 from torch_threads import torch_threads  # noqa: F401 (autouse)
 
@@ -301,3 +304,27 @@ def test_tabular_embedding_dataset_feeds_the_mlp(weights, tmp_path):
     out = mlp(batch)
     torch.testing.assert_close(out["embeddings"]["decoder"],
                                batch["tabular_embedding"], rtol=0, atol=0)
+
+
+def test_classifier_members_split_over_ranks(weights):
+    """``mesh=``: two gloo ranks run two members each; the all-reduced
+    probabilities and decoder tap are the unsharded ensemble's within
+    1e-5. An ensemble that is not a multiple of the ranks is refused."""
+    _, state_dict = weights
+    rng = np.random.default_rng(9)
+    fit = (rng.normal(size=(24, 9)).astype(np.float32),
+           rng.integers(0, 3, 24))
+    x_te = rng.normal(size=(7, 9)).astype(np.float32)
+    ranks = run_ranks(tabpfn_on_ranks, 2, "gloo", state_dict, SIZES, fit,
+                      x_te, 4, device="cpu", timeout=180)
+    clf = TabPFNClassifier(state_dict=state_dict,
+                           model=TabPFNTransformer(**SIZES),
+                           ensemble_size=4, device="cpu").fit(*fit)
+    for probs, embed in ranks:
+        np.testing.assert_allclose(probs, clf.predict_proba(x_te), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(embed, clf.embed(x_te), rtol=0,
+                                   atol=1e-5)
+    with pytest.raises(ValueError, match="not a multiple"):
+        TabPFNClassifier(state_dict=state_dict, ensemble_size=3,
+                         mesh=Mesh(None, 0, 2, torch.device("cpu"), "gloo"))

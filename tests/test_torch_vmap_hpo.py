@@ -15,6 +15,12 @@ the ``track_best`` snapshot, and ``lr_select`` with a traced 0.0 on a tiny
 ``AnatCNN`` (ResNet-10, (12, 14, 12)) leaving the backbone bit for bit.
 The seed screen's winner follows JAX's ``test_seed_screen`` properties
 (its continuation: ``test_torch_hpo_entry.py``).
+
+``mesh=``: K = 4 trials of the MLP sharded over two gloo ranks
+(``tests/torch_dp_ranks.py``) return the unsharded info dict bit for bit
+(val history, stop epochs, ``track_best`` snapshot, final state), on every
+rank, and so does a two-seed screen; a K that is not a multiple of the
+ranks is refused, as in JAX.
 """
 
 import copy
@@ -42,10 +48,13 @@ from multimodal_alzheimer_tpu_torch.models.pet_models.pet_cnn import (
 from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
     TabularMLP,
 )
+from multimodal_alzheimer_tpu_torch.parallel import Mesh
+from multimodal_alzheimer_tpu_torch.parallel.launch import run_ranks
 from multimodal_alzheimer_tpu_torch.train import vmap_hpo
 from multimodal_alzheimer_tpu_torch.train.optim import EarlyStopping
 from multimodal_alzheimer_tpu_torch.train.seed_screen import screen_seeds
 from multimodal_alzheimer_tpu_torch.utils.seeding import make_generator
+from torch_dp_ranks import trials_on_ranks
 from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CW3 = np.array([0.55, 0.75, 0.7], np.float32)
@@ -264,8 +273,46 @@ def test_lr_select_zero_keeps_the_backbone_and_stacks_like_solo():
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _mlp_run(DROPOUT_ROWS[:1], mesh=object())
+    two_ranks = Mesh(None, 0, 2, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="not a multiple"):
+        _mlp_run(DROPOUT_ROWS[:1], mesh=two_ranks)
+
+
+def test_trials_sharded_over_ranks_match_one_process():
+    model = TabularMLP(3, hidden=(16, 32))
+    rows = ROWS + [dict(ROWS[0], lr=1e-1, trial_seed=44)]
+    hp = vmap_hpo.stack_trial_hparams(rows)
+    train, val = tabular(48, 0), tabular(40, 1)
+    kwargs = dict(batch_size=16, max_epochs=6, patience=1,
+                  class_weights=CW3, seed=SEED, track_best=True,
+                  return_state=True)
+    ranks = run_ranks(trials_on_ranks, 2, "gloo", model, hp, train, val,
+                      kwargs, device="cpu", timeout=180)
+    last, info = vmap_hpo.run_parallel_trials(model, hp, train, val,
+                                              device="cpu", **kwargs)
+    screen = screen_seeds(model, train, val, lr=3e-3, batch_size=16,
+                          epochs=2, class_weights=CW3, seeds=(11, 22),
+                          device="cpu")
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert set(a) == set(b)
+            for k in a:
+                same(a[k], b[k])
+        elif isinstance(a, (tuple, list)):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        elif isinstance(a, torch.Tensor):
+            torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0, atol=0)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+    assert info["stopped_epoch"].min() < 5  # a trial stopped early
+    for got_last, got_info, got_screen in ranks:
+        np.testing.assert_array_equal(got_last, last)
+        same(got_info, info)
+        same(got_screen, screen)
 
 
 def test_screen_selects_the_argmin_seed_and_its_snapshot():
