@@ -257,7 +257,25 @@ Phases, each printing its lines:
      the K=2 trials of phase 25 sharded (1 epoch), val history within rtol
      2e-3 of the unsharded run; TabPFNClassifier with its 4 members split,
      probabilities within 1e-5; (c) two nccl ranks on the one card: the
-     outcome printed (NCCL refuses a GPU twice in one communicator).
+     outcome printed (NCCL refuses a GPU twice in one communicator);
+ 32. [tp] tensor and spatial parallelism (parallel/tp.py), a correctness
+     run on the one card: (a) a (1, 1, 1) mesh over one nccl rank, the
+     flagship SGD steps at global batch 4 of raw scans z-scored in the
+     step (stem pool through K8) bit for bit the mesh-free steps, step ms
+     of both; (b) a (1, 2, 2) mesh of four gloo ranks sharing the card at
+     91x109x91 (channels halved, depth 46 + 45): 2 steps "full", 2 False,
+     1 "full" with maxpool_impl="wf", each within JAX's tp tolerances
+     (loss rtol 1e-5, gather_state's parameters and running statistics
+     rtol 2e-4 atol 1e-5) of the one-process run, per-rank launches (K3
+     split 1 + 1, K4-K7 20, K8 1 on spatial rank 0 and its window entry on
+     rank 1) and collectives by kind; (c) a (2, 2, 2) mesh of eight gloo
+     ranks, depth 10 at 48x56x48, one "full" step within the same
+     tolerances; then zscore_partials (within 1e-12 of plain), the split
+     statistics (within 2e-6 of the whole scan's), zscore_apply and K8's
+     depth windows of the 2- and 4-slab splits (bit for bit) at the [tp]
+     shapes, with device and plain times and bounds;
+ 33. [fast mode]: tools/fast_mode_study.py's main at 48x56x48 (depth 10, 2
+     seeds, 2 epochs): its JSON line complete and finite.
 The kernels line before the last lists every kernel with the launches of
 the path that ran it, its error against its plain version, its device time,
 per-call time, plain and library time and bound; K4-K7 also per shape and
@@ -270,7 +288,11 @@ screen's run, the MRI search's normalization, the shared-tower fusion
 search per train step in f32, and the two entry-point studies), and the
 provisioning phase's train_anat run plus its test ("launches_provision");
 every kernel the [dp] phase's per-rank launches of one "full" train step
-and of one int8 predictor call on a two-rank mesh ("launches_dp");
+and of one int8 predictor call on a two-rank mesh ("launches_dp"); K4-K8
+and the [tp] entry points (zscore_partials, zscore_apply,
+maxpool_bwd_window, each an entry of its own) the per-rank launches of
+[tp] (b)'s "full" (K8: "wf") step ("launches_tp"), the entry points also
+its collectives by kind ("collectives_tp");
 K1-K3 also their host microseconds per call through the custom op and
 direct.
 K9's entry: launches from phase 7c's server run, per batch of the int8
@@ -418,6 +440,7 @@ from multimodal_alzheimer_tpu_torch.ops.maxpool import (
 )
 from multimodal_alzheimer_tpu_torch.ops.quantile import interpolate
 from multimodal_alzheimer_tpu_torch.parallel import make_mesh
+from multimodal_alzheimer_tpu_torch.parallel import tp
 from multimodal_alzheimer_tpu_torch.parallel.launch import run_ranks
 from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     BN_EPS,
@@ -430,6 +453,8 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     INT8_MODES,
     INT8_OPS_PER_MS,
     STEM,
+    TP_POOL,
+    TP_ZSCORE,
     aten_pool_backward,
     bn_chain,
     bn_operands,
@@ -445,11 +470,13 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     time_int8_conv,
     time_norm,
     time_pool,
+    time_tp,
 )
 from multimodal_alzheimer_tpu_torch.tools import (
     bench_host,
     convert_reference,
     export_artifact,
+    fast_mode_study,
     prepare_data,
     quality_eval,
 )
@@ -551,6 +578,9 @@ TRAIN_HPARAMS = {"n_classes": 2, "resnet_depth": 18, "linear_out": (),
                  "lr": 1e-3, "lr_pretrained": 1e-5, "l2_reg": 1e-2,
                  "batch_size": 8, "max_epochs": 1}
 BN_LAYERS = 20  # BatchNorms in the ResNet-18 backbone
+# The entry points only a depth-sharded step launches (the [tp] phase).
+TP_KERNELS = ("zscore_partials", "zscore_apply", "maxpool_bwd_window")
+NO_TP_LAUNCHES = dict.fromkeys(TP_KERNELS, 0)
 # fused_bn="full" against fused_bn=False after one step from the same
 # weights. Layer by layer both BatchNorms are within 2e-6 (variance) and
 # 6e-7 (gradients) of float64 (tools/bn_precision.py), but the step
@@ -1183,7 +1213,7 @@ def phase_train_step(device, grid=GRID, timed_steps: int = 3) -> dict:
                    if k.startswith("backbone.")) ** 0.5
     check(backbone > 0, "the backbone gradient is nonzero")
     want = {"minmax_select": 1, "minmax_apply": 1, "zscore": 0,
-            "maxpool_bwd": 0, "int8_conv3d": 0,
+            "maxpool_bwd": 0, "int8_conv3d": 0, **NO_TP_LAUNCHES,
             **dict.fromkeys(BN_KERNELS, BN_LAYERS)}
     check(launches == want, f"fused step launches {launches} == {want}")
     check(launches_ref == {**want, **dict.fromkeys(BN_KERNELS, 0)},
@@ -1240,6 +1270,7 @@ def phase_fit(device, grid=GRID, n_train: int = 16, n_val: int = 8) -> dict:
         want = {"minmax_select": steps + n_val // hp["batch_size"],
                 "minmax_apply": steps + n_val // hp["batch_size"],
                 "zscore": 0, "maxpool_bwd": 0, "int8_conv3d": 0,
+                **NO_TP_LAUNCHES,
                 **dict.fromkeys(BN_KERNELS, BN_LAYERS * steps)}
         check(launches == want, f"fit launches {launches} == {want}")
         names = sorted(os.listdir(checkpoints))
@@ -2449,7 +2480,7 @@ def phase_fusion_step(device, embeddings, grid=GRID,
             loss = aux["loss"].item()
             backward = 0 if frozen else BN_LAYERS
             want = {"minmax_select": 1, "minmax_apply": 1, "zscore": 0,
-                    "maxpool_bwd": 0, "int8_conv3d": 0,
+                    "maxpool_bwd": 0, "int8_conv3d": 0, **NO_TP_LAUNCHES,
                     "bn_stats": BN_LAYERS,
                     "bn_apply": BN_LAYERS, "bn_grad_sum": backward,
                     "bn_dx": backward}
@@ -3286,7 +3317,7 @@ def phase_hpo_fusion(device, grid=GRID, k: int = 4, steps: int = 3,
         n_eval = 1 + epochs  # the shape probe and one val batch an epoch
         want = {"minmax_select": n_steps + n_eval,
                 "minmax_apply": n_steps + n_eval, "zscore": 0,
-                "maxpool_bwd": 0, "int8_conv3d": 0,
+                "maxpool_bwd": 0, "int8_conv3d": 0, **NO_TP_LAUNCHES,
                 "bn_stats": BN_LAYERS * n_steps,
                 "bn_apply": BN_LAYERS * n_steps, "bn_grad_sum": 0,
                 "bn_dx": 0}
@@ -4499,6 +4530,359 @@ def phase_dp_nccl_two_ranks() -> None:
 
 
 
+# [tp] tensor and spatial parallelism (parallel/tp.py): a correctness run on
+# the one card, no scaling figure. The flagship at global batch 4 of raw
+# scans z-scored in the step (K3 split on a spatial axis), SGD at DP_LR as
+# in [dp] (at 1e-2 masked scans' ReLU and max-pool ties flip between the
+# one-process and the sharded step), cuDNN's deterministic algorithms.
+TP_BATCH = 4
+TP_RUNS = {"full": ("full", "xla", 2), "False": (False, "xla", 2),
+           "wf": ("full", "wf", 1)}
+# (a)'s runs pool through K8: aten's max-pool backward adds with atomics,
+# so that two runs of one step part in the last bits ([dp]'s finding).
+TP_NCCL_RUNS = {"full-wf": ("full", "wf", 2), "False-wf": (False, "wf", 2)}
+TP_SMALL_GRID = (48, 56, 48)
+TP_SMALL_HPARAMS = dict(DP_HPARAMS, resnet_depth=10)
+TP_TIMED = 2
+# JAX's tp tolerances (tests/test_tp.py): loss rtol 1e-5, parameters and
+# running statistics rtol 2e-4, atol 1e-5.
+TP_LOSS_RTOL = 1e-5
+TP_TOL = dict(rtol=2e-4, atol=1e-5)
+# The split statistics against the whole scan's: within 2e-6 relative.
+TP_STATS_RTOL = 2e-6
+TP_SOURCE = {"zscore_partials": CSRC + "zscore_norm.cu",
+             "zscore_apply": CSRC + "zscore_norm.cu",
+             "maxpool_bwd_window": CSRC + "maxpool_bwd.cu"}
+TP_REPLACES = {"zscore_partials": REPLACES["zscore"],
+               "zscore_apply": REPLACES["zscore"],
+               "maxpool_bwd_window": REPLACES["maxpool_bwd"]}
+# tools/fast_mode_study.py cut to size for the card run.
+FAST_MODE_ARGS = ["--volume-shape", "48", "56", "48", "--depth", "10",
+                  "--seeds", "2", "--train-n", "16", "--eval-n", "8",
+                  "--epochs", "2", "--batch", "4"]
+
+
+def tp_batch(grid, seed: int) -> dict:
+    data = make_labeled_volumes(TP_BATCH, tuple(grid), n_classes=2,
+                                seed=seed)
+    return {k: torch.from_numpy(data[k]) for k in ("mri", "mri_mask",
+                                                    "label")}
+
+
+def tp_steps(weights: dict, hp: dict, run: str, device, mesh=None,
+             grid=GRID, seed: int = SEED + 51, timed: int = 0) -> dict:
+    """``TP_RUNS[run]``'s SGD steps of an AnatCNN from ``weights`` through
+    ``make_train_step`` on the global batch of ``tp_batch``, z-score in the
+    step; under a 3-D ``mesh`` on the rank's shards (``shard_state``,
+    ``shard_batch_3d``). Returns the losses, the whole state dict on the
+    CPU (``gather_state`` under a mesh), the first step's launches and
+    collectives, and the median ms of ``timed`` further steps."""
+    fused, pool, steps = {**TP_RUNS, **TP_NCCL_RUNS}[run]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model = AnatCNN.from_hparams(hp, fused_bn=fused, maxpool_impl=pool)
+    model.load_state_dict(weights)
+    model.to(device)
+    optimizer = torch.optim.SGD(model.parameters(), lr=DP_LR)
+    step = make_train_step(model, make_criterion(hp), optimizer,
+                           make_device_preprocess(normalize_mri=ZSCORE),
+                           mesh=mesh)
+    state = TrainState(model, optimizer)
+    batch = tp_batch(grid, seed)
+    if mesh is None:
+        batch = {k: v.to(device) for k, v in batch.items()}
+    else:
+        tp.shard_state(state, mesh)
+        batch = tp.shard_batch_3d(batch, mesh)
+    losses = []
+    for i in range(steps):
+        _sync(device)
+        reset_launch_counts()
+        if mesh is not None:
+            mesh.reset_counts()
+        state, aux = step(state, batch)
+        losses.append(aux["loss"].item())
+        if i == 0:
+            _sync(device)
+            launches = launch_counts()
+            collectives = dict(mesh.counts) if mesh is not None else {}
+    whole = (tp.gather_state(model, mesh) if mesh is not None
+             else model.state_dict())
+    out = {"losses": losses, "launches": launches,
+           "collectives": collectives,
+           "state": {k: v.detach().float().cpu().clone()
+                     for k, v in whole.items()}}
+    times = []
+    for _ in range(timed):
+        _sync(device)
+        start = time.perf_counter()
+        step(state, batch)
+        _sync(device)
+        times.append((time.perf_counter() - start) * 1e3)
+    out["ms"] = statistics.median(times) if times else None
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def tp_small_weights() -> dict:
+    """The depth-10 AnatCNN's seeded weights, the classifier bias at 1 as
+    ``train_model``'s (the trailing ReLU passes gradient)."""
+    model = AnatCNN.from_hparams(TP_SMALL_HPARAMS,
+                                 generator=make_generator(SEED + 52))
+    with torch.no_grad():
+        model.head.cls.bias.fill_(1.0)
+    return model.state_dict()
+
+
+def phase_tp_nccl(device, weights: dict, grid=GRID) -> dict:
+    """[tp] (a): a (1, 1, 1) mesh over one nccl rank: the flagship steps
+    with fused_bn "full" and False (the stem pool through K8) bit for bit
+    the mesh-free steps (losses, parameters, running statistics); step ms
+    of both."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'init')}",
+            world_size=1, rank=0)
+        try:
+            mesh = tp.make_mesh_3d(1, 1, 1)
+            for run in TP_NCCL_RUNS:
+                ref = tp_steps(weights, DP_HPARAMS, run, device, grid=grid,
+                               timed=TP_TIMED)
+                on = tp_steps(weights, DP_HPARAMS, run, device, mesh,
+                              grid=grid, timed=TP_TIMED)
+                check(on["losses"] == ref["losses"] and all(
+                    torch.equal(on["state"][k], v)
+                    for k, v in ref["state"].items()),
+                    f"[tp] (1, 1, 1) nccl, {run}: bit for bit the "
+                    f"mesh-free step ({on['losses']} vs {ref['losses']})")
+                out[run] = {"ms": on["ms"], "free_ms": ref["ms"],
+                            "collectives": on["collectives"]}
+                log(f"[tp] (a) (1, 1, 1) mesh, nccl, {run}: "
+                    f"{len(on['losses'])} SGD steps bit for bit the "
+                    f"mesh-free steps (losses {on['losses']}); step ms "
+                    f"{on['ms']:.2f} on the mesh, {ref['ms']:.2f} mesh-free "
+                    f"(median of {TP_TIMED}, global batch {TP_BATCH}); "
+                    f"collectives of a step {on['collectives']}")
+        finally:
+            torch.distributed.destroy_process_group()
+    return out
+
+
+def tp_rank(world, grid, small_grid) -> dict:
+    """[tp] (b) on the first four of eight gloo ranks sharing the card, a
+    (1, 2, 2) mesh at full width (``grid``); then (c) on all eight, a
+    (2, 2, 2) mesh of the depth-10 AnatCNN at ``small_grid``."""
+    device = world.device
+    out = {}
+    start = time.perf_counter()
+    mesh_b = tp.make_mesh_3d(1, 2, 2, device=device.type)
+    mesh_c = tp.make_mesh_3d(2, 2, 2, device=device.type)
+    out["groups_s"] = time.perf_counter() - start
+    if mesh_b is not None:
+        weights = train_model(False).state_dict()
+        out["b"] = {run: tp_steps(weights, DP_HPARAMS, run, device, mesh_b,
+                                  grid=grid,
+                                  timed=TP_TIMED if run == "full" else 0)
+                    for run in TP_RUNS}
+        out["coords"] = mesh_b.coords
+        del weights
+        torch.cuda.empty_cache()
+    out["c"] = tp_steps(tp_small_weights(), TP_SMALL_HPARAMS, "full",
+                        device, mesh_c, grid=small_grid)
+    return out
+
+
+def _tp_gap(got: dict, want: dict, what: str) -> float:
+    ok, worst = set(got["state"]) == set(want["state"]), 0.0
+    for key, value in want["state"].items():
+        diff = (got["state"][key] - value).abs()
+        worst = max(worst, float(diff.max()))
+        ok = ok and bool((diff <= TP_TOL["atol"]
+                          + TP_TOL["rtol"] * value.abs()).all())
+    losses_ok = np.allclose(got["losses"], want["losses"], rtol=TP_LOSS_RTOL,
+                            atol=0)
+    check(ok and losses_ok, f"{what}: losses {got['losses']} vs "
+          f"{want['losses']}, largest state gap {worst:.3g} (tolerance "
+          f"{TP_TOL}, loss rtol {TP_LOSS_RTOL})")
+    return worst
+
+
+def phase_tp_kernels(device) -> dict:
+    """The [tp] entry points against their plain versions at the [tp]
+    shapes: K3's partials and apply on the two depth slabs (46 + 45 of 91)
+    of batch 4 (the apply bit for bit; the statistics from the partials
+    added in rank order within 2e-6 of the whole scan's), K8's window on
+    the two edge slabs and the interior ones of the stem pool split four
+    ways (bit for bit); then their device times and bounds."""
+    gen = make_generator(SEED + 53, device)
+    vol, mask = zscore_scans(TP_BATCH, 400.0, GRID, gen, device)
+    b = TP_BATCH
+    total, err = None, {}
+    for q in range(2):
+        lo, hi = tp.depth_slab(GRID[0], q, 2)
+        part = hopper_norm.zscore_partials(vol[:, lo:hi], mask[:, lo:hi])
+        want = hopper_norm.zscore_partials_plain(
+            vol[:, lo:hi].reshape(b, -1), mask[:, lo:hi].reshape(b, -1))
+        rel = float(((part - want).abs() / want.abs().clamp(min=1)).max())
+        check(rel <= 1e-12, f"[tp] zscore_partials slab {q}: within 1e-12 "
+              f"of its plain version ({rel:.3g})")
+        err["zscore_partials"] = max(err.get("zscore_partials", 0.0), rel)
+        total = part if total is None else total + part
+    mean, std = hopper_norm.zscore_stats(total)
+    rows = vol.reshape(b, -1).double(), mask.reshape(b, -1).double()
+    valid = rows[0] * rows[1] != 0
+    ref_mean = torch.stack([r[v].mean() for r, v in zip(rows[0], valid)])
+    ref_std = torch.stack([r[v].std() for r, v in zip(rows[0], valid)])
+    stats_gap = max(float(((mean.double() - ref_mean) / ref_mean).abs().max()),
+                    float(((std.double() - ref_std) / ref_std).abs().max()))
+    check(stats_gap <= TP_STATS_RTOL, f"[tp] split statistics within "
+          f"{TP_STATS_RTOL} of the whole scan's: {stats_gap:.3g}")
+    out = hopper_norm.zscore_apply(vol, mask, mean, std)
+    plain = hopper_norm.zscore_apply_plain(*(t.reshape(b, -1) for t in
+                                             (vol, mask)), mean, std)
+    check(torch.equal(out.reshape(b, -1), plain),
+          "[tp] zscore_apply bit for bit its plain version")
+    err["zscore_apply"] = 0.0
+    whole_err = _zscore_err(out, hopper_norm.per_scan_zscore(vol, mask),
+                            "[tp] split z-score against the whole-scan K3")
+    log(f"[tp] K3 split at {(b,) + GRID} over 46 + 45 planes: partials "
+        f"within {err['zscore_partials']:.3g} (relative) of plain, "
+        f"statistics within {stats_gap:.3g} of the whole scan's float64 "
+        f"ones, apply bit for bit, output within {whole_err:.3g} of the "
+        f"whole-scan K3")
+    del vol, mask, out, plain, rows, valid
+    tp_shape = TP_POOL
+    x = torch.relu(torch.randn(tp_shape, generator=gen, device=device)
+                   - 0.8)
+    y = pool_forward(x)
+    g = torch.randn(y.shape, generator=gen, device=device)
+    depth, do = tp_shape[2], y.shape[2]
+    for n in (2, 4):
+        for q in range(n):
+            o_lo, o_hi = tp.depth_slab(do, q, n)
+            first, end = max(2 * o_lo - 1, 0), min(2 * o_hi, depth)
+            args = (x[:, :, first:end].contiguous(),
+                    y[:, :, o_lo:o_hi].contiguous(),
+                    g[:, :, o_lo:o_hi].contiguous(), first, depth)
+            got = hopper_maxpool.max_pool3d_backward(*args)
+            check(torch.equal(got, max_pool3d_backward_plain(*args)),
+                  f"[tp] K8 window [{first}, {end}) of {depth} (outputs "
+                  f"[{o_lo}, {o_hi})) bit for bit its plain version")
+    err["maxpool_bwd_window"] = 0.0
+    log(f"[tp] K8 on depth windows of {tp_shape}: the slabs of 2 and 4 "
+        f"ranks (edge windows through maxpool_bwd, interior ones with their "
+        f"lead plane through maxpool_bwd_window) bit for bit their plain "
+        f"versions")
+    del x, y, g
+    times = time_tp(gen, device)
+    for name, r in times.items():
+        log(f"[tp] {name}: kernel {r['ms']:.4f} ms (per call "
+            f"{r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), no library call "
+            f"computes it")
+    return {"err": err, "times": times}
+
+
+def phase_tp(device, grid=GRID, small_grid=TP_SMALL_GRID) -> dict:
+    """[tp]: (a) on nccl, (b) and (c) on eight gloo ranks sharing the card,
+    each held against the one-process run of the same batch; the new entry
+    points against their plain versions with times. Returns the per-rank
+    launches and collectives of (b)'s "full" and "wf" steps. On the CPU (a
+    rehearsal) (a) and the kernels are left out."""
+    weights = train_model(False).state_dict()
+    free = {run: tp_steps(weights, DP_HPARAMS, run, device, grid=grid,
+                          timed=TP_TIMED if run != "wf" else 0)
+            for run in TP_RUNS}
+    small = tp_steps(tp_small_weights(), TP_SMALL_HPARAMS, "full", device,
+                     grid=small_grid)
+    if device.type == "cuda":
+        phase_tp_nccl(device, weights, grid)
+    del weights
+    start = time.perf_counter()
+    ranks = run_ranks(tp_rank, 8, "gloo", grid, small_grid,
+                      device=device.type, timeout=600, group_timeout=600)
+    spawn_s = time.perf_counter() - start
+    launches, collectives = {}, {}
+    for r, rank in enumerate(ranks):
+        if "b" in rank:
+            for run, got in rank["b"].items():
+                worst = _tp_gap(got, free[run], f"[tp] (b) rank {r} {run}")
+                log(f"[tp] (b) (1, 2, 2) gloo rank {r} {rank['coords']}, "
+                    f"{run}: {len(got['losses'])} SGD steps at global batch "
+                    f"{TP_BATCH}, {'x'.join(map(str, grid))}, losses "
+                    f"{got['losses']} vs one "
+                    f"process {free[run]['losses']}, largest |state - one "
+                    f"process| {worst:.3g}; launches of a step "
+                    f"{ {k: v for k, v in got['launches'].items() if v} }; "
+                    f"collectives of a step {got['collectives']}"
+                    + (f"; step ms {got['ms']:.2f} (four ranks sharing one "
+                       f"card over gloo: a correctness run, not a rate; one "
+                       f"process {free[run]['ms']:.2f})" if got["ms"] else ""))
+            full, wf = rank["b"]["full"]["launches"], rank["b"]["wf"][
+                "launches"]
+            s = rank["coords"][2]
+            want = {**dict.fromkeys(full, 0), "zscore_partials": 1,
+                    "zscore_apply": 1, **dict.fromkeys(BN_KERNELS,
+                                                       BN_LAYERS)}
+            check(full == want, f"[tp] (b) rank {r} full-step launches "
+                  f"{full} == {want}")
+            want_wf = dict(want, **{"maxpool_bwd_window" if s else
+                                    "maxpool_bwd": 1})
+            check(wf == want_wf, f"[tp] (b) rank {r} wf-step launches {wf} "
+                  f"== {want_wf}")
+            launches[f"rank{r}"] = {"full": full, "wf": wf}
+            collectives[f"rank{r}"] = rank["b"]["full"]["collectives"]
+        worst = _tp_gap(rank["c"], small, f"[tp] (c) rank {r}")
+        log(f"[tp] (c) (2, 2, 2) gloo rank {r}: AnatCNN depth 10 at "
+            f"{small_grid}, global batch {TP_BATCH}, fused_bn='full', loss "
+            f"{rank['c']['losses']} vs one process {small['losses']}, largest "
+            f"|state - one process| {worst:.3g}; collectives "
+            f"{rank['c']['collectives']}")
+    log(f"[tp] eight-rank spawn {spawn_s:.1f} s (groups made in "
+        f"{ranks[0]['groups_s']:.1f} s)")
+    out = {"launches": launches, "collectives": collectives}
+    if device.type == "cuda":
+        out.update(phase_tp_kernels(device))
+    return out
+
+
+def phase_fast_mode(device) -> dict:
+    """[fast mode]: tools/fast_mode_study.py's main on the card at
+    FAST_MODE_ARGS: its JSON line complete (both arches, every key) and
+    finite."""
+    start = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fast_mode_study.main(FAST_MODE_ARGS)
+    line = buf.getvalue().strip().splitlines()[-1]
+    got = json.loads(line)
+    keys = ("best_val_loss", "best_val_mean", "eval_f1", "eval_f1_mean",
+            "eval_f1_std", "eval_mcc_mean", "eval_f1_final",
+            "eval_f1_final_mean", "stopped_epoch", "screen_pick_f1",
+            "fit_wall_s")
+    check(got["metric"] == "fast_mode_convergence"
+          and all(set(got[a]) == set(keys) for a in ("dilated", "fast")),
+          f"[fast mode] JSON line keys: {sorted(got)}")
+
+    def finite(v):
+        if isinstance(v, dict):
+            return all(finite(x) for x in v.values())
+        if isinstance(v, list):
+            return all(finite(x) for x in v)
+        return not isinstance(v, float) or math.isfinite(v)
+
+    check(finite(got), f"[fast mode] every number finite: {line}")
+    log(f"[fast mode] {' '.join(FAST_MODE_ARGS)}: dilated eval F1 "
+        f"{got['dilated']['eval_f1_mean']}, fast "
+        f"{got['fast']['eval_f1_mean']}, best val "
+        f"{got['dilated']['best_val_mean']} / {got['fast']['best_val_mean']}"
+        f"; {time.perf_counter() - start:.1f} s")
+    log(f"[fast mode] {line}")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4560,6 +4944,8 @@ def main() -> int:
     phase_dp_nccl(device)
     dp_launches = phase_dp_gloo(device)
     phase_dp_nccl_two_ranks()
+    tp_result = phase_tp(device)
+    phase_fast_mode(device)
 
     n = 8 * int(np.prod(GRID))  # voxels of a batch of 8 scans
     norm_bound = norm_bounds(8, int(np.prod(GRID)))
@@ -4620,6 +5006,8 @@ def main() -> int:
                                       early_launches.items()},
             "launches_hpo": {k: v[name] for k, v in hpo_launches.items()},
             "launches_dp": {k: v[name] for k, v in dp_launches.items()},
+            "launches_tp": {k: v["full"][name] for k, v in
+                            tp_result["launches"].items()},
             "max_abs_err": err[name], "batch": 8,
             "shape": list(BN_SHAPES["stem"]),
             **{k: bn_times["stem"][name][k] for k in keys},
@@ -4645,8 +5033,25 @@ def main() -> int:
                          hpo_launches.items()},
         "launches_dp": {k: v["maxpool_bwd"] for k, v in
                         dp_launches.items()},
+        "launches_tp": {k: v["wf"]["maxpool_bwd"] for k, v in
+                        tp_result["launches"].items()},
         "batch": 8, "shape": list(STEM), **{k: k8[k] for k in keys},
         "bfloat16": {k: pool[torch.bfloat16][1][k] for k in keys}})
+    for name in TP_KERNELS:
+        run = "wf" if name == "maxpool_bwd_window" else "full"
+        per_rank = {k: v[run][name]
+                    for k, v in tp_result["launches"].items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": TP_SOURCE[name],
+            "replaces": TP_REPLACES[name],
+            # spatial rank 1 of the (1, 2, 2) mesh, whose pool window is
+            # an interior one
+            "launches": per_rank["rank1"], "launches_tp": per_rank,
+            "collectives_tp": tp_result["collectives"],
+            "max_abs_err": tp_result["err"][name], "batch": TP_BATCH,
+            "shape": list(TP_POOL if name == "maxpool_bwd_window"
+                          else TP_ZSCORE),
+            **{k: tp_result["times"][name][k] for k in keys}})
     per_forward = {b: {
         "ms": r["total"]["graph_ms"], "bound_ms": r["total"]["graph_bound_ms"],
         "ms_f32_out": r["total"]["ms"],

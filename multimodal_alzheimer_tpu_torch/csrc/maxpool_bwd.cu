@@ -56,9 +56,25 @@
 // bytes do not hold it back (bf16 is little faster than f32); PERF.md has
 // the times and the variants tried.
 //
-// The entry point takes device pointers, int64 sizes, a dtype code (0 f32,
-// 1 bf16), the device index and a cudaStream_t, allocates nothing, and
-// returns the first CUDA error seen (0 on success).
+// A depth window (maxpool_bwd_window), for a volume whose depth is sharded
+// over several processes (parallel/tp.py): x holds the global input planes
+// [z0, z0 + Dw) of a volume of global depth D, and y and g the outputs
+// [o0, o0 + Do) whose windows those planes cover, z0 = max(2 o0 - 1, 0), so
+// the stride-2 windows stay aligned; the window ends at min(2 (o0 + Do), D).
+// Planes before 0 and from D on are the -inf padding, as for a whole volume;
+// a window of an interior slab has none, but its first plane 2 o0 - 1 (the
+// "lead" plane) lies in window o0 at od = 0 alone. With the lead plane set
+// aside, the window is a volume of depth D' = Dw - lead whose outputs are
+// the Do windows over it; a block reads the lead plane as a real slice
+// where a whole volume has padding, and the first block computes its dx as
+// every block computes its own last odd slice, from window o0's offsets od
+// = 0. The winners and the order of adds are the global ones; a plane that
+// windows of two slabs share gets each slab's credits, which the caller
+// adds. The whole volume is the window (0, D) with no lead plane.
+//
+// The entry points take device pointers, int64 sizes, a dtype code (0 f32,
+// 1 bf16), the device index and a cudaStream_t, allocate nothing, and
+// return the first CUDA error seen (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,8 +129,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// d: the depth after the lead plane (D'); lead: 1 if x and dx hold the
+// plane before, else 0 (a plane of x and dx takes d + lead slices).
 struct Shape {
-  int planes, d, h, w, od, oh, ow;
+  int planes, d, h, w, od, oh, ow, lead;
 };
 
 int64_t round16(int64_t bytes) {
@@ -195,7 +213,7 @@ __device__ __forceinline__ int winner(const T* sx, int a, int b, int c,
                                       int hw, float m) {
   constexpr unsigned taps = kTaps == 27 ? kAllTaps : kOd0;
   unsigned valid = taps;
-  if (2 * a - 1 < 0) valid &= ~kOd0;
+  if (2 * a - 1 < -s.lead) valid &= ~kOd0;
   if (2 * a + 1 >= s.d) valid &= ~kOd2;
   if (2 * b - 1 < 0) valid &= ~kOh0;
   if (2 * b + 1 >= s.h) valid &= ~kOh2;
@@ -241,12 +259,18 @@ __global__ void __launch_bounds__(kThreads)
   const int ae = a0 + td + 1 < s.od ? a0 + td + 1 : s.od;
   const int n_win = ae - a0;
   // Staged input slices [xi0, xi1); the slab's n_dx input slices from 2 a0.
-  const int xi0 = 2 * a0 - 1 > 0 ? 2 * a0 - 1 : 0;
+  // Slices index the depth after the lead plane, which is slice -1.
+  const int xi0 = 2 * a0 - 1 > -s.lead ? 2 * a0 - 1 : -s.lead;
   const int xi1 = 2 * a0 + 2 * td < s.d ? 2 * a0 + 2 * td : s.d;
   const int n_dx = xi1 - 2 * a0;
+  // The first block of a window with a lead plane computes its dx too: the
+  // slab's dx slices are [i_first, n_dx) from 2 a0.
+  const int i_first = a0 == 0 && s.lead ? -1 : 0;
   const int bh = (s.h + 1) / 2, bw = (s.w + 1) / 2;
+  const int64_t stride = static_cast<int64_t>(s.d + s.lead) * hw;
   for (int64_t p = blockIdx.y; p < s.planes; p += gridDim.y) {
-    const T* sx = stage(x + (p * s.d + xi0) * hw, (xi1 - xi0) * hw, x_region);
+    const T* sx =
+        stage(x + p * stride + (s.lead + xi0) * hw, (xi1 - xi0) * hw, x_region);
     const T* sy = stage(y + (p * s.od + a0) * ohw, n_win * ohw, y_region);
     cp_async_commit();
     const T* sg = stage(g + (p * s.od + a0) * ohw, n_win * ohw, g_region);
@@ -272,12 +296,14 @@ __global__ void __launch_bounds__(kThreads)
     // t alone (at offset 1), and element 2t + 1 in windows t (offset 2) and
     // t + 1 (offset 0), in that, ascending, order; so the block draws on the
     // 8 windows (t + da, u + db, v + dc), whose codes and g it reads once.
-    T* out = dx + (p * s.d + 2 * a0) * hw;
+    T* out = dx + p * stride + (s.lead + 2 * a0 + i_first) * hw;
     const uintptr_t addr = reinterpret_cast<uintptr_t>(out);
     const int head = static_cast<int>(addr % kChunk);
     T* sdx = reinterpret_cast<T*>(x_region + head);
-    for (int q = threadIdx.x; q < ((n_dx + 1) / 2) * bh * bw; q += kThreads) {
-      const int t = q / (bh * bw), rem = q - t * bh * bw;
+    for (int q = threadIdx.x; q < ((n_dx + 1) / 2 - i_first) * bh * bw;
+         q += kThreads) {
+      const int tq = q / (bh * bw), rem = q - tq * bh * bw;
+      const int t = tq + i_first;
       const int u = rem / bw, v = rem - u * bw;
       int code[2][2][2];
       float gv[2][2][2];
@@ -287,7 +313,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int db = 0; db < 2; ++db)
 #pragma unroll
           for (int dc = 0; dc < 2; ++dc) {
-            const bool in = t + da < n_win && u + db < s.oh && v + dc < s.ow;
+            const bool in = t + da >= 0 && t + da < n_win &&
+                            u + db < s.oh && v + dc < s.ow;
             const int o = in ? ((t + da) * s.oh + u + db) * s.ow + v + dc : 0;
             code[da][db][dc] = in ? codes[o] : 255;
             gv[da][db][dc] = in ? to_float(sg[o]) : 0.0f;
@@ -299,7 +326,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int dk = 0; dk < 2; ++dk) {
             const int i = 2 * t + di, j = 2 * u + dj, k = 2 * v + dk;
-            if (i >= n_dx || j >= s.h || k >= s.w) continue;
+            if (i < i_first || i >= n_dx || j >= s.h || k >= s.w) continue;
             float acc = 0.0f;
 #pragma unroll
             for (int da = 0; da <= di; ++da)
@@ -313,7 +340,7 @@ __global__ void __launch_bounds__(kThreads)
                   if (code[da][db][dc] == (od * kWindow + oh) * kWindow + ow)
                     acc = add_rounded(acc, gv[da][db][dc], T());
                 }
-            from_float(acc, &sdx[(i * s.h + j) * s.w + k]);
+            from_float(acc, &sdx[((i - i_first) * s.h + j) * s.w + k]);
           }
     }
     __syncthreads();
@@ -321,7 +348,8 @@ __global__ void __launch_bounds__(kThreads)
     // The slab's dx out in 16-byte chunks of its global address: a vector
     // store per whole chunk, element stores for the partial ones at the ends.
     unsigned char* base = reinterpret_cast<unsigned char*>(addr - head);
-    const int end = head + n_dx * hw * static_cast<int>(sizeof(T));
+    const int end =
+        head + (n_dx - i_first) * hw * static_cast<int>(sizeof(T));
     for (int lo = threadIdx.x * kChunk; lo < end; lo += kThreads * kChunk) {
       if (lo >= head && lo + kChunk <= end) {
         *reinterpret_cast<uint4*>(base + lo) =
@@ -361,21 +389,35 @@ cudaError_t run(const void* x, const void* y, const void* g, void* dx,
 
 int64_t pooled(int64_t n) { return (n - 1) / 2 + 1; }
 
-bool valid(int64_t planes, int64_t d, int64_t h, int64_t w, int64_t dtype) {
+int64_t item_size(int64_t dtype) { return dtype == 0 ? 4 : 2; }
+
+bool valid(int64_t planes, int64_t d, int64_t h, int64_t w, int64_t dtype,
+           int64_t lead = 0) {
   // planes * D and one plane, D * H * W, are indexed in 32-bit ints.
   return planes >= 1 && d >= 1 && h >= 1 && w >= 1 &&
-         planes * d <= 0x7FFFFFFFLL && d * h * w <= 0x7FFFFFFFLL &&
-         (dtype == 0 || dtype == 1);
+         (lead == 0 || lead == 1) && planes * (d + lead) <= 0x7FFFFFFFLL &&
+         (d + lead) * h * w <= 0x7FFFFFFFLL && (dtype == 0 || dtype == 1);
 }
 
-Shape shape_of(int64_t planes, int64_t d, int64_t h, int64_t w) {
-  return Shape{static_cast<int>(planes), static_cast<int>(d),
-               static_cast<int>(h),      static_cast<int>(w),
+Shape shape_of(int64_t planes, int64_t d, int64_t h, int64_t w,
+               int64_t lead = 0) {
+  return Shape{static_cast<int>(planes),    static_cast<int>(d),
+               static_cast<int>(h),         static_cast<int>(w),
                static_cast<int>(pooled(d)), static_cast<int>(pooled(h)),
-               static_cast<int>(pooled(w))};
+               static_cast<int>(pooled(w)), static_cast<int>(lead)};
 }
 
-int64_t item_size(int64_t dtype) { return dtype == 0 ? 4 : 2; }
+int launch(const void* x, const void* y, const void* g, void* dx,
+           const Shape& s, int64_t dtype, int64_t device,
+           void* stream_handle) {
+  const int td = slab_slices(s, item_size(dtype));
+  if (td == 0) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  auto stream = static_cast<cudaStream_t>(stream_handle);
+  if (dtype == 0) return run<float>(x, y, g, dx, s, td, stream);
+  return run<__nv_bfloat16>(x, y, g, dx, s, td, stream);
+}
 
 }  // namespace
 
@@ -396,14 +438,22 @@ int maxpool_bwd(const void* x, const void* y, const void* g, void* dx,
                 int64_t planes, int64_t d, int64_t h, int64_t w,
                 int64_t dtype, int64_t device, void* stream_handle) {
   if (!valid(planes, d, h, w, dtype)) return cudaErrorInvalidValue;
-  const Shape s = shape_of(planes, d, h, w);
-  const int td = slab_slices(s, item_size(dtype));
-  if (td == 0) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  auto stream = static_cast<cudaStream_t>(stream_handle);
-  if (dtype == 0) return run<float>(x, y, g, dx, s, td, stream);
-  return run<__nv_bfloat16>(x, y, g, dx, s, td, stream);
+  return launch(x, y, g, dx, shape_of(planes, d, h, w), dtype, device,
+                stream_handle);
+}
+
+// The same on a depth window: x and dx (planes, Dw, H, W) hold global input
+// planes [z0, z0 + Dw), y and g (planes, Do, Ho, Wo) the outputs [o0, o0 +
+// Do); lead is 1 where z0 = 2 o0 - 1 (an interior slab), 0 where z0 = 0.
+// Then Do = (Dw - lead - 1) / 2 + 1: the caller checks the window.
+int maxpool_bwd_window(const void* x, const void* y, const void* g, void* dx,
+                       int64_t planes, int64_t dw, int64_t h, int64_t w,
+                       int64_t lead, int64_t dtype, int64_t device,
+                       void* stream_handle) {
+  if (!valid(planes, dw - lead, h, w, dtype, lead))
+    return cudaErrorInvalidValue;
+  return launch(x, y, g, dx, shape_of(planes, dw - lead, h, w, lead), dtype,
+                device, stream_handle);
 }
 
 }  // extern "C"

@@ -41,6 +41,21 @@
 // intrinsic, so given the same mean and std it equals the plain PyTorch
 // expression bit for bit.
 //
+// The same function split in two, for a scan whose depth is sharded over
+// several processes (parallel/tp.py): each holds a slab, and the statistics
+// need the whole scan.
+//
+// zscore_partials: for each slab b of a (B, N) batch, the count, sum and sum
+//   of squares of {x * m != 0} as doubles, (B, 3). The same launch as
+//   zscore_norm (a cluster of 16 blocks a slab, the same block reduction,
+//   the partials merged in rank order), which then writes the three sums
+//   instead of applying them. The caller adds the slabs' partials in rank
+//   order and takes mean and std as zscore_norm does.
+// zscore_apply: out = ((x - mean) / std) * m with per-scan float32 mean and
+//   std, (B,) each: the same _rn expression, so equal to the plain PyTorch
+//   expression bit for bit. 16 blocks a slab, each one stretch, no cluster.
+//   Bound: memory, 12 bytes per voxel.
+//
 // The entry point takes device pointers, int64 sizes, the device index and a
 // cudaStream_t, allocates nothing, and returns the first CUDA error seen (0
 // on success).
@@ -136,10 +151,14 @@ __device__ __forceinline__ void for_each_chunk(const float* __restrict__ v,
 }
 
 // Grid: one cluster of kClusterBlocks blocks per scan. `vec`: volume, mask
-// and output equally aligned.
+// and output equally aligned. kPartials: write the scan's merged (count,
+// sum, sumsq) to sums[3 scan, 3 scan + 3) and apply nothing (zscore_partials);
+// else normalise the scan into `out` (zscore_norm).
+template <bool kPartials>
 __global__ void __launch_bounds__(kThreads)
     zscore_kernel(const float* __restrict__ vol, const float* __restrict__ mask,
-                  float* __restrict__ out, int64_t n, bool vec) {
+                  float* __restrict__ out, double* __restrict__ sums, int64_t n,
+                  bool vec) {
   __shared__ Partial warp_partials[kWarps];
   __shared__ Partial partial;  // this block's, read by the whole cluster
   __shared__ float stats[2];   // mean, std
@@ -187,15 +206,24 @@ __global__ void __launch_bounds__(kThreads)
       a += p.sum;
       q += p.sumsq;
     }
-    const double mean = a / c;  // NaN for a scan with no valid voxel
-    double var = (q - a * mean) / (c - 1.0 > 1.0 ? c - 1.0 : 1.0);
-    // Rounding can leave a tiny negative where the spread is zero; the
-    // plain version's sum of squared deviations cannot be negative.
-    if (var < 0.0) var = 0.0;
-    stats[0] = static_cast<float>(mean);
-    stats[1] = static_cast<float>(sqrt(var));
+    if (kPartials) {
+      if (rank == 0) {
+        sums[3 * scan] = c;
+        sums[3 * scan + 1] = a;
+        sums[3 * scan + 2] = q;
+      }
+    } else {
+      const double mean = a / c;  // NaN for a scan with no valid voxel
+      double var = (q - a * mean) / (c - 1.0 > 1.0 ? c - 1.0 : 1.0);
+      // Rounding can leave a tiny negative where the spread is zero; the
+      // plain version's sum of squared deviations cannot be negative.
+      if (var < 0.0) var = 0.0;
+      stats[0] = static_cast<float>(mean);
+      stats[1] = static_cast<float>(sqrt(var));
+    }
   }
   cluster.sync();  // every partial read; the statistics in shared memory
+  if (kPartials) return;
   const float mean = stats[0], std = stats[1];
   for_each_chunk(
       v, m, lo, hi, vec, true,
@@ -207,6 +235,42 @@ __global__ void __launch_bounds__(kThreads)
       });
 }
 
+// Grid: kClusterBlocks blocks per scan, each its stretch; per-scan mean and
+// std from mean[scan], std[scan].
+__global__ void __launch_bounds__(kThreads)
+    zscore_apply_kernel(const float* __restrict__ vol,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ means,
+                        const float* __restrict__ stds,
+                        float* __restrict__ out, int64_t n, bool vec) {
+  const int64_t scan = blockIdx.x / kClusterBlocks;
+  const unsigned rank = blockIdx.x % kClusterBlocks;
+  const float* v = vol + scan * n;
+  const float* m = mask + scan * n;
+  float* o = out + scan * n;
+  const float mean = means[scan], std = stds[scan];
+  int64_t lo, hi;
+  stretch_of(n, rank, &lo, &hi);
+  for_each_chunk(
+      v, m, lo, hi, vec, false,
+      [&](int64_t i, float x, float w) { o[i] = apply_one(x, w, mean, std); },
+      [&](int64_t i, const float4& x, const float4& w) {
+        *reinterpret_cast<float4*>(o + i) = make_float4(
+            apply_one(x.x, w.x, mean, std), apply_one(x.y, w.y, mean, std),
+            apply_one(x.z, w.z, mean, std), apply_one(x.w, w.w, mean, std));
+      });
+}
+
+bool aligned_alike(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) ^ reinterpret_cast<uintptr_t>(b)) &
+          15) == 0;
+}
+
+bool valid_rows(int64_t batch, int64_t n) {
+  return batch >= 1 && batch * kClusterBlocks <= 0x7FFFFFFFLL && n >= 1 &&
+         n <= 0xFFFFFFFFLL;
+}
+
 }  // namespace
 
 #define RETURN_IF_ERROR(expr)             \
@@ -215,19 +279,18 @@ __global__ void __launch_bounds__(kThreads)
     if (err_ != cudaSuccess) return err_; \
   } while (0)
 
-extern "C" {
+namespace {
 
-int zscore_norm(const float* vol, const float* mask, float* out, int64_t batch,
-                int64_t n, int64_t device, void* stream_handle) {
-  if (batch < 1 || batch * kClusterBlocks > 0x7FFFFFFFLL || n < 1 ||
-      n > 0xFFFFFFFFLL)
-    return cudaErrorInvalidValue;
+template <bool kPartials>
+cudaError_t launch_cluster(const float* vol, const float* mask, float* out,
+                           double* sums, int64_t batch, int64_t n,
+                           int64_t device, void* stream_handle) {
   RETURN_IF_ERROR(cudaSetDevice(static_cast<int>(device)));
   RETURN_IF_ERROR(cudaFuncSetAttribute(
-      zscore_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
-  const uintptr_t a = reinterpret_cast<uintptr_t>(vol);
-  const bool vec = ((a ^ reinterpret_cast<uintptr_t>(mask)) & 15) == 0 &&
-                   ((a ^ reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+      zscore_kernel<kPartials>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+      1));
+  const bool vec =
+      aligned_alike(vol, mask) && (kPartials || aligned_alike(vol, out));
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(static_cast<unsigned>(batch * kClusterBlocks));
   config.blockDim = dim3(kThreads);
@@ -239,8 +302,43 @@ int zscore_norm(const float* vol, const float* mask, float* out, int64_t batch,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  RETURN_IF_ERROR(cudaLaunchKernelEx(&config, zscore_kernel, vol, mask, out,
-                                     n, vec));
+  RETURN_IF_ERROR(cudaLaunchKernelEx(&config, zscore_kernel<kPartials>, vol,
+                                     mask, out, sums, n, vec));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int zscore_norm(const float* vol, const float* mask, float* out, int64_t batch,
+                int64_t n, int64_t device, void* stream_handle) {
+  if (!valid_rows(batch, n)) return cudaErrorInvalidValue;
+  return launch_cluster<false>(vol, mask, out, nullptr, batch, n, device,
+                               stream_handle);
+}
+
+// sums (batch, 3) float64: count, sum and sum of squares of each row's
+// {x * m != 0}.
+int zscore_partials(const float* vol, const float* mask, double* sums,
+                    int64_t batch, int64_t n, int64_t device,
+                    void* stream_handle) {
+  if (!valid_rows(batch, n)) return cudaErrorInvalidValue;
+  return launch_cluster<true>(vol, mask, nullptr, sums, batch, n, device,
+                              stream_handle);
+}
+
+// out = ((x - mean) / std) * m, mean and std (batch,) float32.
+int zscore_apply(const float* vol, const float* mask, const float* mean,
+                 const float* stdev, float* out, int64_t batch, int64_t n,
+                 int64_t device, void* stream_handle) {
+  if (!valid_rows(batch, n)) return cudaErrorInvalidValue;
+  RETURN_IF_ERROR(cudaSetDevice(static_cast<int>(device)));
+  const bool vec = aligned_alike(vol, mask) && aligned_alike(vol, out);
+  zscore_apply_kernel<<<static_cast<unsigned>(batch * kClusterBlocks),
+                        kThreads, 0, static_cast<cudaStream_t>(
+                                         stream_handle)>>>(vol, mask, mean,
+                                                           stdev, out, n, vec);
   return cudaGetLastError();
 }
 

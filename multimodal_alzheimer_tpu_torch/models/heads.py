@@ -12,6 +12,12 @@ The head's BatchNorms are flax's, or torch's running statistics with
 compute dtype: convolutions, dense layers and BatchNorms compute in it, the
 ``backbone_gap`` tap stays in it, and the logits are cast to float32 last
 (JAX ``heads.py:74``).
+
+Under a 3-D mesh (``parallel/tp.py``) the head's layers shard as the
+backbone's do; the 'same' depth padding of a head conv comes from the
+neighbours' planes, the ``backbone_gap`` tap is gathered over the model
+ranks for the outputs, and the trailing ReLU acts on the logits after the
+model-axis sum.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from multimodal_alzheimer_tpu_torch.models.layers import (
     global_avg_pool,
     max_pool3d,
 )
+from multimodal_alzheimer_tpu_torch.parallel import tp as sharding
 
 
 def _same_padding(kernel: int) -> tuple[int, ...]:
@@ -50,6 +57,7 @@ class ClassifierHead3D(nn.Module):
                  device=None,
                  dtype=torch.float32):
         super().__init__()
+        self.in_features = in_features
         self.trailing_relu = trailing_relu
         bn_kind = "torch_stats" if bn_torch_stats else False
         self.bn_begin = (batch_norm(in_features, bn_kind, device, dtype)
@@ -87,8 +95,14 @@ class ClassifierHead3D(nn.Module):
         if self.bn_begin is not None:
             x = self.bn_begin(x)
         tap = global_avg_pool(x)
+        depth_sharded = sharding.spatial() is not None
         for conv, bn, kernel in self.convs:
-            x = getattr(self, conv)(F.pad(x, _same_padding(kernel)))
+            pads = _same_padding(kernel)
+            if depth_sharded:
+                x = getattr(self, conv)(F.pad(x, pads[:4]),
+                                        depth_pad=pads[4:])
+            else:
+                x = getattr(self, conv)(F.pad(x, pads))
             if bn is not None:
                 x = getattr(self, bn)(x)
             x = max_pool3d(F.relu(x))
@@ -101,6 +115,9 @@ class ClassifierHead3D(nn.Module):
         logits = self.cls(h)
         if self.trailing_relu:
             logits = F.relu(logits)
+        tp = sharding.active()
+        if tp is not None:
+            tap = sharding.channels(tap, self.in_features, "replicated", tp)
         return {"logits": logits.to(torch.float32),
                 "embeddings": {"backbone_gap": tap}}
 

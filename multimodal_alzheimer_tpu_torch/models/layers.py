@@ -50,6 +50,17 @@ track the global moments on every rank. ``Dropout`` and
 the rank's rows, so that the ranks together draw the single-device mask.
 Outside the block nothing changes.
 
+Tensor and spatial parallelism (``parallel.tensor_parallel``, a 3-D mesh of
+``parallel/tp.py``): ``Conv3d`` gathers its input channels where its kernel
+is sharded on O and fetches its depth halo, ``Linear`` sums a row-split
+product over the model ranks, each BatchNorm normalises its channel slice
+with statistics over data x spatial (the global count with the global
+depth), ``global_avg_pool`` adds the depth slabs' sums, and ``max_pool3d``
+fetches its window. A layer whose parameters are whole takes its input
+whole (``tp.channels``). Dropout draws the global-batch mask of the rank's
+rows at its own shape, so under a model axis a channel-sharded dropout
+draws other masks than one device does.
+
 Also ``max_pool3d`` with torch's floor semantics and the JAX package's guard
 against a tower too deep for its volume, ``global_avg_pool``, flax's
 weight initialisation from an explicit ``torch.Generator``, flax's
@@ -76,6 +87,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_alzheimer_tpu_torch.ops import hopper_bn
+from multimodal_alzheimer_tpu_torch.parallel import tp as sharding
 from multimodal_alzheimer_tpu_torch.parallel.mesh import (
     all_reduce_sum,
     split,
@@ -112,10 +124,34 @@ class Conv3d(nn.Conv3d):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, depth_pad=None) -> torch.Tensor:
+        """``depth_pad`` (lo, hi): zero planes before and after the depth
+        axis, which a depth-sharded conv takes from its neighbours.
+
+        On the CPU a reduced-precision conv of a map one voxel thick that
+        autograd will differentiate runs in float32 on the operands rounded
+        to ``compute_dtype`` and rounds its result once, as XLA's CPU
+        backend runs a bfloat16 convolution: there oneDNN's own bfloat16
+        conv3d backward returns NaN weight gradients at random (the strided
+        ResNet's 1-voxel layer-3/4 maps at 12x14x12). Every other conv stays
+        oneDNN's."""
         dt = self.compute_dtype
         bias = self.bias.to(dt) if self.bias is not None else None
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        x, weight = x.to(dt), self.weight.to(dt)
+        upcast = (dt != torch.float32 and x.device.type == "cpu"
+                  and min(x.shape[2:]) == 1 and torch.is_grad_enabled()
+                  and (x.requires_grad or weight.requires_grad))
+        if upcast:
+            x, weight = x.float(), weight.float()
+            bias = bias.float() if bias is not None else None
+        tp = sharding.active()
+        if tp is not None and tp.tp.shape[1:] != (1, 1):
+            y = sharding.conv3d(self, x, weight, bias, depth_pad)
+        else:
+            if depth_pad is not None:
+                x = F.pad(x, (0, 0, 0, 0) + tuple(depth_pad))
+            y = self._conv_forward(x, weight, bias)
+        return y.to(dt) if upcast else y
 
 
 class Linear(nn.Linear):
@@ -128,6 +164,10 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        tp = sharding.active()
+        if tp is not None and tp.tp.shape[1] > 1:
+            return sharding.linear(self, x.to(dt), self.weight.to(dt),
+                                   self.bias.to(dt))
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -156,9 +196,20 @@ class _BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._channels(x)
         if not self.training:
             return self._affine(x, self.running_mean, self.running_var)
         return self._train_forward(x)
+
+    def _channels(self, x: torch.Tensor) -> torch.Tensor:
+        """Under a model axis, x as these parameters take it: the rank's
+        channel slice where they are sharded, else whole."""
+        tp = sharding.active()
+        if tp is None or tp.tp.shape[1] == 1:
+            return x
+        mode = ("sharded" if self.weight.shape[0] != self.num_features
+                else "replicated")
+        return sharding.channels(x, self.num_features, mode, tp)
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -199,8 +250,8 @@ def _global_moments(x: torch.Tensor, dp):
     xf = x.to(torch.float32)
     axes = [0] + list(range(2, x.ndim))
     sums = all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]),
-                          dp.mesh)
-    n = dp.global_count(x)
+                          dp.stats_mesh(x))
+    n = dp.stats_count(x)
     mean = sums[0] / n
     return mean, sums[1] / n - mean * mean
 
@@ -212,6 +263,7 @@ class FlaxBatchNorm(_BatchNorm):
     does before its cast to ``dtype``."""
 
     def forward(self, x):
+        x = self._channels(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
@@ -251,7 +303,7 @@ class TorchStatsBatchNorm(_BatchNorm):
         dp = split()
         if dp is not None:
             mean, var = _global_moments(x, dp)
-            n = dp.global_count(x)
+            n = dp.stats_count(x)
         else:
             xf = x.to(torch.float32)
             axes = [0] + list(range(2, x.ndim))
@@ -304,17 +356,29 @@ def batch_norm(features: int, fused=False, device=None,
 
 def max_pool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """Max pool with stride = window and VALID (floor) padding, NCDHW."""
-    if min(x.shape[2:5]) < window:
+    sp = sharding.spatial()
+    dims = tuple(x.shape[2:5])
+    if sp is not None:
+        dims = (sp.global_depth(x),) + dims[1:]
+    if min(dims) < window:
         # A zero-size pool output would turn the whole model NaN after GAP.
         raise ValueError(
-            f"max_pool3d: spatial dims {tuple(x.shape[2:5])} smaller than "
+            f"max_pool3d: spatial dims {dims} smaller than "
             f"the {window}^3 window — the conv tower is too deep for this "
             f"volume size")
+    if sp is not None:
+        return sharding.pool_window(
+            x, window, window, 0, 0.0,
+            lambda xw, first, depth: F.max_pool3d(xw, window, window))
     return F.max_pool3d(x, window, window)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """AdaptiveAvgPool3d(1) + Flatten: (B, C, D, H, W) -> (B, C)."""
+    """AdaptiveAvgPool3d(1) + Flatten: (B, C, D, H, W) -> (B, C); over
+    the depth slabs of every spatial rank under a spatial axis."""
+    sp = sharding.spatial()
+    if sp is not None:
+        return sharding.global_avg_pool(x, sp)
     return x.mean(dim=(2, 3, 4))
 
 

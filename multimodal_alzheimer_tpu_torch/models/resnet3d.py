@@ -29,6 +29,10 @@ computes as ``models.layers`` describes. ``remat`` recomputes each residual
 block's forward in the backward pass (``torch.utils.checkpoint``; JAX's
 ``nn.remat``), trading operations for activation memory; the recomputation
 leaves the BatchNorm running statistics as one forward left them.
+
+Under a 3-D mesh (``parallel/tp.py``) the convolutions and BatchNorms shard
+as ``models.layers`` describes, and the stem pool of a depth slab reads its
+window from the neighbours (``_pool_depth_sharded``).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from multimodal_alzheimer_tpu_torch.models import layers
 from multimodal_alzheimer_tpu_torch.models.layers import Conv3d, batch_norm
 from multimodal_alzheimer_tpu_torch.ops.hopper_maxpool import max_pool3d_pl
+from multimodal_alzheimer_tpu_torch.parallel import tp as sharding
 
 BLOCK_CONFIGS = {
     10: ("basic", (1, 1, 1, 1)),
@@ -162,7 +167,9 @@ class MedicalNetResNet3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))
-        if self.maxpool_impl == "xla":
+        if sharding.spatial() is not None:
+            x = self._pool_depth_sharded(x)
+        elif self.maxpool_impl == "xla":
             x = F.max_pool3d(x, 3, 2, 1)
         else:
             x = max_pool3d_pl(x)
@@ -173,6 +180,18 @@ class MedicalNetResNet3D(nn.Module):
             else:
                 x = block(x)
         return x
+
+
+    def _pool_depth_sharded(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem pool of a depth slab: the library pool over the -inf
+        halo window, or ``max_pool3d_pl`` on the window (K8 told where it
+        lies)."""
+        if self.maxpool_impl == "xla":
+            return sharding.pool_window(
+                x, 3, 2, 1, float("-inf"),
+                lambda xw, first, depth: F.max_pool3d(xw, 3, 2, (0, 1, 1)))
+        return sharding.pool_window(x, 3, 2, 1, 0.0, max_pool3d_pl,
+                                    clip=True)
 
 
 def _rematerialised(block: nn.Module, x: torch.Tensor) -> torch.Tensor:

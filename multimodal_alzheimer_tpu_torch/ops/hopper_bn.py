@@ -28,7 +28,10 @@ GSPMD does under JAX's mesh: K4's sums are all-reduced before the moments
 and K5, K6's before K7, which divides by the global count; the
 ``lane_packed_stats`` VJP all-reduces the statistics' cotangents. The
 scale and bias gradients stay the rank's own sums: the train step sums
-every parameter gradient over the ranks.
+every parameter gradient over the ranks. Under a 3-D mesh
+(``parallel/tp.py``) the kernels run on the rank's channel slice of its
+depth slab, and the sums are all-reduced over data x spatial, the global
+count taking the global depth.
 """
 
 from __future__ import annotations
@@ -223,11 +226,12 @@ def _global_moments(ctx, x: torch.Tensor):
     ``data_parallel`` block (the sums all-reduced, one collective); keeps
     the block and the count N on ``ctx`` for the backward."""
     sums = bn_stats(x)
-    ctx.dp = current()
+    dp = current()
+    ctx.mesh = None if dp is None else dp.stats_mesh(x)
     ctx.n = _count(x)
-    if ctx.dp is not None:
-        ctx.dp.mesh.all_reduce_(sums)
-        ctx.n = ctx.dp.global_count(x)
+    if dp is not None:
+        ctx.mesh.all_reduce_(sums)
+        ctx.n = dp.stats_count(x)
     return _moments(sums, ctx.n)
 
 
@@ -249,8 +253,8 @@ class _BatchNormTrain(torch.autograd.Function):
         gy = gy.contiguous()
         sums = bn_grad_sum(gy, x, mean, inv)  # [dbias; dscale], this rank's
         red = sums
-        if ctx.dp is not None:
-            red = ctx.dp.mesh.all_reduce_(sums.clone())
+        if ctx.mesh is not None:
+            red = ctx.mesh.all_reduce_(sums.clone())
         dx = bn_dx(gy, x, mean, inv, scale, red / ctx.n)
         return dx, sums[1], sums[0], None
 
@@ -273,8 +277,8 @@ class _LanePackedStats(torch.autograd.Function):
     def backward(ctx, gmean, gvar):
         x, mean = ctx.saved_tensors
         n = ctx.n
-        if ctx.dp is not None:  # every rank's loss reaches the statistics
-            gmean, gvar = ctx.dp.mesh.all_reduce_(torch.stack([gmean, gvar]))
+        if ctx.mesh is not None:  # every rank's loss reaches the statistics
+            gmean, gvar = ctx.mesh.all_reduce_(torch.stack([gmean, gvar]))
         c = _per_channel
         # d mean/dx = 1/N; d var/dx = 2 (x - mean) / N (biased variance), in
         # float32, returned in x's dtype

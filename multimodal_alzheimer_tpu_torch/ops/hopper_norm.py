@@ -13,6 +13,15 @@ Counterpart of ``multimodal_alzheimer_tpu/ops/pallas_norm.py``'s
   mean and Bessel-corrected std of each scan's ``{x*mask != 0}``, one
   thread-block cluster per scan (the TPU's ``_zscore_stream_kernel``).
 
+For a batch whose depth is sharded over a spatial axis (``parallel/tp.py``)
+the z-score runs split, in two entry points of the same file:
+``zscore_partials`` (each slab's count, sum and sum of squares in double)
+and ``zscore_apply`` (the apply with given per-scan mean and std). The
+slabs' partials are gathered over the spatial group and added in rank
+order, and ``zscore_stats`` takes mean and std from them as the kernel
+does (``per_scan_zscore``). The min-max path gathers the whole scans over
+the spatial group for the selection and applies on the slab.
+
 Each wrapper takes the plain PyTorch version for CPU tensors only. For a CUDA
 tensor it launches the kernel or raises; no other device is accepted. Every
 kernel launch adds one to ``LAUNCHES[name]``, so a run can show that its
@@ -35,12 +44,14 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from multimodal_alzheimer_tpu_torch.ops import _native
+from multimodal_alzheimer_tpu_torch.parallel.tp import spatial
 from multimodal_alzheimer_tpu_torch.ops.quantile import (
     interpolate,
     order_stats_rows,
 )
 
-LAUNCHES = {"minmax_select": 0, "minmax_apply": 0, "zscore": 0}
+LAUNCHES = {"minmax_select": 0, "minmax_apply": 0, "zscore": 0,
+            "zscore_partials": 0, "zscore_apply": 0}
 
 
 def reset_launches() -> None:
@@ -215,9 +226,18 @@ def per_scan_minmax(volume: torch.Tensor, mask: torch.Tensor,
     """Quantile min-max normalisation of a (B, ...) batch, per scan.
 
     ``(x - Q(1-q)) / (Q(q) - Q(1-q))`` clamped to [0, 1] and re-masked
-    (reference: dataloader.py:261-270), with exact quantiles.
+    (reference: dataloader.py:261-270), with exact quantiles. On a
+    depth-sharded batch (``parallel.tp.spatial()``) the quantiles are taken
+    of the whole scans, gathered over the spatial group, and the apply runs
+    on the slab.
     """
-    quants = batched_masked_quantiles(volume, mask, (quantile, 1.0 - quantile))
+    levels = (quantile, 1.0 - quantile)
+    sp = spatial()
+    if sp is None:
+        quants = batched_masked_quantiles(volume, mask, levels)
+    else:
+        quants = batched_masked_quantiles(sp.gather_depth(volume),
+                                          sp.gather_depth(mask), levels)
     return minmax_apply(volume, mask, quants[:, 1], quants[:, 0])
 
 
@@ -263,12 +283,106 @@ def _(vol, mask):
     return torch.empty_like(vol)
 
 
+def zscore_partials_plain(vol: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``zscore_partials`` on (B, N) rows: (B, 3) float64
+    count, sum and sum of squares of each row's ``{x*mask != 0}``."""
+    vals = vol * mask
+    valid = vals != 0
+    v = torch.where(valid, vals, 0).to(torch.float64)
+    return torch.stack([valid.sum(dim=1).to(torch.float64), v.sum(dim=1),
+                        (v * v).sum(dim=1)], dim=1)
+
+
+def zscore_apply_plain(vol: torch.Tensor, mask: torch.Tensor,
+                       mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``zscore_apply``: ``(x - mean) / std * mask`` with
+    (B,) float32 mean and std, the expression of ``zscore_plain``."""
+    return (vol - mean[:, None]) / std[:, None] * mask
+
+
+def zscore_stats(partials: torch.Tensor):
+    """float32 (mean, std) per scan from (B, 3) float64 count, sum and sum
+    of squares, as ``csrc/zscore_norm.cu`` takes them: mean = sum / n, var =
+    (sumsq - sum * mean) / max(n - 1, 1), at least 0, in double."""
+    n, a, q = partials.unbind(dim=1)
+    mean = a / n
+    var = torch.clamp((q - a * mean) / torch.clamp(n - 1.0, min=1.0),
+                      min=0.0)
+    return mean.to(torch.float32), torch.sqrt(var).to(torch.float32)
+
+
+def _zscore_partials_kernel(vol: torch.Tensor,
+                            mask: torch.Tensor) -> torch.Tensor:
+    """One launch, no workspace: a cluster of 16 blocks per slab."""
+    lib = _native.library()
+    b, n = vol.shape
+    device = vol.device
+    out = torch.empty((b, 3), dtype=torch.float64, device=device)
+    code = lib.zscore_partials(vol.data_ptr(), mask.data_ptr(),
+                               out.data_ptr(), b, n, device.index,
+                               _native.stream(device))
+    _native.check(code, "zscore_partials")
+    LAUNCHES["zscore_partials"] += 1
+    return out
+
+
+def _zscore_apply_kernel(vol, mask, mean, std) -> torch.Tensor:
+    lib = _native.library()
+    b, n = vol.shape
+    device = vol.device
+    mean = mean.to(device, torch.float32).contiguous()
+    std = std.to(device, torch.float32).contiguous()
+    if mean.shape != (b,) or std.shape != (b,):
+        raise ValueError(f"mean {tuple(mean.shape)} and std "
+                         f"{tuple(std.shape)} must both be ({b},)")
+    out = torch.empty_like(vol)
+    code = lib.zscore_apply(vol.data_ptr(), mask.data_ptr(), mean.data_ptr(),
+                            std.data_ptr(), out.data_ptr(), b, n,
+                            device.index, _native.stream(device))
+    _native.check(code, "zscore_apply")
+    LAUNCHES["zscore_apply"] += 1
+    return out
+
+
+def zscore_partials(volume: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, 3) float64 count, sum and sum of squares of each scan's (or
+    slab's) ``{x*mask != 0}``."""
+    vol, msk = _rows(volume, mask)
+    if not _native.on_cuda(vol):
+        return zscore_partials_plain(vol, msk)
+    return _zscore_partials_kernel(vol, msk)
+
+
+def zscore_apply(volume: torch.Tensor, mask: torch.Tensor, mean: torch.Tensor,
+                 std: torch.Tensor) -> torch.Tensor:
+    """``(x - mean) / std * mask`` with (B,) per-scan mean and std, as
+    float32 of the volume's shape."""
+    vol, msk = _rows(volume, mask)
+    if not _native.on_cuda(vol):
+        out = zscore_apply_plain(vol, msk, mean.to(torch.float32),
+                                 std.to(torch.float32))
+    else:
+        out = _zscore_apply_kernel(vol, msk, mean, std)
+    return out.reshape(volume.shape)
+
+
 def per_scan_zscore(volume: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-scan z-score of a (B, ...) batch over each scan's nonzero masked
     voxels, re-masked (reference: dataloader.py:252-260), as float32 of the
     volume's shape. Operands of another dtype are cast to float32 first, on
     both paths. A scan with no valid voxel gives NaN throughout; one with a
-    single valid voxel has std 0."""
+    single valid voxel has std 0. On a depth-sharded batch
+    (``parallel.tp.spatial()``) the slabs' partial sums are gathered over
+    the spatial group and added in rank order, then applied on the slab."""
     vol, msk = _rows(volume, mask)
     _native.on_cuda(vol)  # raises for a device with neither route
-    return _zscore_op(vol, msk).reshape(volume.shape)
+    sp = spatial()
+    if sp is None:
+        return _zscore_op(vol, msk).reshape(volume.shape)
+    parts = sp.gather_spatial(zscore_partials(vol, msk))
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    mean, std = zscore_stats(total)
+    return zscore_apply(vol, msk, mean, std).reshape(volume.shape)

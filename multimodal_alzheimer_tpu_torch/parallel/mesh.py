@@ -233,6 +233,19 @@ class DataParallel:
         holds this rank's rows."""
         return x.numel() // x.shape[1] // x.shape[0] * self.global_rows
 
+    @property
+    def is_split(self) -> bool:
+        """Whether the batch is split over more than one rank."""
+        return self.mesh.size > 1
+
+    def stats_mesh(self, x: torch.Tensor) -> Mesh:
+        """The ranks over which a BatchNorm of ``x`` sums its statistics."""
+        return self.mesh
+
+    def stats_count(self, x: torch.Tensor) -> int:
+        """Elements per channel of ``x``'s global BatchNorm statistics."""
+        return self.global_count(x)
+
 
 @contextlib.contextmanager
 def data_parallel(mesh: Mesh, global_rows: int, offset: int):
@@ -258,7 +271,7 @@ def split() -> Optional[DataParallel]:
     one-rank mesh computes the mesh-free step bit for bit; the BatchNorm
     kernels' sums are all-reduced at any size (over one rank, a copy)."""
     dp = current()
-    return dp if dp is not None and dp.mesh.size > 1 else None
+    return dp if dp is not None and dp.is_split else None
 
 
 class _AllReduceSum(torch.autograd.Function):

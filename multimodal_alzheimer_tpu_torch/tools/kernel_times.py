@@ -4,7 +4,9 @@ max-pool backward (K8) and the int8 convolution (K9, at every shape of the
 int8 ResNet-18, batch 8 and 32, with cuDNN's bfloat16 convolution of the
 same shape beside it as context), with their plain versions and torch's
 call for the same function where there is one, at the shapes of the
-flagship ResNet-18 serving and train paths.
+flagship ResNet-18 serving and train paths; and the entry points of the
+depth-sharded path (K3 split into ``zscore_partials`` and ``zscore_apply``,
+K8's ``maxpool_bwd_window``) at one rank's shapes of a (1, 2, 2) mesh.
 
     python3 multimodal_alzheimer_tpu_torch/tools/kernel_times.py \
         [--root DIR] [--label NAME] [--out FILE] [--kernels K,...] \
@@ -309,6 +311,92 @@ def pool_bound(shape, dtype, winners=None) -> tuple:
         ops = float((winners.clamp(max=NO_WINNER - 1).to(torch.float64)
                      + 1).sum() + (winners < NO_WINNER).sum())
     return bound(item * (2 * n_in + 2 * n_out), ops)
+
+
+# The [tp] shapes: a (1, 2, 2) mesh at 91x109x91, global batch 4. A rank
+# z-scores its depth slab of the scans (46 or 45 planes of 91); the stem
+# pool's input is 32 channels of 64 and the rank's slab of 46 planes, whose
+# interior slab (spatial rank 1, outputs [12, 23)) reads planes [23, 46)
+# with its lead plane through the window entry point.
+TP_ZSCORE = (4, 46) + GRID[1:]
+TP_POOL = (4, 32, 46, 55, 46)
+TP_POOL_WINDOW = (23, 46)  # its planes [first, end) of 46
+TP_KERNELS = ("zscore_partials", "zscore_apply", "maxpool_bwd_window")
+
+
+def tp_window_operands(generator, device, dtype=torch.float32):
+    """The interior slab's window of the stem pool at ``TP_POOL``: x, y and
+    g of the window (ReLU-zero ties), and its first plane and depth."""
+    first, end = TP_POOL_WINDOW
+    depth = TP_POOL[2]
+    x = torch.relu(torch.randn(TP_POOL, generator=generator, device=device)
+                   - 0.8).to(dtype)
+    y = torch.nn.functional.max_pool3d(x, 3, 2, 1)
+    o_lo = (first + 1) // 2
+    xw = x[:, :, first:end].contiguous()
+    yw = y[:, :, o_lo:].contiguous()
+    g = torch.randn(yw.shape, generator=generator, device=device).to(dtype)
+    return xw, yw, g, first, depth
+
+
+def time_tp(generator, device) -> dict:
+    """The [tp] entry points at ``TP_ZSCORE`` and ``TP_POOL``: K3's
+    ``zscore_partials`` and ``zscore_apply`` on one rank's slabs, K8's
+    ``maxpool_bwd_window`` on the interior window; device and per-call ms,
+    the plain versions' ms and the bounds (bytes: each input read once,
+    each output written once, at 3.35 TB/s). No library call computes
+    these functions."""
+    from multimodal_alzheimer_tpu_torch.ops import hopper_maxpool, hopper_norm
+    from multimodal_alzheimer_tpu_torch.ops.maxpool import (
+        max_pool3d_backward_plain,
+        winner_offsets,
+    )
+
+    b = TP_ZSCORE[0]
+    vol = torch.randn(TP_ZSCORE, generator=generator, device=device) * 400 \
+        + 900
+    mask = (torch.rand(TP_ZSCORE, generator=generator, device=device)
+            > 0.35).to(torch.float32)
+    voxels = float(vol.numel())
+    copies = [(vol, mask)] + [(vol.clone(), mask.clone()) for _ in range(
+        n_copies(8 * voxels) - 1)]
+    mean = torch.full((b,), 900.0, device=device)
+    std = torch.full((b,), 400.0, device=device)
+    rows = vol.reshape(b, -1), mask.reshape(b, -1)
+    xw, yw, g, first, depth = tp_window_operands(generator, device)
+    pool_bytes = (2 * xw.numel() + 2 * yw.numel()) * xw.element_size()
+    pools = [(xw, yw, g)] + [(xw.clone(), yw.clone(), g.clone()) for _ in
+                             range(n_copies(pool_bytes) - 1)]
+    winners = winner_offsets(xw, yw, lead=1)
+    from multimodal_alzheimer_tpu_torch.ops.maxpool import NO_WINNER
+
+    ops = float((winners.clamp(max=NO_WINNER - 1).to(torch.float64) + 1)
+                .sum() + (winners < NO_WINNER).sum())
+    calls = {
+        "zscore_partials": (
+            [lambda v=v, m=m: hopper_norm.zscore_partials(v, m)
+             for v, m in copies],
+            lambda: hopper_norm.zscore_partials_plain(*rows),
+            bound(8 * voxels + 24 * b, 3 * voxels)),
+        "zscore_apply": (
+            [lambda v=v, m=m: hopper_norm.zscore_apply(v, m, mean, std)
+             for v, m in copies],
+            lambda: hopper_norm.zscore_apply_plain(*rows, mean, std),
+            bound(12 * voxels + 8 * b, 4 * voxels)),
+        "maxpool_bwd_window": (
+            [lambda c=c: hopper_maxpool.max_pool3d_backward(
+                c[0], c[1], c[2], first, depth) for c in pools],
+            lambda: max_pool3d_backward_plain(xw, yw, g, first, depth),
+            bound(pool_bytes, ops)),
+    }
+    out = {}
+    for name, (kernel, plain, (bound_ms, bound_by)) in calls.items():
+        out[name] = {"ms": device_ms(kernel), "call_ms": call_ms(kernel),
+                     "plain_ms": device_ms([plain], launches=5, reps=3,
+                                           spin=False),
+                     "library_ms": None, "library_call_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
 
 
 def bn_operands(shape, generator, device, dtype=torch.float32):
@@ -670,7 +758,8 @@ def main() -> int:
     parser.add_argument("--label", default="kernels")
     parser.add_argument("--out", default=None, help="JSON file to write")
     parser.add_argument("--kernels", default=",".join(
-        NORM_KERNELS + BN_KERNELS + ("maxpool_bwd", "int8_conv3d")),
+        NORM_KERNELS + BN_KERNELS + ("maxpool_bwd", "int8_conv3d")
+        + TP_KERNELS),
         help="comma-separated kernels to time")
     parser.add_argument("--bn-dtypes", default="float32,bfloat16",
                         help="activation dtypes of the BatchNorm kernels")
@@ -712,6 +801,15 @@ def main() -> int:
                      "dtype": str(dtype), **r})
         print(row_line(args.label, f"maxpool_bwd stem {STEM} {dtype}", r),
               flush=True)
+    tp_chosen = [k for k in TP_KERNELS if k in chosen]
+    if tp_chosen:
+        times = time_tp(gen, device)
+        for kernel in tp_chosen:
+            dims = TP_POOL if kernel == "maxpool_bwd_window" else TP_ZSCORE
+            rows.append({"kernel": kernel, "shape": "tp", "dims": dims,
+                         **times[kernel]})
+            print(row_line(args.label, f"{kernel} tp {dims}",
+                           times[kernel]), flush=True)
     from multimodal_alzheimer_tpu_torch.ops import int8_conv
 
     fused = hasattr(int8_conv, "int8_conv3d_fused")

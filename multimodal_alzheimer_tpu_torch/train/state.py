@@ -14,6 +14,16 @@ returns the global loss and the gathered logits and labels: the
 single-device step, as GSPMD runs it under JAX's mesh. A batch that is
 not a shard (a ragged tail whose rows do not split evenly over the ranks)
 runs whole on every rank, with no collective, as JAX replicates it.
+
+With a ``parallel.Mesh3D`` (``parallel/tp.py``, JAX's ``make_mesh_3d``) a
+step given a ``BatchShard3D`` (``shard_batch_3d``: the rank's rows and depth
+slabs) of a state sharded by ``shard_state`` runs inside
+``parallel.tensor_parallel``: the rank back-propagates its data row's loss
+divided by the spatial axis' size, the gradients are summed over data x
+spatial only (a parameter whole on every model rank, the classifier's
+bias, has the same gradient there and is not summed over the model
+ranks), the loss over the data axis, and the logits and labels come back
+gathered over the data axis, as under the 1-D mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +41,11 @@ from multimodal_alzheimer_tpu_torch.parallel.mesh import (
     coalesced_,
     data_parallel,
     gather_rows,
+)
+from multimodal_alzheimer_tpu_torch.parallel.tp import (
+    BatchShard3D,
+    Mesh3D,
+    tensor_parallel,
 )
 
 
@@ -65,13 +80,26 @@ def _zero_unreached_grads(optimizer: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
-def _sharded(batch: dict, mesh: Optional[Mesh]):
-    """The ``data_parallel`` block of a shard, a null context else."""
+def _sharded(batch: dict, mesh):
+    """The ``data_parallel`` (or, on a 3-D mesh, ``tensor_parallel``)
+    block of a shard, a null context else."""
     if not isinstance(batch, BatchShard):
         return contextlib.nullcontext()
     if mesh is None:
         raise ValueError("a BatchShard needs a step built with mesh=")
+    if isinstance(mesh, Mesh3D):
+        if not isinstance(batch, BatchShard3D):
+            raise ValueError("a 3-D mesh takes shard_batch_3d's batches")
+        return tensor_parallel(mesh, batch)
     return data_parallel(mesh, batch.global_rows, batch.offset)
+
+
+def _reduction_meshes(mesh) -> tuple:
+    """(the ranks the gradients are summed over, the ranks the loss is
+    summed over, the divisor of the loss each rank back-propagates)."""
+    if isinstance(mesh, Mesh3D):
+        return mesh.data_spatial, mesh.data, mesh.shape[2]
+    return mesh, mesh, 1
 
 
 def _gathered(dp, tree: dict) -> dict:
@@ -83,7 +111,7 @@ def make_train_step(model: torch.nn.Module, criterion: Callable,
                     optimizer: torch.optim.Optimizer,
                     preprocess: Optional[Callable] = None,
                     dropout_generator: Optional[torch.Generator] = None,
-                    mesh: Optional[Mesh] = None):
+                    mesh: Optional[Mesh | Mesh3D] = None):
     """Build ``step(state, batch) -> (state, aux)``: preprocess, forward in
     train mode (BatchNorm statistics update), loss, backward, Adam update.
     ``aux`` holds the detached 'loss', 'logits' and 'labels'.
@@ -104,12 +132,16 @@ def make_train_step(model: torch.nn.Module, criterion: Callable,
             optimizer.zero_grad(set_to_none=True)
             out = model(batch)
             loss = criterion(out["logits"], batch["label"])
-        loss.backward()
+            if dp is None:
+                loss.backward()
+            else:
+                grad_mesh, loss_mesh, share = _reduction_meshes(mesh)
+                (loss if share == 1 else loss / share).backward()
         _zero_unreached_grads(optimizer)
         if dp is not None:
             coalesced_([p.grad for group in optimizer.param_groups
-                        for p in group["params"]], mesh, "all_reduce")
-            loss = mesh.all_reduce_(loss.detach().clone())
+                        for p in group["params"]], grad_mesh, "all_reduce")
+            loss = loss_mesh.all_reduce_(loss.detach().clone())
         optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach(),
@@ -121,7 +153,7 @@ def make_train_step(model: torch.nn.Module, criterion: Callable,
 
 def make_eval_step(model: torch.nn.Module, criterion: Callable,
                    preprocess: Optional[Callable] = None,
-                   mesh: Optional[Mesh] = None):
+                   mesh: Optional[Mesh | Mesh3D] = None):
     """``step(batch) -> {'loss', 'logits', 'labels', 'embeddings'}`` in eval
     mode (running BatchNorm statistics), without autograd; with ``mesh``, a
     ``BatchShard``'s outputs are the global batch's on every rank."""
@@ -134,7 +166,7 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable,
             out = model(batch)
             loss = criterion(out["logits"], batch["label"])
             if dp is not None:
-                loss = mesh.all_reduce_(loss)
+                loss = _reduction_meshes(mesh)[1].all_reduce_(loss)
             return {"loss": loss, **_gathered(dp, {
                 "logits": out["logits"], "labels": batch["label"],
                 "embeddings": out["embeddings"]})}

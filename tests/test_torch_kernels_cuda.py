@@ -336,6 +336,53 @@ def test_zscore_matches_plain(device, shape, batch, std):
     _check_zscore(got, _zscore_plain(vol, mask))
 
 
+def _slabs(depth, n):
+    per = -(-depth // n)
+    return [(min(q * per, depth), min(q * per + per, depth))
+            for q in range(n)]
+
+
+@pytest.mark.parametrize("shape", [GRID, (19, 23, 17)],
+                         ids=["flagship", "odd"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_zscore_split_matches_plain(device, shape, n):
+    """The K3 split on depth slabs (91 as 46 + 45, 23 + 23 + 23 + 22):
+    each slab's partials within 1e-12 of the plain float64 sums, the apply
+    bit for bit the plain expression, and the statistics from the partials
+    added in rank order within 2e-6 of the whole-scan kernel's (its output
+    through the same apply equal within the z-score tolerance)."""
+    rng = np.random.default_rng(12)
+    vol = torch.tensor(rng.normal(900, 40, (3,) + shape),
+                       dtype=torch.float32, device=device)
+    mask = torch.tensor(rng.random((3,) + shape) > 0.35,
+                        dtype=torch.float32, device=device)
+    before = dict(hopper_norm.LAUNCHES)
+    total = None
+    for lo, hi in _slabs(shape[0], n):
+        part = hopper_norm.zscore_partials(vol[:, lo:hi], mask[:, lo:hi])
+        rows = vol[:, lo:hi].reshape(3, -1), mask[:, lo:hi].reshape(3, -1)
+        want = hopper_norm.zscore_partials_plain(*rows)
+        torch.testing.assert_close(part, want, rtol=1e-12, atol=0)
+        total = part if total is None else total + part
+    mean, std = hopper_norm.zscore_stats(total)
+    out = hopper_norm.zscore_apply(vol, mask, mean, std)
+    torch.cuda.synchronize()
+    assert hopper_norm.LAUNCHES["zscore_partials"] == \
+        before["zscore_partials"] + n
+    assert hopper_norm.LAUNCHES["zscore_apply"] == before["zscore_apply"] + 1
+    b = vol.shape[0]
+    assert torch.equal(out, hopper_norm.zscore_apply_plain(
+        vol.reshape(b, -1), mask.reshape(b, -1), mean, std).reshape(
+        vol.shape))
+    rows = vol.reshape(b, -1).double(), mask.reshape(b, -1).double()
+    valid = rows[0] * rows[1] != 0
+    ref_mean = torch.stack([r[v].mean() for r, v in zip(rows[0], valid)])
+    ref_std = torch.stack([r[v].std() for r, v in zip(rows[0], valid)])
+    torch.testing.assert_close(mean.double(), ref_mean, rtol=2e-6, atol=0)
+    torch.testing.assert_close(std.double(), ref_std, rtol=2e-6, atol=0)
+    _check_zscore(out, hopper_norm.per_scan_zscore(vol, mask))
+
+
 def test_zscore_is_one_launch_without_a_workspace(device):
     """The z-score is one cluster launch: the C entry takes no workspace and
     allocates nothing; two calls give the same bits."""
@@ -725,6 +772,47 @@ def test_maxpool_backward_equals_plain(device, shape, dtype, kind):
     assert torch.equal(got, max_pool3d_backward_plain(x, y, g))
 
 
+@pytest.mark.parametrize("kind", ["normal", "relu_ties", "neg_inf_border"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("shape", [(2, 8, 46, 55, 46), (2, 4, 29, 32, 32),
+                                   (1, 3, 12, 14, 12)], ids=str)
+def test_maxpool_window_equals_plain(device, shape, dtype, kind):
+    """K8 on depth windows: the outputs split over 2, 3 and 4 slabs, each
+    slab's window (the lead plane on interior ones) bit for bit its plain
+    version, the windows' dx added up the whole volume's; the window (0, D)
+    is today's call, bit for bit."""
+    x, y, g = _pool_operands(shape, kind, dtype, device, seed=7)
+    depth, do = shape[2], y.shape[2]
+    whole = hopper_maxpool.max_pool3d_backward(x, y, g)
+    assert torch.equal(hopper_maxpool.max_pool3d_backward(x, y, g, 0, depth),
+                       whole)
+    for n in (2, 3, 4):
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=device)
+        for o_lo, o_hi in _slabs(do, n):
+            if o_hi == o_lo:
+                continue
+            first, end = max(2 * o_lo - 1, 0), min(2 * o_hi, depth)
+            xw = x[:, :, first:end].contiguous()
+            yw = y[:, :, o_lo:o_hi].contiguous()
+            gw = g[:, :, o_lo:o_hi].contiguous()
+            name = "maxpool_bwd_window" if first else "maxpool_bwd"
+            before = hopper_maxpool.LAUNCHES[name]
+            got = hopper_maxpool.max_pool3d_backward(xw, yw, gw, first,
+                                                     depth)
+            torch.cuda.synchronize()
+            assert hopper_maxpool.LAUNCHES[name] == before + 1
+            assert torch.equal(got, max_pool3d_backward_plain(
+                xw, yw, gw, first, depth))
+            dx[:, :, first:end] += got.float()
+        # a plane two windows credit gets each window's sum rounded to the
+        # dtype, then their sum: against one rounding per add, a few ulps of
+        # the partial sums (which can cancel) in bfloat16
+        torch.testing.assert_close(dx, whole.float(), rtol=0,
+                                   atol=1e-5 if dtype == torch.float32
+                                   else 6.25e-2)
+
+
 def _slab(shape, dtype):
     from multimodal_alzheimer_tpu_torch.ops import _native
 
@@ -815,6 +903,11 @@ def test_maxpool_backward_refuses_what_it_does_not_take(device):
 
 
 
+# The entry points only a depth-sharded step (parallel/tp.py) launches.
+NO_TP_LAUNCHES = dict.fromkeys(
+    ("zscore_partials", "zscore_apply", "maxpool_bwd_window"), 0)
+
+
 def _launches() -> dict:
     return {**hopper_norm.LAUNCHES, **hopper_bn.LAUNCHES,
             **hopper_maxpool.LAUNCHES}
@@ -871,7 +964,7 @@ def test_stage3_step_launches(device, trained):
     assert n_bn > 0 and got == {
         "minmax_select": 1, "minmax_apply": 1, "zscore": 0,
         "bn_stats": n_fwd, "bn_apply": n_fwd, "bn_grad_sum": n_bwd,
-        "bn_dx": n_bwd, "maxpool_bwd": 0}, got
+        "bn_dx": n_bwd, "maxpool_bwd": 0, **NO_TP_LAUNCHES}, got
 
 
 @pytest.mark.parametrize("mri_norm,k12", [
@@ -973,7 +1066,8 @@ def test_shared_tower_trials_launch_once_per_step_for_k_heads(device):
     assert n_bn > 0 and got == {
         "minmax_select": steps + 2, "minmax_apply": steps + 2, "zscore": 0,
         "bn_stats": steps * n_bn, "bn_apply": steps * n_bn,
-        "bn_grad_sum": 0, "bn_dx": 0, "maxpool_bwd": 0}, got
+        "bn_grad_sum": 0, "bn_dx": 0, "maxpool_bwd": 0,
+        **NO_TP_LAUNCHES}, got
 
 
 def test_frozen_trial_keeps_its_backbone_on_the_card(device):

@@ -1,7 +1,7 @@
 """The PyTorch port imports no JAX-family package and nothing of the JAX
 package, and needs nothing that the machine with the card lacks; nor do the
-data-parallel tests' rank functions (tests/torch_dp_ranks.py), which run in
-spawned processes.
+data- and tensor-parallel tests' rank functions (tests/torch_dp_ranks.py,
+tests/torch_tp_ranks.py), which run in spawned processes.
 
 A static scan: the test process itself has jax loaded (conftest.py), so
 ``sys.modules`` cannot tell what the port pulls in. The card's machine has
@@ -68,10 +68,11 @@ def _top(name: str) -> str:
     return name.split(".")[0]
 
 
-# The rank functions of the data-parallel tests run in spawned children,
-# which must stay free of JAX too.
+# The rank functions of the data- and tensor-parallel tests run in spawned
+# children, which must stay free of JAX too.
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                           REPO / "tests" / "torch_dp_ranks.py"]
+                                           REPO / "tests" / "torch_dp_ranks.py",
+                                           REPO / "tests" / "torch_tp_ranks.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -172,3 +173,18 @@ def test_entry_points_default_to_the_card(path):
 def test_deployment_clis_take_a_device(name):
     path = PORT / "tools" / f"{name}.py"
     assert _device_defaults(path) == {"main": "cuda"}
+
+
+@pytest.mark.parametrize("path", [PORT / "parallel" / "tp.py",
+                                  PORT / "tools" / "fast_mode_study.py",
+                                  REPO / "tests" / "torch_tp_ranks.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_the_tp_slice_is_scanned(path):
+    """The tensor-parallel slice's modules exist and are among the scanned
+    files."""
+    assert path.exists() and path in PORT_FILES
+
+
+def test_the_fast_mode_study_defaults_to_the_card():
+    assert _device_defaults(PORT / "tools" / "fast_mode_study.py") == {
+        "main": "cuda"}
