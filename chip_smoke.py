@@ -259,21 +259,32 @@ Phases, each printing its lines:
      probabilities within 1e-5; (c) two nccl ranks on the one card: the
      outcome printed (NCCL refuses a GPU twice in one communicator);
  32. [tp] tensor and spatial parallelism (parallel/tp.py), a correctness
-     run on the one card: (a) a (1, 1, 1) mesh over one nccl rank, the
-     flagship SGD steps at global batch 4 of raw scans z-scored in the
-     step (stem pool through K8) bit for bit the mesh-free steps, step ms
-     of both; (b) a (1, 2, 2) mesh of four gloo ranks sharing the card at
-     91x109x91 (channels halved, depth 46 + 45): 2 steps "full", 2 False,
-     1 "full" with maxpool_impl="wf", each within JAX's tp tolerances
-     (loss rtol 1e-5, gather_state's parameters and running statistics
-     rtol 2e-4 atol 1e-5) of the one-process run, per-rank launches (K3
-     split 1 + 1, K4-K7 20, K8 1 on spatial rank 0 and its window entry on
-     rank 1) and collectives by kind; (c) a (2, 2, 2) mesh of eight gloo
-     ranks, depth 10 at 48x56x48, one "full" step within the same
-     tolerances; then zscore_partials (within 1e-12 of plain), the split
-     statistics (within 2e-6 of the whole scan's), zscore_apply and K8's
-     depth windows of the 2- and 4-slab splits (bit for bit) at the [tp]
-     shapes, with device and plain times and bounds;
+     run on the one card: (a) a (1, 1, 1) mesh over one nccl rank: its
+     gathers (all_gather_into_tensor, reduce_scatter_tensor) give back
+     their inputs, then the flagship SGD steps at global batch 4 of raw
+     scans z-scored in the step (stem pool through K8) bit for bit the
+     mesh-free steps, and 12 steps of each timed in turns (median, min,
+     max), then one step of each profiled (wall, device and host time,
+     the mesh step's collectives by host time; its kernels too above a
+     5% gap); (b) a (1, 2, 2) mesh
+     of four gloo ranks sharing the card at 91x109x91 (channels halved,
+     depth 46 + 45): 2 steps "full", 2 False, 1 "full" with
+     maxpool_impl="wf", each within JAX's tp tolerances (loss rtol 1e-5,
+     gather_state's parameters and running statistics rtol 2e-4 atol
+     1e-5) of the one-process run, and 1 bf16 "wf" step whose loss and
+     update norms are within twice the gaps a one-bf16-ulp move of the
+     scans opens in one process, plus 1e-3, and the same step with a
+     planted fault (spatial rank 1 drops the halo planes it receives)
+     failed by that rule; per-rank launches (K3 split
+     1 + 1, K4-K7 20, K8 1 on spatial rank 0 and its window entry on rank
+     1) and collectives by kind; (c) a (2, 2, 2) mesh of eight gloo ranks,
+     depth 10 at 48x56x48, one "full" step within the same tolerances;
+     then zscore_partials (within 1e-12 of plain), the split statistics
+     (within 2e-6 of the whole scan's), zscore_apply and K8's depth
+     windows of the 2- and 4-slab splits in float32 and bfloat16 (bit for
+     bit) at the [tp] shapes, with device and plain times and bounds (K3s
+     at batch 4 and 1 beside an empty launch of its grid, K8w at the
+     interior and edge windows in both dtypes, with its slab plan);
  33. [fast mode]: tools/fast_mode_study.py's main at 48x56x48 (depth 10, 2
      seeds, 2 epochs): its JSON line complete and finite.
 The kernels line before the last lists every kernel with the launches of
@@ -292,7 +303,9 @@ and of one int8 predictor call on a two-rank mesh ("launches_dp"); K4-K8
 and the [tp] entry points (zscore_partials, zscore_apply,
 maxpool_bwd_window, each an entry of its own) the per-rank launches of
 [tp] (b)'s "full" (K8: "wf") step ("launches_tp"), the entry points also
-its collectives by kind ("collectives_tp");
+its collectives by kind ("collectives_tp"), K8w also the bf16 "wf" step's
+("launches_bf16"), its bf16 and edge-window times and its slab plan, K3s
+its batch-1 times and the empty launch of its grid;
 K1-K3 also their host microseconds per call through the custom op and
 direct.
 K9's entry: launches from phase 7c's server run, per batch of the int8
@@ -4536,14 +4549,24 @@ def phase_dp_nccl_two_ranks() -> None:
 # in [dp] (at 1e-2 masked scans' ReLU and max-pool ties flip between the
 # one-process and the sharded step), cuDNN's deterministic algorithms.
 TP_BATCH = 4
-TP_RUNS = {"full": ("full", "xla", 2), "False": (False, "xla", 2),
-           "wf": ("full", "wf", 1)}
+# run: (fused_bn, maxpool_impl, SGD steps, compute dtype)
+TP_RUNS = {"full": ("full", "xla", 2, torch.float32),
+           "False": (False, "xla", 2, torch.float32),
+           "wf": ("full", "wf", 1, torch.float32),
+           "wf-bf16": ("full", "wf", 1, torch.bfloat16)}
 # (a)'s runs pool through K8: aten's max-pool backward adds with atomics,
 # so that two runs of one step part in the last bits ([dp]'s finding).
-TP_NCCL_RUNS = {"full-wf": ("full", "wf", 2), "False-wf": (False, "wf", 2)}
+TP_NCCL_RUNS = {"full-wf": ("full", "wf", 2, torch.float32),
+                "False-wf": (False, "wf", 2, torch.float32)}
 TP_SMALL_GRID = (48, 56, 48)
 TP_SMALL_HPARAMS = dict(DP_HPARAMS, resnet_depth=10)
-TP_TIMED = 2
+# (a) times the mesh and the mesh-free step TP_TIMED times each, in turns
+# (free, mesh, mesh, free, ...); (b) times its "full" step TP_TIMED_B times.
+TP_TIMED = 12
+TP_TIMED_B = 2
+# Above this gap of the mesh's median step over the mesh-free one, (a)
+# profiles a mesh step and prints its collectives.
+TP_GAP_PROFILE = 0.05
 # JAX's tp tolerances (tests/test_tp.py): loss rtol 1e-5, parameters and
 # running statistics rtol 2e-4, atol 1e-5.
 TP_LOSS_RTOL = 1e-5
@@ -4570,18 +4593,24 @@ def tp_batch(grid, seed: int) -> dict:
 
 
 def tp_steps(weights: dict, hp: dict, run: str, device, mesh=None,
-             grid=GRID, seed: int = SEED + 51, timed: int = 0) -> dict:
+             grid=GRID, seed: int = SEED + 51, timed: int = 0,
+             bump: bool = False, keep: bool = False,
+             fault: bool = False) -> dict:
     """``TP_RUNS[run]``'s SGD steps of an AnatCNN from ``weights`` through
-    ``make_train_step`` on the global batch of ``tp_batch``, z-score in the
-    step; under a 3-D ``mesh`` on the rank's shards (``shard_state``,
-    ``shard_batch_3d``). Returns the losses, the whole state dict on the
-    CPU (``gather_state`` under a mesh), the first step's launches and
-    collectives, and the median ms of ``timed`` further steps."""
-    fused, pool, steps = {**TP_RUNS, **TP_NCCL_RUNS}[run]
+    ``make_train_step`` on the global batch of ``tp_batch`` (``bump``: the
+    scans one bfloat16 ulp up), z-score in the step; under a 3-D ``mesh``
+    on the rank's shards (``shard_state``, ``shard_batch_3d``), with
+    ``fault`` under ``dropped_halo()``. Returns the
+    losses, the whole state dict on the CPU (``gather_state`` under a
+    mesh), the first step's launches and collectives, the median ms of
+    ``timed`` further steps, and with ``keep`` a function that times one
+    more step (``"one"``)."""
+    fused, pool, steps, dtype = {**TP_RUNS, **TP_NCCL_RUNS}[run]
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    model = AnatCNN.from_hparams(hp, fused_bn=fused, maxpool_impl=pool)
+    model = AnatCNN.from_hparams(hp, fused_bn=fused, maxpool_impl=pool,
+                                 dtype=dtype)
     model.load_state_dict(weights)
     model.to(device)
     optimizer = torch.optim.SGD(model.parameters(), lr=DP_LR)
@@ -4590,6 +4619,10 @@ def tp_steps(weights: dict, hp: dict, run: str, device, mesh=None,
                            mesh=mesh)
     state = TrainState(model, optimizer)
     batch = tp_batch(grid, seed)
+    if bump:
+        raw = batch["mri"].to(torch.bfloat16)
+        batch["mri"] = torch.nextafter(
+            raw, torch.full_like(raw, float("inf"))).to(torch.float32)
     if mesh is None:
         batch = {k: v.to(device) for k, v in batch.items()}
     else:
@@ -4601,7 +4634,8 @@ def tp_steps(weights: dict, hp: dict, run: str, device, mesh=None,
         reset_launch_counts()
         if mesh is not None:
             mesh.reset_counts()
-        state, aux = step(state, batch)
+        with dropped_halo() if fault else contextlib.nullcontext():
+            state, aux = step(state, batch)
         losses.append(aux["loss"].item())
         if i == 0:
             _sync(device)
@@ -4613,16 +4647,47 @@ def tp_steps(weights: dict, hp: dict, run: str, device, mesh=None,
            "collectives": collectives,
            "state": {k: v.detach().float().cpu().clone()
                      for k, v in whole.items()}}
-    times = []
-    for _ in range(timed):
+    def one() -> float:
         _sync(device)
         start = time.perf_counter()
         step(state, batch)
         _sync(device)
-        times.append((time.perf_counter() - start) * 1e3)
+        return (time.perf_counter() - start) * 1e3
+
+    times = [one() for _ in range(timed)]
     out["ms"] = statistics.median(times) if times else None
-    torch.backends.cudnn.deterministic = False
+    if keep:
+        out["one"] = one
+    else:
+        torch.backends.cudnn.deterministic = False
     return out
+
+
+@contextlib.contextmanager
+def dropped_halo(rank: int = 1):
+    """A planted fault of the sharded step, to show that [tp] (b)'s bf16
+    rule fails a wrong step: spatial rank ``rank`` zeroes the planes that
+    its depth windows receive from the rank below (a halo exchange that
+    lost them), in the forward pass."""
+    real = tp._halo
+
+    def halo(x, mesh, depth, need, fill=0.0):
+        out = real(x, mesh, depth, need, fill)
+        sp = mesh.spatial
+        lost = tp.depth_slab(depth, sp.rank, sp.size)[0] - need[sp.rank][0]
+        if sp.rank != rank or lost <= 0:
+            return out
+        axis = out.ndim - 3
+        keep = torch.ones(out.shape[axis], dtype=out.dtype,
+                          device=out.device)
+        keep[:lost] = 0
+        return out * keep.view([-1] + [1] * (out.ndim - axis - 1))
+
+    tp._halo = halo
+    try:
+        yield
+    finally:
+        tp._halo = real
 
 
 def tp_small_weights() -> dict:
@@ -4635,11 +4700,99 @@ def tp_small_weights() -> dict:
     return model.state_dict()
 
 
+def _spread(times: list) -> str:
+    return (f"median {statistics.median(times):.2f} ms, min "
+            f"{min(times):.2f}, max {max(times):.2f}")
+
+
+def tp_nccl_gathers(mesh, device) -> dict:
+    """The gathers of parallel/ on the one-rank nccl mesh, whose nccl
+    branch is all_gather_into_tensor and reduce_scatter_tensor (the
+    one-rank steps reach none of them): the channel gather and its
+    reduce-scatter, the depth and spatial gathers, gather_rows, in float32
+    and bfloat16; each must give back its input, one collective each."""
+    from multimodal_alzheimer_tpu_torch.parallel.mesh import (
+        DataParallel,
+        gather_rows,
+    )
+
+    ok, counts = True, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        mesh.reset_counts()
+        x = torch.randn((2, 3, 5, 4, 6), device=device).to(dtype)
+        cot = torch.randn(x.shape, device=device).to(dtype)
+        leaf = x.clone().requires_grad_(True)
+        y = tp._Gather.apply(leaf, mesh, 1, True)
+        y.backward(cot)
+        ctx = tp.TensorParallel(mesh.data, 2, 0, mesh, {(4, 6): 5})
+        spread = ctx.gather_spatial(x[0])
+        ok = ok and torch.equal(tp._gather(x, 2, mesh), x) and torch.equal(
+            y, x) and torch.equal(leaf.grad, cot) and torch.equal(
+            ctx.gather_depth(x), x) and len(spread) == 1 and torch.equal(
+            spread[0], x[0]) and torch.equal(
+            gather_rows(x, DataParallel(mesh.data, 2, 0)), x)
+        counts[str(dtype)] = {k: v for k, v in mesh.counts.items() if v}
+    want = {"all_gather": 5, "reduce_scatter": 1}
+    check(ok and all(c == want for c in counts.values()),
+          f"[tp] (a) nccl gathers at one rank (all_gather_into_tensor, "
+          f"reduce_scatter_tensor) give back their inputs, one collective "
+          f"each: {counts}")
+    log(f"[tp] (a) nccl gathers at one rank, float32 and bfloat16: the "
+        f"channel gather and its reduce-scatter, the depth and spatial "
+        f"gathers and gather_rows give back their inputs; collectives "
+        f"{counts}")
+    return counts
+
+
+def _device_us(e) -> float:
+    """A profiler row's time on the device: a kernel's or a copy's own
+    (an operator's row repeats its kernels' time, and counts 0 here)."""
+    if e.device_type == torch.autograd.DeviceType.CPU or getattr(
+            e, "is_user_annotation", False):
+        return 0.0
+    return e.self_device_time_total
+
+
+def _profile_step(one) -> tuple:
+    """One step (``one()``) under torch.profiler: ({"wall_ms", "device_ms"
+    (every kernel's time, summed), "host_ms" (every operator's self CPU
+    time, summed), "collectives" (torch.distributed's c10d calls),
+    "collective_host_ms" (their CPU time, nested work included),
+    "collective_device_ms" (nccl's kernels)}, a table of the collective
+    rows by host time, a table of every row by device time)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall = one()
+    rows = prof.key_averages()
+    calls = [e for e in rows if e.key.startswith("c10d::")]
+    comm = [e for e in rows if e.key.startswith("c10d::")
+            or "nccl" in e.key.lower() or e.key == "record_param_comms"]
+    numbers = {
+        "wall_ms": wall,
+        "device_ms": sum(_device_us(e) for e in rows) / 1e3,
+        "host_ms": sum(e.self_cpu_time_total for e in rows) / 1e3,
+        "collectives": float(sum(e.count for e in calls)),
+        "collective_host_ms": sum(e.cpu_time_total for e in calls) / 1e3,
+        "collective_device_ms": sum(_device_us(e) for e in comm) / 1e3}
+    comm_table = "\n".join(
+        f"  {e.key[:56]:56s} calls {e.count:3d}, host "
+        f"{e.cpu_time_total / 1e3:.3f} ms (self "
+        f"{e.self_cpu_time_total / 1e3:.3f}), device "
+        f"{_device_us(e) / 1e3:.3f} ms"
+        for e in sorted(comm, key=lambda e: e.cpu_time_total, reverse=True))
+    return (numbers, comm_table,
+            rows.table(sort_by="self_cuda_time_total", row_limit=25))
+
+
 def phase_tp_nccl(device, weights: dict, grid=GRID) -> dict:
     """[tp] (a): a (1, 1, 1) mesh over one nccl rank: the flagship steps
     with fused_bn "full" and False (the stem pool through K8) bit for bit
-    the mesh-free steps (losses, parameters, running statistics); step ms
-    of both."""
+    the mesh-free steps (losses, parameters, running statistics); then
+    TP_TIMED further steps of each, timed in turns (free, mesh, mesh,
+    free, ...), median and spread; then one step of each under the
+    profiler: wall, device and host time, the mesh step's collectives by
+    host time, and above TP_GAP_PROFILE its kernels by device time."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         torch.distributed.init_process_group(
@@ -4647,24 +4800,56 @@ def phase_tp_nccl(device, weights: dict, grid=GRID) -> dict:
             world_size=1, rank=0)
         try:
             mesh = tp.make_mesh_3d(1, 1, 1)
+            out["gathers"] = tp_nccl_gathers(mesh, device)
             for run in TP_NCCL_RUNS:
                 ref = tp_steps(weights, DP_HPARAMS, run, device, grid=grid,
-                               timed=TP_TIMED)
+                               keep=True)
                 on = tp_steps(weights, DP_HPARAMS, run, device, mesh,
-                              grid=grid, timed=TP_TIMED)
+                              grid=grid, keep=True)
                 check(on["losses"] == ref["losses"] and all(
                     torch.equal(on["state"][k], v)
                     for k, v in ref["state"].items()),
                     f"[tp] (1, 1, 1) nccl, {run}: bit for bit the "
                     f"mesh-free step ({on['losses']} vs {ref['losses']})")
-                out[run] = {"ms": on["ms"], "free_ms": ref["ms"],
+                times = {"free": [], "mesh": []}
+                for i in range(TP_TIMED):
+                    order = ("free", "mesh") if i % 2 == 0 else ("mesh",
+                                                                 "free")
+                    for which in order:
+                        times[which].append(
+                            (ref if which == "free" else on)["one"]())
+                free_ms = statistics.median(times["free"])
+                mesh_ms = statistics.median(times["mesh"])
+                gap = mesh_ms / free_ms - 1.0
+                out[run] = {"ms": mesh_ms, "free_ms": free_ms, "gap": gap,
+                            "times": times,
                             "collectives": on["collectives"]}
                 log(f"[tp] (a) (1, 1, 1) mesh, nccl, {run}: "
                     f"{len(on['losses'])} SGD steps bit for bit the "
-                    f"mesh-free steps (losses {on['losses']}); step ms "
-                    f"{on['ms']:.2f} on the mesh, {ref['ms']:.2f} mesh-free "
-                    f"(median of {TP_TIMED}, global batch {TP_BATCH}); "
-                    f"collectives of a step {on['collectives']}")
+                    f"mesh-free steps (losses {on['losses']}); then "
+                    f"{TP_TIMED} steps each in turns at global batch "
+                    f"{TP_BATCH}: on the mesh {_spread(times['mesh'])}, "
+                    f"mesh-free {_spread(times['free'])}, gap "
+                    f"{100 * gap:+.1f}%; collectives of a step "
+                    f"{on['collectives']}")
+                prof = {which: _profile_step((ref if which == "free"
+                                              else on)["one"])
+                        for which in ("free", "mesh")}
+                torch.backends.cudnn.deterministic = False
+                out[run]["profile"] = {k: v[0] for k, v in prof.items()}
+                log(f"[tp] (a) {run}: one step of each profiled, mesh / "
+                    f"mesh-free: "
+                    + "; ".join(f"{k} {prof['mesh'][0][k]:.3f} / "
+                                f"{prof['free'][0][k]:.3f}"
+                                for k in prof["mesh"][0])
+                    + "; the mesh step's collectives by host time:\n"
+                    + prof["mesh"][1])
+                if gap > TP_GAP_PROFILE:
+                    log(f"[tp] (a) {run}: the profiled mesh step (gap above "
+                        f"{100 * TP_GAP_PROFILE:.0f}%), by device time:\n"
+                        + prof["mesh"][2])
+                del ref, on
+                torch.cuda.empty_cache()
         finally:
             torch.distributed.destroy_process_group()
     return out
@@ -4684,8 +4869,10 @@ def tp_rank(world, grid, small_grid) -> dict:
         weights = train_model(False).state_dict()
         out["b"] = {run: tp_steps(weights, DP_HPARAMS, run, device, mesh_b,
                                   grid=grid,
-                                  timed=TP_TIMED if run == "full" else 0)
+                                  timed=TP_TIMED_B if run == "full" else 0)
                     for run in TP_RUNS}
+        out["b_fault"] = tp_steps(weights, DP_HPARAMS, "wf-bf16", device,
+                                  mesh_b, grid=grid, fault=True)
         out["coords"] = mesh_b.coords
         del weights
         torch.cuda.empty_cache()
@@ -4707,6 +4894,47 @@ def _tp_gap(got: dict, want: dict, what: str) -> float:
           f"{want['losses']}, largest state gap {worst:.3g} (tolerance "
           f"{TP_TOL}, loss rtol {TP_LOSS_RTOL})")
     return worst
+
+
+def _step_gaps(got: dict, want: dict, weights: dict) -> tuple:
+    """(relative loss gap, {tensor: relative gap of its update norm}) of a
+    one-step run against another from the same ``weights``: SGD without
+    momentum moves a parameter by lr times its gradient, so the update
+    norms are the gradient norms (and the running statistics' own
+    moves)."""
+    loss = abs(got["losses"][0] - want["losses"][0]) / abs(want["losses"][0])
+    gaps = {}
+    for key, value in want["state"].items():
+        base = weights[key].detach().float().cpu()
+        ref = float((value - base).norm())
+        if ref > 0:
+            gaps[key] = abs(float((got["state"][key] - base).norm())
+                            - ref) / ref
+    return loss, gaps
+
+
+def _tp_bf16_gap(got: dict, want: dict, control: dict,
+                 weights: dict) -> tuple:
+    """A bf16 mesh step against the one-process one under the bf16 rule of
+    the [bf16 step] phase: the loss gap and the largest update-norm gap
+    within BF16_FLOOR_FACTOR x the one-ulp control's plus
+    BF16_FLOOR_SLACK. Returns (within the rule, (loss gap, largest
+    update-norm gap, the control's two), a line of readings)."""
+    loss, gaps = _step_gaps(got, want, weights)
+    ctl_loss, ctl_gaps = _step_gaps(control, want, weights)
+    worst, ctl_worst = max(gaps.values()), max(ctl_gaps.values())
+    ok = bool(np.isfinite(got["losses"]).all()
+              and loss <= BF16_FLOOR_FACTOR * ctl_loss + BF16_FLOOR_SLACK
+              and worst <= BF16_FLOOR_FACTOR * ctl_worst + BF16_FLOOR_SLACK)
+    top = sorted(gaps, key=gaps.get, reverse=True)[:4]
+    text = (f"loss gap {loss:.3g} (limit {BF16_FLOOR_FACTOR} x {ctl_loss:.3g}"
+            f" + {BF16_FLOOR_SLACK}), largest update-norm gap {worst:.3g} "
+            f"(limit {BF16_FLOOR_FACTOR} x {ctl_worst:.3g} + "
+            f"{BF16_FLOOR_SLACK}; control's largest at "
+            f"{max(ctl_gaps, key=ctl_gaps.get)}); largest: "
+            + ", ".join(f"{k} {gaps[k]:.3g} (control {ctl_gaps[k]:.3g})"
+                        for k in top))
+    return ok, (loss, worst, ctl_loss, ctl_worst), text
 
 
 def phase_tp_kernels(device) -> dict:
@@ -4754,74 +4982,95 @@ def phase_tp_kernels(device) -> dict:
         f"whole-scan K3")
     del vol, mask, out, plain, rows, valid
     tp_shape = TP_POOL
-    x = torch.relu(torch.randn(tp_shape, generator=gen, device=device)
-                   - 0.8)
-    y = pool_forward(x)
-    g = torch.randn(y.shape, generator=gen, device=device)
-    depth, do = tp_shape[2], y.shape[2]
-    for n in (2, 4):
-        for q in range(n):
-            o_lo, o_hi = tp.depth_slab(do, q, n)
-            first, end = max(2 * o_lo - 1, 0), min(2 * o_hi, depth)
-            args = (x[:, :, first:end].contiguous(),
-                    y[:, :, o_lo:o_hi].contiguous(),
-                    g[:, :, o_lo:o_hi].contiguous(), first, depth)
-            got = hopper_maxpool.max_pool3d_backward(*args)
-            check(torch.equal(got, max_pool3d_backward_plain(*args)),
-                  f"[tp] K8 window [{first}, {end}) of {depth} (outputs "
-                  f"[{o_lo}, {o_hi})) bit for bit its plain version")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.relu(torch.randn(tp_shape, generator=gen, device=device)
+                       - 0.8).to(dtype)
+        y = pool_forward(x)
+        g = torch.randn(y.shape, generator=gen, device=device).to(dtype)
+        depth, do = tp_shape[2], y.shape[2]
+        for n in (2, 4):
+            for q in range(n):
+                o_lo, o_hi = tp.depth_slab(do, q, n)
+                first, end = max(2 * o_lo - 1, 0), min(2 * o_hi, depth)
+                args = (x[:, :, first:end].contiguous(),
+                        y[:, :, o_lo:o_hi].contiguous(),
+                        g[:, :, o_lo:o_hi].contiguous(), first, depth)
+                got = hopper_maxpool.max_pool3d_backward(*args)
+                check(torch.equal(got, max_pool3d_backward_plain(*args)),
+                      f"[tp] K8 window [{first}, {end}) of {depth} (outputs "
+                      f"[{o_lo}, {o_hi})) in {dtype} bit for bit its plain "
+                      f"version")
+        del x, y, g
     err["maxpool_bwd_window"] = 0.0
-    log(f"[tp] K8 on depth windows of {tp_shape}: the slabs of 2 and 4 "
-        f"ranks (edge windows through maxpool_bwd, interior ones with their "
-        f"lead plane through maxpool_bwd_window) bit for bit their plain "
-        f"versions")
-    del x, y, g
+    log(f"[tp] K8 on depth windows of {tp_shape} in float32 and bfloat16: "
+        f"the slabs of 2 and 4 ranks (edge windows, lead 0, through "
+        f"maxpool_bwd; interior ones with their lead plane, lead 1, through "
+        f"maxpool_bwd_window) bit for bit their plain versions")
     times = time_tp(gen, device)
     for name, r in times.items():
-        log(f"[tp] {name}: kernel {r['ms']:.4f} ms (per call "
+        extra = "".join(f", {key} {r[key]}" for key in
+                        ("empty_ms", "blocks", "plan") if r.get(key))
+        log(f"[tp] {name} {r['dims']}: kernel {r['ms']:.4f} ms (per call "
             f"{r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), no library call "
-            f"computes it")
+            f"computes it{extra}")
     return {"err": err, "times": times}
 
 
 def phase_tp(device, grid=GRID, small_grid=TP_SMALL_GRID) -> dict:
     """[tp]: (a) on nccl, (b) and (c) on eight gloo ranks sharing the card,
-    each held against the one-process run of the same batch; the new entry
-    points against their plain versions with times. Returns the per-rank
-    launches and collectives of (b)'s "full" and "wf" steps. On the CPU (a
+    each held against the one-process run of the same batch (float32 runs
+    at JAX's tp tolerances, (b)'s bf16 "wf" run within twice the gap a
+    one-ulp move of the scans opens in one process); the new entry points
+    against their plain versions with times. Returns the per-rank launches
+    and collectives of (b)'s "full", "wf" and "wf-bf16" steps. On the CPU (a
     rehearsal) (a) and the kernels are left out."""
     weights = train_model(False).state_dict()
     free = {run: tp_steps(weights, DP_HPARAMS, run, device, grid=grid,
-                          timed=TP_TIMED if run != "wf" else 0)
+                          timed=TP_TIMED_B if run == "full" else 0)
             for run in TP_RUNS}
+    control = tp_steps(weights, DP_HPARAMS, "wf-bf16", device, grid=grid,
+                       bump=True)
     small = tp_steps(tp_small_weights(), TP_SMALL_HPARAMS, "full", device,
                      grid=small_grid)
     if device.type == "cuda":
-        phase_tp_nccl(device, weights, grid)
-    del weights
+        out_a = phase_tp_nccl(device, weights, grid)
     start = time.perf_counter()
     ranks = run_ranks(tp_rank, 8, "gloo", grid, small_grid,
                       device=device.type, timeout=600, group_timeout=600)
     spawn_s = time.perf_counter() - start
-    launches, collectives = {}, {}
+    launches, collectives, bf16_gaps = {}, {}, {}
     for r, rank in enumerate(ranks):
         if "b" in rank:
             for run, got in rank["b"].items():
-                worst = _tp_gap(got, free[run], f"[tp] (b) rank {r} {run}")
+                if run == "wf-bf16":
+                    ok, gaps, worst = _tp_bf16_gap(got, free[run], control,
+                                                   weights)
+                    check(ok, f"[tp] (b) rank {r} {run}: {worst}")
+                    bf16_gaps[f"rank{r}"] = gaps
+                else:
+                    gap = _tp_gap(got, free[run], f"[tp] (b) rank {r} {run}")
+                    worst = f"largest |state - one process| {gap:.3g}"
                 log(f"[tp] (b) (1, 2, 2) gloo rank {r} {rank['coords']}, "
                     f"{run}: {len(got['losses'])} SGD steps at global batch "
                     f"{TP_BATCH}, {'x'.join(map(str, grid))}, losses "
                     f"{got['losses']} vs one "
-                    f"process {free[run]['losses']}, largest |state - one "
-                    f"process| {worst:.3g}; launches of a step "
-                    f"{ {k: v for k, v in got['launches'].items() if v} }; "
+                    f"process {free[run]['losses']}, {worst}; launches of a "
+                    f"step { {k: v for k, v in got['launches'].items() if v} }; "
                     f"collectives of a step {got['collectives']}"
                     + (f"; step ms {got['ms']:.2f} (four ranks sharing one "
                        f"card over gloo: a correctness run, not a rate; one "
                        f"process {free[run]['ms']:.2f})" if got["ms"] else ""))
-            full, wf = rank["b"]["full"]["launches"], rank["b"]["wf"][
-                "launches"]
+            ok, gaps, text = _tp_bf16_gap(rank["b_fault"], free["wf-bf16"],
+                                          control, weights)
+            check(not ok, f"[tp] (b) rank {r}: the bf16 rule fails a step "
+                  f"whose spatial rank 1 drops the halo planes it receives "
+                  f"from below: {text}")
+            bf16_gaps[f"rank{r} planted fault"] = gaps
+            log(f"[tp] (b) rank {r} wf-bf16 with a planted fault (spatial "
+                f"rank 1 drops its received halo planes): failed by the "
+                f"rule, {text}")
+            full = rank["b"]["full"]["launches"]
             s = rank["coords"][2]
             want = {**dict.fromkeys(full, 0), "zscore_partials": 1,
                     "zscore_apply": 1, **dict.fromkeys(BN_KERNELS,
@@ -4830,9 +5079,12 @@ def phase_tp(device, grid=GRID, small_grid=TP_SMALL_GRID) -> dict:
                   f"{full} == {want}")
             want_wf = dict(want, **{"maxpool_bwd_window" if s else
                                     "maxpool_bwd": 1})
-            check(wf == want_wf, f"[tp] (b) rank {r} wf-step launches {wf} "
-                  f"== {want_wf}")
-            launches[f"rank{r}"] = {"full": full, "wf": wf}
+            for run in ("wf", "wf-bf16"):
+                got = rank["b"][run]["launches"]
+                check(got == want_wf, f"[tp] (b) rank {r} {run}-step "
+                      f"launches {got} == {want_wf}")
+            launches[f"rank{r}"] = {run: rank["b"][run]["launches"]
+                                    for run in ("full", "wf", "wf-bf16")}
             collectives[f"rank{r}"] = rank["b"]["full"]["collectives"]
         worst = _tp_gap(rank["c"], small, f"[tp] (c) rank {r}")
         log(f"[tp] (c) (2, 2, 2) gloo rank {r}: AnatCNN depth 10 at "
@@ -4842,8 +5094,10 @@ def phase_tp(device, grid=GRID, small_grid=TP_SMALL_GRID) -> dict:
             f"{rank['c']['collectives']}")
     log(f"[tp] eight-rank spawn {spawn_s:.1f} s (groups made in "
         f"{ranks[0]['groups_s']:.1f} s)")
-    out = {"launches": launches, "collectives": collectives}
+    out = {"launches": launches, "collectives": collectives,
+           "bf16_gaps": bf16_gaps}
     if device.type == "cuda":
+        out["nccl"] = out_a
         out.update(phase_tp_kernels(device))
     return out
 
@@ -5037,10 +5291,26 @@ def main() -> int:
                         tp_result["launches"].items()},
         "batch": 8, "shape": list(STEM), **{k: k8[k] for k in keys},
         "bfloat16": {k: pool[torch.bfloat16][1][k] for k in keys}})
+    tp_times = tp_result["times"]
     for name in TP_KERNELS:
         run = "wf" if name == "maxpool_bwd_window" else "full"
         per_rank = {k: v[run][name]
                     for k, v in tp_result["launches"].items()}
+        extra = {}
+        if name == "zscore_partials":
+            extra = {"empty_ms": tp_times[name]["empty_ms"],
+                     "blocks": tp_times[name]["blocks"],
+                     "batch_1": {k: tp_times[name + " B=1"][k] for k in
+                                 keys + ("empty_ms", "blocks")}}
+        elif name == "maxpool_bwd_window":
+            extra = {"plan": tp_times[name]["plan"],
+                     "launches_bf16": {k: v["wf-bf16"][name] for k, v in
+                                       tp_result["launches"].items()},
+                     "bfloat16": {k: tp_times[name + " bf16"][k] for k in
+                                  keys + ("plan",)},
+                     "edge": {dt: {k: tp_times["maxpool_bwd edge " + dt][k]
+                                   for k in keys + ("plan",)}
+                              for dt in ("f32", "bf16")}}
         kernels.append({
             "name": name, "route": "cuda", "source": TP_SOURCE[name],
             "replaces": TP_REPLACES[name],
@@ -5051,7 +5321,7 @@ def main() -> int:
             "max_abs_err": tp_result["err"][name], "batch": TP_BATCH,
             "shape": list(TP_POOL if name == "maxpool_bwd_window"
                           else TP_ZSCORE),
-            **{k: tp_result["times"][name][k] for k in keys}})
+            **{k: tp_times[name][k] for k in keys}, **extra})
     per_forward = {b: {
         "ms": r["total"]["graph_ms"], "bound_ms": r["total"]["graph_bound_ms"],
         "ms_f32_out": r["total"]["ms"],

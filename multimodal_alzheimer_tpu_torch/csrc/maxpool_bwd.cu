@@ -35,26 +35,42 @@
 //      slice exactly when its first match among the 9 offsets of od = 0 is
 //      the element, so the block computes those 9 compares again from the
 //      slice it holds and needs nothing of the next slab;
-//   3. it computes dx of its input slices [2 a0, 2 a0 + 2 Td) in shared
-//      memory, where x was: a thread per 2x2x2 block of inputs reads the
-//      codes and g of the block's 8 windows once, and each element adds the
-//      credits of its at most 8 windows in ascending output order;
-//   4. it writes that dx slab out once, in 16-byte chunks of its global
-//      address (a vector store per whole chunk, element stores for the
-//      partial ones at either end).
-// Td is the largest (at most 8) whose shared memory lets three blocks of 512
-// threads share an SM, so one block's copies run under another's compares:
-// 2 at the ResNet-18 stem in f32 (68 KB), 5 in bf16 (75 KB). (Blocks of 256
-// or 1024 threads, and budgets for 2 or 4 blocks an SM, were slower on an
-// H100; PERF.md has the times.) A volume whose slab of one output slice
-// does not fit in a block's 227 KB is refused (the wrapper raises): f32
-// slices up to about 14,000 elements fit, the stem's have 2,530.
+//   3. it computes dx of its input slices [2 a0, 2 a0 + 2 Td) and stores
+//      it straight to device memory: a thread per 2x2x2 block of inputs
+//      reads the codes and g of the block's 8 windows once, each element
+//      adds the credits of its at most 8 windows in ascending output order,
+//      and neighbouring threads store neighbouring pairs of a row, element
+//      by element (one 8-byte store a pair in f32, or 4-byte in bf16, ran
+//      slower on an H100; PERF.md).
+// Td is at most 8 and is chosen per shape (below, "Slab depth"), among the
+// depths whose shared memory lets three blocks of 512 threads share an SM,
+// so that one block's copies run under another's compares: at the ResNet-18
+// stem 2 in f32 (68 KB), 5 in bf16 (75 KB). (Blocks of 256 or 1024 threads,
+// and budgets for 2 or 4 blocks an SM, were slower there on an H100;
+// PERF.md has the times.) A volume whose slab of one output slice does not
+// fit in a block's 227 KB is refused (the wrapper raises): f32 slices up to
+// about 14,000 elements fit, the stem's have 2,530.
 // Bound: memory. The function reads x, y and g once and writes dx once (at
 // the ResNet-18 stem, batch 8, f32: 537 MB, 0.160 ms at 3.35 TB/s); this
 // design reads the slab's first input slice twice (Td + 1/2 slices of x per
-// Td of dx) and the window y and g of one slice twice. Measured on an H100
-// bytes do not hold it back (bf16 is little faster than f32); PERF.md has
-// the times and the variants tried.
+// Td of dx) and the window y and g of one slice twice, the second reads
+// mostly from the L2.
+//
+// Slab depth. A depth window's grid is short: 11 output slices of 128
+// planes at one rank's [tp] window. There the grid is one or two rounds of
+// resident blocks, and what a round costs is the most that one SM was
+// given: slabs of 5 slices of 11 (5, 5, 1) put three 5-slice slabs on some
+// SMs and three 1-slice ones on others. The launch takes the Td of least
+// modelled time, max(the grid's bytes over the SMs, the first round's most
+// bytes on one SM with block i on SM i mod SMs), a block's bytes being its
+// own slices of x, y, g and dx and half its halo slices (which the L2
+// mostly serves); the deeper slab on a tie. On an H100 this picks the
+// fastest Td of 1-8, or one within 0.5% of it, at the [tp] windows and the
+// stem in both dtypes (PERF.md): the stem's Td stays 2 / 5, a bf16
+// window's goes from 5 to 3. (Blocks that cut the plane into H-tiles with
+// halo rows, and blocks that walk several planes staging the next one's x
+// under the dx, were built and measured too: slower at every one of those
+// shapes.)
 //
 // A depth window (maxpool_bwd_window), for a volume whose depth is sharded
 // over several processes (parallel/tp.py): x holds the global input planes
@@ -80,18 +96,22 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWindow = 3;
 constexpr int kNoWinner = kWindow * kWindow * kWindow;
-constexpr int kChunk = 16;  // bytes of one cp.async and one vector store
+constexpr int kChunk = 16;  // bytes of one cp.async
 constexpr int kMaxSlab = 8;
 // Shared memory of one block such that three share an SM's 228 KB (1 KB of
 // each block's is reserved), and the most one block may take.
 constexpr int64_t kSlabBudget = (233472 - 3 * 1024) / 3;
 constexpr int64_t kMaxSmem = 232448;
+constexpr int kMaxY = 65535;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -160,7 +180,7 @@ Layout layout(const Shape& s, int td, int64_t item) {
                 static_cast<int>((td + 1) * ohw)};
 }
 
-// Output slices per slab: the largest that lets three blocks share an SM,
+// The deepest slab (output slices) that lets three blocks share an SM,
 // else 1 if it fits a block at all, else 0.
 int slab_slices(const Shape& s, int64_t item) {
   const int64_t hw = static_cast<int64_t>(s.h) * s.w;
@@ -239,14 +259,15 @@ __device__ __forceinline__ int winner(const T* sx, int a, int b, int c,
   return hits ? __ffs(hits) - 1 : kNoWinner;
 }
 
+// At least three blocks an SM: the registers may not cut the blocks that
+// the shared memory lets an SM hold.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
     maxpool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                        const T* __restrict__ g, T* __restrict__ dx, Shape s,
                        int td, Layout lay) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // The x region starts after kChunk guard bytes; dx of the slab takes its
-  // place once the codes are made.
+  // The x region starts after kChunk guard bytes.
   unsigned char* x_region = smem + kChunk;
   unsigned char* y_region = smem + lay.x_bytes;
   unsigned char* g_region = y_region + lay.y_bytes;
@@ -288,18 +309,16 @@ __global__ void __launch_bounds__(kThreads)
               : winner<9>(sx, a0 + la, b, c, xi0, xi1, s, hw, m));
     }
     cp_async_wait<0>();
-    __syncthreads();  // codes made, g staged, x no longer read
+    __syncthreads();  // codes made, g staged
 
-    // dx of the slab in shared memory, where x was, at the offset modulo 16
-    // of its place in dx. A thread takes a 2x2x2 block of input elements
-    // (2t + di, 2u + dj, 2v + dk): along one axis, element 2t lies in window
-    // t alone (at offset 1), and element 2t + 1 in windows t (offset 2) and
-    // t + 1 (offset 0), in that, ascending, order; so the block draws on the
-    // 8 windows (t + da, u + db, v + dc), whose codes and g it reads once.
-    T* out = dx + p * stride + (s.lead + 2 * a0 + i_first) * hw;
-    const uintptr_t addr = reinterpret_cast<uintptr_t>(out);
-    const int head = static_cast<int>(addr % kChunk);
-    T* sdx = reinterpret_cast<T*>(x_region + head);
+    // dx of the slab straight to device memory. A thread takes a 2x2x2
+    // block of input elements (2t + di, 2u + dj, 2v + dk): along one axis,
+    // element 2t lies in window t alone (at offset 1), and element 2t + 1
+    // in windows t (offset 2) and t + 1 (offset 0), in that, ascending,
+    // order; so the block draws on the 8 windows (t + da, u + db, v + dc),
+    // whose codes and g it reads once. Neighbouring threads take
+    // neighbouring v, so a warp stores whole runs of a row.
+    T* out = dx + p * stride + (s.lead + 2 * a0) * hw;
     for (int q = threadIdx.x; q < ((n_dx + 1) / 2 - i_first) * bh * bw;
          q += kThreads) {
       const int tq = q / (bh * bw), rem = q - tq * bh * bw;
@@ -322,12 +341,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int di = 0; di < 2; ++di)
 #pragma unroll
-        for (int dj = 0; dj < 2; ++dj)
+        for (int dj = 0; dj < 2; ++dj) {
+          const int i = 2 * t + di, j = 2 * u + dj;
+          if (i < i_first || i >= n_dx || j >= s.h) continue;
+          float acc[2];
 #pragma unroll
           for (int dk = 0; dk < 2; ++dk) {
-            const int i = 2 * t + di, j = 2 * u + dj, k = 2 * v + dk;
-            if (i < i_first || i >= n_dx || j >= s.h || k >= s.w) continue;
-            float acc = 0.0f;
+            acc[dk] = 0.0f;
 #pragma unroll
             for (int da = 0; da <= di; ++da)
 #pragma unroll
@@ -338,29 +358,13 @@ __global__ void __launch_bounds__(kThreads)
                   const int oh = dj ? 2 - 2 * db : 1;
                   const int ow = dk ? 2 - 2 * dc : 1;
                   if (code[da][db][dc] == (od * kWindow + oh) * kWindow + ow)
-                    acc = add_rounded(acc, gv[da][db][dc], T());
+                    acc[dk] = add_rounded(acc[dk], gv[da][db][dc], T());
                 }
-            from_float(acc, &sdx[((i - i_first) * s.h + j) * s.w + k]);
           }
-    }
-    __syncthreads();
-
-    // The slab's dx out in 16-byte chunks of its global address: a vector
-    // store per whole chunk, element stores for the partial ones at the ends.
-    unsigned char* base = reinterpret_cast<unsigned char*>(addr - head);
-    const int end =
-        head + (n_dx - i_first) * hw * static_cast<int>(sizeof(T));
-    for (int lo = threadIdx.x * kChunk; lo < end; lo += kThreads * kChunk) {
-      if (lo >= head && lo + kChunk <= end) {
-        *reinterpret_cast<uint4*>(base + lo) =
-            *reinterpret_cast<const uint4*>(x_region + lo);
-      } else {
-        const int from = lo > head ? lo : head;
-        const int to = lo + kChunk < end ? lo + kChunk : end;
-        for (int byte = from; byte < to; byte += sizeof(T))
-          *reinterpret_cast<T*>(base + byte) =
-              *reinterpret_cast<const T*>(x_region + byte);
-      }
+          T* row = out + i * hw + j * s.w + 2 * v;
+          from_float(acc[0], row);
+          if (2 * v + 1 < s.w) from_float(acc[1], row + 1);
+        }
     }
     __syncthreads();  // the next plane's copies overwrite shared memory
   }
@@ -379,7 +383,6 @@ cudaError_t run(const void* x, const void* y, const void* g, void* dx,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  constexpr int kMaxY = 65535;
   const dim3 grid((s.od + td - 1) / td, s.planes < kMaxY ? s.planes : kMaxY);
   maxpool_bwd_kernel<T><<<grid, kThreads, lay.total(), stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
@@ -407,14 +410,101 @@ Shape shape_of(int64_t planes, int64_t d, int64_t h, int64_t w,
                static_cast<int>(pooled(w)), static_cast<int>(lead)};
 }
 
+// Blocks of `smem` bytes that one SM holds at once (0 if none fits), by the
+// kernel's registers, threads and shared memory.
+template <typename T>
+int occupancy(int smem) {
+  const void* fn = reinterpret_cast<const void*>(maxpool_bwd_kernel<T>);
+  int blocks = 0;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                    smem) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return blocks;
+}
+
+// A slab depth with its grid, the blocks the card holds at once and the
+// model's cost (bytes on the busiest SM).
+struct Plan {
+  int td;
+  int64_t blocks, resident, smem;
+  double cost;
+};
+
+Plan plan(const Shape& s, int td, int64_t item, int sms) {
+  const int64_t slabs = (s.od + td - 1) / td;
+  const int64_t rows = s.planes < kMaxY ? s.planes : kMaxY;
+  const int64_t smem = layout(s, td, item).total();
+  const int occ = item == 4 ? occupancy<float>(static_cast<int>(smem))
+                            : occupancy<__nv_bfloat16>(static_cast<int>(smem));
+  Plan out{td, slabs * rows, static_cast<int64_t>(occ) * sms, smem, -1.0};
+  if (out.resident == 0) return out;
+  // Bytes of one block of slab k: its own slices of x, y, g and dx, and
+  // half of its halo slices.
+  const double hw = static_cast<double>(s.h) * s.w, ohw = 1.0 * s.oh * s.ow;
+  auto work = [&](int64_t k) {
+    const int a0 = static_cast<int>(k) * td;
+    const int full = (a0 + td < s.od ? a0 + td : s.od) - a0;
+    const int n_win = (a0 + td + 1 < s.od ? a0 + td + 1 : s.od) - a0;
+    const int xi0 = 2 * a0 - 1 > -s.lead ? 2 * a0 - 1 : -s.lead;
+    const int xi1 = 2 * a0 + 2 * td < s.d ? 2 * a0 + 2 * td : s.d;
+    const int own = xi1 - 2 * a0 + (a0 == 0 && s.lead ? 1 : 0);
+    return item * ((2.0 * own + 0.5 * (xi1 - xi0 - own)) * hw +
+                   2.0 * (full + 0.5 * (n_win - full)) * ohw);
+  };
+  double total = 0.0;
+  for (int64_t k = 0; k < slabs; ++k) total += work(k) * s.planes;
+  // The first round: block i (slab i mod slabs) on SM i mod sms.
+  double busiest = 0.0;
+  const int64_t first = out.blocks < out.resident ? out.blocks : out.resident;
+  for (int64_t sm = 0; sm < sms && sm < first; ++sm) {
+    double on = 0.0;
+    for (int64_t i = sm; i < first; i += sms) on += work(i % slabs);
+    busiest = on > busiest ? on : busiest;
+  }
+  out.cost = total / sms > busiest ? total / sms : busiest;
+  return out;
+}
+
+// The slab depth for a shape (cached per device and shape): of 1 to
+// slab_slices(), the one of least cost, the deepest on a tie; slab_slices()
+// where the model has no answer (a depth of 1 that fits no three blocks).
+Plan choose(const Shape& s, int64_t item, int device) {
+  static std::mutex lock;
+  static std::map<std::tuple<int, int, int, int, int, int, int64_t>, Plan>
+      cache;
+  const auto key = std::make_tuple(device, s.planes, s.d, s.h, s.w, s.lead,
+                                   item);
+  std::lock_guard<std::mutex> guard(lock);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) return hit->second;
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess)
+    sms = 0;
+  const int deepest = slab_slices(s, item);
+  Plan best = plan(s, deepest, item, sms);
+  for (int td = deepest - 1; td >= 1 && best.cost >= 0.0; --td) {
+    const Plan p = plan(s, td, item, sms);
+    if (p.cost >= 0.0 && p.cost < best.cost) best = p;
+  }
+  cache[key] = best;
+  return best;
+}
+
 int launch(const void* x, const void* y, const void* g, void* dx,
-           const Shape& s, int64_t dtype, int64_t device,
+           const Shape& s, int td, int64_t dtype, int64_t device,
            void* stream_handle) {
-  const int td = slab_slices(s, item_size(dtype));
-  if (td == 0) return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   auto stream = static_cast<cudaStream_t>(stream_handle);
+  if (td == 0) td = choose(s, item_size(dtype), static_cast<int>(device)).td;
+  if (td > s.od) td = s.od;
   if (dtype == 0) return run<float>(x, y, g, dx, s, td, stream);
   return run<__nv_bfloat16>(x, y, g, dx, s, td, stream);
 }
@@ -423,22 +513,49 @@ int launch(const void* x, const void* y, const void* g, void* dx,
 
 extern "C" {
 
-// Output slices per slab that maxpool_bwd takes for a plane of D x H x W
-// elements of this dtype; 0 if a slab of one does not fit in shared memory
-// (maxpool_bwd then refuses the shape).
+// Output slices of the deepest slab that lets three blocks share an SM for
+// a plane of D x H x W elements of this dtype; 0 if a slab of one does not
+// fit in shared memory (maxpool_bwd then refuses the shape).
 int64_t maxpool_bwd_slab(int64_t d, int64_t h, int64_t w, int64_t dtype) {
   if (!valid(1, d, h, w, dtype)) return 0;
   return slab_slices(shape_of(1, d, h, w), item_size(dtype));
 }
 
+// The slab depth maxpool_bwd (lead 0) or maxpool_bwd_window (lead 1) takes
+// for planes of Dw x H x W on `device`, into out[0, 4): Td, blocks,
+// resident blocks on the card, shared memory bytes a block. Returns 0, or
+// a CUDA error.
+int maxpool_bwd_plan(int64_t planes, int64_t dw, int64_t h, int64_t w,
+                     int64_t lead, int64_t dtype, int64_t device,
+                     int64_t* out) {
+  if (!valid(planes, dw - lead, h, w, dtype, lead))
+    return cudaErrorInvalidValue;
+  const Shape s = shape_of(planes, dw - lead, h, w, lead);
+  if (slab_slices(s, item_size(dtype)) == 0) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const Plan p = choose(s, item_size(dtype), static_cast<int>(device));
+  const int64_t v[4] = {p.td, p.blocks, p.resident, p.smem};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return 0;
+}
+
 // dx (planes, D, H, W) of MaxPool3d(3, 2, 1) from x (planes, D, H, W) and
 // y, g (planes, Do, Ho, Wo), Do = (D - 1) / 2 + 1 and so on. dtype: 0
-// float32, 1 bfloat16.
+// float32, 1 bfloat16. td: output slices a block, 0 to let the kernel
+// choose (tests and timing force others); more than a block holds is
+// refused.
 int maxpool_bwd(const void* x, const void* y, const void* g, void* dx,
                 int64_t planes, int64_t d, int64_t h, int64_t w,
-                int64_t dtype, int64_t device, void* stream_handle) {
-  if (!valid(planes, d, h, w, dtype)) return cudaErrorInvalidValue;
-  return launch(x, y, g, dx, shape_of(planes, d, h, w), dtype, device,
+                int64_t dtype, int64_t td, int64_t device,
+                void* stream_handle) {
+  if (!valid(planes, d, h, w, dtype) || td < 0 || td > kMaxSlab)
+    return cudaErrorInvalidValue;
+  const Shape s = shape_of(planes, d, h, w);
+  if (slab_slices(s, item_size(dtype)) == 0 ||
+      (td > 0 && layout(s, td, item_size(dtype)).total() > kMaxSmem))
+    return cudaErrorInvalidValue;
+  return launch(x, y, g, dx, s, static_cast<int>(td), dtype, device,
                 stream_handle);
 }
 
@@ -448,12 +565,17 @@ int maxpool_bwd(const void* x, const void* y, const void* g, void* dx,
 // Then Do = (Dw - lead - 1) / 2 + 1: the caller checks the window.
 int maxpool_bwd_window(const void* x, const void* y, const void* g, void* dx,
                        int64_t planes, int64_t dw, int64_t h, int64_t w,
-                       int64_t lead, int64_t dtype, int64_t device,
-                       void* stream_handle) {
-  if (!valid(planes, dw - lead, h, w, dtype, lead))
+                       int64_t lead, int64_t dtype, int64_t td,
+                       int64_t device, void* stream_handle) {
+  if (!valid(planes, dw - lead, h, w, dtype, lead) || td < 0 ||
+      td > kMaxSlab)
     return cudaErrorInvalidValue;
-  return launch(x, y, g, dx, shape_of(planes, dw - lead, h, w, lead), dtype,
-                device, stream_handle);
+  const Shape s = shape_of(planes, dw - lead, h, w, lead);
+  if (slab_slices(s, item_size(dtype)) == 0 ||
+      (td > 0 && layout(s, td, item_size(dtype)).total() > kMaxSmem))
+    return cudaErrorInvalidValue;
+  return launch(x, y, g, dx, s, static_cast<int>(td), dtype, device,
+                stream_handle);
 }
 
 }  // extern "C"

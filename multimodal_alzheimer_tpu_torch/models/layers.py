@@ -134,17 +134,20 @@ class Conv3d(nn.Conv3d):
         backend runs a bfloat16 convolution: there oneDNN's own bfloat16
         conv3d backward returns NaN weight gradients at random (the strided
         ResNet's 1-voxel layer-3/4 maps at 12x14x12). Every other conv stays
-        oneDNN's."""
+        oneDNN's. Under a spatial axis every rank decides alike, from the
+        map's global depth and every rank's slab of it (``_thin``): the
+        ranks exchange halo planes in the dtype they compute in."""
         dt = self.compute_dtype
         bias = self.bias.to(dt) if self.bias is not None else None
         x, weight = x.to(dt), self.weight.to(dt)
+        tp = sharding.active()
         upcast = (dt != torch.float32 and x.device.type == "cpu"
-                  and min(x.shape[2:]) == 1 and torch.is_grad_enabled()
-                  and (x.requires_grad or weight.requires_grad))
+                  and torch.is_grad_enabled()
+                  and (x.requires_grad or weight.requires_grad)
+                  and _thin(x, tp))
         if upcast:
             x, weight = x.float(), weight.float()
             bias = bias.float() if bias is not None else None
-        tp = sharding.active()
         if tp is not None and tp.tp.shape[1:] != (1, 1):
             y = sharding.conv3d(self, x, weight, bias, depth_pad)
         else:
@@ -152,6 +155,19 @@ class Conv3d(nn.Conv3d):
                 x = F.pad(x, (0, 0, 0, 0) + tuple(depth_pad))
             y = self._conv_forward(x, weight, bias)
         return y.to(dt) if upcast else y
+
+
+def _thin(x: torch.Tensor, tp) -> bool:
+    """Whether the map x holds is one voxel thick along an axis. Under a
+    spatial axis x is a depth slab: then whether the volume's global depth,
+    its H or W, or any spatial rank's non-empty slab is one voxel, the same
+    answer on every rank."""
+    dims = list(x.shape[2:])
+    if tp is not None and tp.tp.shape[2] > 1:
+        depth, n = tp.global_depth(x), tp.tp.shape[2]
+        slabs = (sharding.depth_slab(depth, q, n) for q in range(n))
+        dims = [depth] + dims[1:] + [hi - lo for lo, hi in slabs if hi > lo]
+    return min(dims) == 1
 
 
 class Linear(nn.Linear):

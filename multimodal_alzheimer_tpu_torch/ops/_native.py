@@ -143,18 +143,21 @@ def library() -> ctypes.CDLL:
     lib.bn_dx.restype = ctypes.c_int
     lib.zscore_norm.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     lib.zscore_norm.restype = ctypes.c_int
-    lib.zscore_partials.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+    lib.zscore_partials_blocks.argtypes = [i64, i64, i64]
+    lib.zscore_partials_blocks.restype = i64
+    lib.zscore_partials.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                                    ptr]
     lib.zscore_partials.restype = ctypes.c_int
     lib.zscore_apply.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr]
     lib.zscore_apply.restype = ctypes.c_int
     lib.maxpool_bwd_slab.argtypes = [i64, i64, i64, i64]
     lib.maxpool_bwd_slab.restype = i64
-    lib.maxpool_bwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64,
-                                i64, ptr]
+    lib.maxpool_bwd.argtypes = [ptr, ptr, ptr, ptr] + [i64] * 7 + [ptr]
     lib.maxpool_bwd.restype = ctypes.c_int
-    lib.maxpool_bwd_window.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
-                                       i64, i64, i64, ptr]
+    lib.maxpool_bwd_window.argtypes = [ptr, ptr, ptr, ptr] + [i64] * 8 + [ptr]
     lib.maxpool_bwd_window.restype = ctypes.c_int
+    lib.maxpool_bwd_plan.argtypes = [i64] * 7 + [ptr]
+    lib.maxpool_bwd_plan.restype = ctypes.c_int
     lib.int8_conv3d_max_k.argtypes = []
     lib.int8_conv3d_max_k.restype = i64
     f32 = ctypes.c_float

@@ -22,9 +22,15 @@ kernel told where the window lies. A window that starts at plane 0 is
 today's call on its planes; one that starts at an odd plane (an interior
 slab, with its lead plane) goes through the entry point
 ``maxpool_bwd_window`` and adds one to ``LAUNCHES["maxpool_bwd_window"]``.
+
+The kernel chooses per shape how many output slices a block takes (its
+model of a short grid's load on each SM; ``slab_plan()`` reports the
+choice); the result is the same bit for bit at any slab.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -79,13 +85,15 @@ def _check_operands(x: torch.Tensor, y: torch.Tensor,
 
 
 def max_pool3d_backward(x: torch.Tensor, y: torch.Tensor,
-                        g: torch.Tensor, first: int = 0,
-                        depth=None) -> torch.Tensor:
+                        g: torch.Tensor, first: int = 0, depth=None,
+                        slab: int = 0) -> torch.Tensor:
     """dx of MaxPool3d(3, 2, 1) from x (B, C, D, H, W), its pool y and the
     cotangent g, all of one dtype: the first ``x == y`` offset of each
     window takes g, added in ascending output order. With ``depth``, x is
     the depth window ``[first, first + D)`` of a volume of depth ``depth``
-    and y, g the outputs that read it."""
+    and y, g the outputs that read it. ``slab`` (1-8 output slices a
+    block) overrides the kernel's own choice (``slab_plan()``), for tests
+    and timing; the result is the same."""
     lead = 0
     if depth is not None:
         lead, _, do = window_outputs(first, x.shape[2], depth)
@@ -100,7 +108,8 @@ def max_pool3d_backward(x: torch.Tensor, y: torch.Tensor,
     dx = torch.empty_like(x)
     args = (x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), b * c,
             d, h, w)
-    tail = (_DTYPE_CODES[x.dtype], x.device.index, _native.stream(x.device))
+    tail = (_DTYPE_CODES[x.dtype], slab, x.device.index,
+            _native.stream(x.device))
     name = "maxpool_bwd_window" if lead else "maxpool_bwd"
     if lead:
         code = lib.maxpool_bwd_window(*args, lead, *tail)
@@ -109,6 +118,25 @@ def max_pool3d_backward(x: torch.Tensor, y: torch.Tensor,
     _native.check(code, name)
     LAUNCHES[name] += 1
     return dx
+
+
+PLAN_KEYS = ("td", "blocks", "resident", "smem")
+
+
+def slab_plan(x: torch.Tensor, first: int = 0, depth=None) -> dict:
+    """The slab the kernel takes for x (on the card, as
+    ``max_pool3d_backward`` takes it): output slices ``td`` a block, the
+    grid's ``blocks``, the blocks ``resident`` on the card at once, and a
+    block's shared memory ``smem`` in bytes."""
+    d = x.shape[2]
+    lead = 0 if depth is None else window_outputs(first, d, depth)[0]
+    out = (ctypes.c_int64 * len(PLAN_KEYS))()
+    b, c, _, h, w = x.shape
+    code = _native.library().maxpool_bwd_plan(
+        b * c, d, h, w, lead, _DTYPE_CODES[x.dtype], x.device.index,
+        ctypes.addressof(out))
+    _native.check(code, "maxpool_bwd_plan")
+    return dict(zip(PLAN_KEYS, list(out)))
 
 
 class _MaxPool3dPL(torch.autograd.Function):

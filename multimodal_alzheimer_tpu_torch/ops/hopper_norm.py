@@ -312,16 +312,42 @@ def zscore_stats(partials: torch.Tensor):
     return mean.to(torch.float32), torch.sqrt(var).to(torch.float32)
 
 
+# zscore_partials' workspace per (device index, stream handle): the int32
+# arrival counters (zeroed once; the kernel leaves them 0) and the float64
+# slots of the blocks' partials, grown when a batch needs more.
+_PARTIALS_WORKSPACE: dict = {}
+
+
+def _partials_workspace(device, stream: int, batch: int, slots: int):
+    key = (device.index, stream)
+    arrivals, partials = _PARTIALS_WORKSPACE.get(key, (None, None))
+    if arrivals is None or arrivals.numel() < batch:
+        arrivals = torch.zeros(batch, dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < 3 * slots:
+        partials = torch.empty(3 * slots, dtype=torch.float64, device=device)
+    _PARTIALS_WORKSPACE[key] = arrivals, partials
+    return arrivals, partials
+
+
 def _zscore_partials_kernel(vol: torch.Tensor,
                             mask: torch.Tensor) -> torch.Tensor:
-    """One launch, no workspace: a cluster of 16 blocks per slab."""
+    """One launch: a grid sized by the card, the blocks' partials merged
+    in a fixed order by the last block of each slab, in a workspace kept
+    per device and stream (allocated at a call only when it grows)."""
     lib = _native.library()
     b, n = vol.shape
     device = vol.device
+    blocks = lib.zscore_partials_blocks(b, n, device.index)
+    if blocks == 0:
+        raise ValueError(f"zscore_partials takes no ({b}, {n}) batch on "
+                         f"{device}")
+    stream = _native.stream(device)
+    arrivals, slots = _partials_workspace(device, stream, b, b * blocks)
     out = torch.empty((b, 3), dtype=torch.float64, device=device)
     code = lib.zscore_partials(vol.data_ptr(), mask.data_ptr(),
-                               out.data_ptr(), b, n, device.index,
-                               _native.stream(device))
+                               out.data_ptr(), slots.data_ptr(),
+                               arrivals.data_ptr(), b, n, device.index,
+                               stream)
     _native.check(code, "zscore_partials")
     LAUNCHES["zscore_partials"] += 1
     return out

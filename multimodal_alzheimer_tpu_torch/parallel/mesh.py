@@ -20,8 +20,9 @@ result the single-device one:
   draws its mask at the global shape, the losses divide by global sums.
 * ``all_reduce_sum``: a sum over the ranks that autograd differentiates
   (the backward sums the cotangents); ``gather_rows``: every rank's rows
-  into the global batch on every rank, by an all-reduce of a zero-filled
-  buffer (gloo's ``all_gather`` takes CPU tensors only).
+  into the global batch on every rank, by an all-gather on nccl and an
+  all-reduce of a zero-filled buffer on gloo (whose ``all_gather`` takes
+  CPU tensors only).
 
 Every collective adds one to ``Mesh.counts``.
 """
@@ -79,6 +80,23 @@ class Mesh:
                                    device=self._object_device())
         self.counts["broadcast"] += 1
         return box[0]
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (of one shape) stacked in rank order, (size,
+        ...) on every rank; not counted (the caller counts its kind). On
+        nccl ``all_gather_into_tensor``; on gloo, whose ``all_gather``
+        takes CPU tensors only, an all-reduce of a zero-filled buffer, which
+        moves twice the bytes."""
+        shape = (self.size,) + tuple(t.shape)
+        if self.backend == "nccl":
+            out = t.new_empty(shape)
+            dist.all_gather_into_tensor(out, t.contiguous(),
+                                        group=self.group)
+            return out
+        out = t.new_zeros(shape)
+        out[self.rank] = t
+        dist.all_reduce(out, group=self.group)
+        return out
 
     def reset_counts(self) -> None:
         for name in self.counts:
@@ -293,10 +311,24 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def gather_rows(x, dp: DataParallel):
     """Every rank's rows of ``x`` (this rank's at ``dp.offset``; or of each
-    tensor of a nest of dicts) as the global batch, on every rank."""
+    tensor of a nest of dicts) as the global batch, on every rank. On nccl
+    an all-gather (counted as one, under ``"all_gather"``), which needs
+    the rank's block of rows at ``rank * rows``, as ``Mesh.rows`` gives
+    it; on gloo an all-reduce of a zero-filled buffer."""
     if isinstance(x, dict):
         return {k: gather_rows(v, dp) for k, v in x.items()}
+    mesh, rows = dp.mesh, x.shape[0]
+    if mesh.backend == "nccl":
+        if rows * mesh.size != dp.global_rows or \
+                dp.offset != mesh.rank * rows:
+            raise ValueError(f"rows [{dp.offset}, {dp.offset + rows}) of "
+                             f"{dp.global_rows} are not rank {mesh.rank}'s "
+                             f"block of {mesh.size}")
+        out = mesh.all_gather(x).reshape((dp.global_rows,)
+                                         + tuple(x.shape[1:]))
+        mesh.counts["all_gather"] = mesh.counts.get("all_gather", 0) + 1
+        return out
     out = torch.zeros((dp.global_rows,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    out[dp.offset:dp.offset + x.shape[0]] = x
-    return dp.mesh.all_reduce_(out)
+    out[dp.offset:dp.offset + rows] = x
+    return mesh.all_reduce_(out)

@@ -309,16 +309,12 @@ def gather_state(model, mesh: Mesh3D) -> dict:
 
 
 def _gather(t: torch.Tensor, dim: int, mesh: Mesh3D) -> torch.Tensor:
-    """Every model rank's ``t`` side by side along ``dim``: an all-reduce
-    of a zero-filled buffer (gloo's ``all_gather`` takes CPU tensors
-    only)."""
-    n, m = mesh.shape[1], mesh.coords[1]
+    """Every model rank's ``t`` side by side along ``dim`` (``Mesh.
+    all_gather``: an all-gather on nccl, an all-reduce of a zero-filled
+    buffer on gloo)."""
     shape = list(t.shape)
-    per = shape[dim]
-    shape[dim] = per * n
-    full = t.new_zeros(shape)
-    full.narrow(dim, m * per, per).copy_(t)
-    dist.all_reduce(full, group=mesh.model.group)
+    shape[dim] *= mesh.shape[1]
+    full = mesh.model.all_gather(t).movedim(0, dim).reshape(shape)
     mesh.counts["all_gather"] += 1
     return full
 
@@ -430,27 +426,27 @@ class TensorParallel(DataParallel):
 
     def gather_spatial(self, t: torch.Tensor) -> list:
         """Every spatial rank's ``t`` (of one shape), in rank order."""
-        sp = self.tp.spatial
-        buf = t.new_zeros((sp.size,) + tuple(t.shape))
-        buf[sp.rank] = t
-        dist.all_reduce(buf, group=sp.group)
+        buf = self.tp.spatial.all_gather(t)
         self.tp.counts["all_gather"] += 1
         return list(buf.unbind(0))
 
     def gather_depth(self, t: torch.Tensor) -> torch.Tensor:
         """The whole volumes of which ``t`` holds the rank's slabs (depth
-        third from last), on every spatial rank."""
+        third from last), on every spatial rank: each slab padded to
+        ceil(depth / n) planes, gathered, the padding cut."""
         depth = self.global_depth(t)
         sp = self.tp.spatial
         lo, hi = depth_slab(depth, sp.rank, sp.size)
+        per = -(-depth // sp.size)
         axis = t.ndim - 3
         shape = list(t.shape)
-        shape[axis] = depth
-        full = t.new_zeros(shape)
-        full.narrow(axis, lo, hi - lo).copy_(t)
-        dist.all_reduce(full, group=sp.group)
+        shape[axis] = per
+        slab = t.new_zeros(shape)
+        slab.narrow(axis, 0, hi - lo).copy_(t)
+        shape[axis] = per * sp.size
+        full = sp.all_gather(slab).movedim(0, axis).reshape(shape)
         self.tp.counts["all_gather"] += 1
-        return full
+        return full.narrow(axis, 0, depth)
 
 
 @contextlib.contextmanager
@@ -495,12 +491,20 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
-        if ctx.reduce:
+        per, m, dim = ctx.per, mesh.coords[1], ctx.dim
+        if ctx.reduce and mesh.backend == "nccl":
+            shape = list(g.shape)
+            parts = g.reshape(shape[:dim] + [mesh.shape[1], per]
+                              + shape[dim + 1:]).movedim(dim, 0).contiguous()
+            out = g.new_empty(parts.shape[1:])
+            dist.reduce_scatter_tensor(out, parts, group=mesh.model.group)
+            mesh.counts["reduce_scatter"] += 1
+            return out, None, None, None
+        if ctx.reduce:  # gloo: the whole sum, then the rank's slice
             g = g.contiguous().clone()
             dist.all_reduce(g, group=mesh.model.group)
             mesh.counts["reduce_scatter"] += 1
-        per, m = ctx.per, mesh.coords[1]
-        return g.narrow(ctx.dim, m * per, per).contiguous(), None, None, None
+        return g.narrow(dim, m * per, per).contiguous(), None, None, None
 
 
 class _Scatter(torch.autograd.Function):
@@ -703,10 +707,7 @@ def halo_planes(x: torch.Tensor, lo, hi, fill: float = 0.0, *,
         depth = ctx.global_depth(x)
     sp = mesh.spatial
     if isinstance(lo, int):
-        bounds = torch.zeros((sp.size, 2), dtype=torch.int64,
-                             device=mesh.device)
-        bounds[sp.rank] = torch.tensor([lo, hi])
-        dist.all_reduce(bounds, group=sp.group)
+        bounds = sp.all_gather(torch.tensor([lo, hi], device=mesh.device))
         mesh.counts["all_gather"] += 1
         need = [tuple(b) for b in bounds.tolist()]
     else:

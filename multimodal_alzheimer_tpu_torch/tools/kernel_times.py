@@ -6,11 +6,13 @@ same shape beside it as context), with their plain versions and torch's
 call for the same function where there is one, at the shapes of the
 flagship ResNet-18 serving and train paths; and the entry points of the
 depth-sharded path (K3 split into ``zscore_partials`` and ``zscore_apply``,
-K8's ``maxpool_bwd_window``) at one rank's shapes of a (1, 2, 2) mesh.
+K8's ``maxpool_bwd_window``, in float32 and bfloat16, and K8 on the edge
+window) at one rank's shapes of a (1, 2, 2) mesh; with ``--k8-slabs``, K8
+at every slab depth at those windows and the stem.
 
     python3 multimodal_alzheimer_tpu_torch/tools/kernel_times.py \
         [--root DIR] [--label NAME] [--out FILE] [--kernels K,...] \
-        [--bn-dtypes float32,bfloat16]
+        [--bn-dtypes float32,bfloat16] [--k8-slabs]
 
 It imports ``multimodal_alzheimer_tpu_torch`` from ``--root`` (default: the
 checkout that holds this file) and calls only its public wrappers
@@ -317,40 +319,168 @@ def pool_bound(shape, dtype, winners=None) -> tuple:
 # z-scores its depth slab of the scans (46 or 45 planes of 91); the stem
 # pool's input is 32 channels of 64 and the rank's slab of 46 planes, whose
 # interior slab (spatial rank 1, outputs [12, 23)) reads planes [23, 46)
-# with its lead plane through the window entry point.
+# with its lead plane through the window entry point, and whose edge slab
+# (spatial rank 0, outputs [0, 12)) planes [0, 24) through maxpool_bwd.
 TP_ZSCORE = (4, 46) + GRID[1:]
 TP_POOL = (4, 32, 46, 55, 46)
 TP_POOL_WINDOW = (23, 46)  # its planes [first, end) of 46
+TP_POOL_EDGE = (0, 24)
 TP_KERNELS = ("zscore_partials", "zscore_apply", "maxpool_bwd_window")
+# K8's slab depths timed by --k8-slabs (output slices a block).
+K8_SLABS = tuple(range(1, 9))
 
 
-def tp_window_operands(generator, device, dtype=torch.float32):
-    """The interior slab's window of the stem pool at ``TP_POOL``: x, y and
-    g of the window (ReLU-zero ties), and its first plane and depth."""
-    first, end = TP_POOL_WINDOW
+def tp_window_operands(generator, device, dtype=torch.float32,
+                       window=TP_POOL_WINDOW):
+    """A slab's window of the stem pool at ``TP_POOL`` (the interior one by
+    default): x, y and g of the window (ReLU-zero ties), and its first plane
+    and depth."""
+    first, end = window
     depth = TP_POOL[2]
     x = torch.relu(torch.randn(TP_POOL, generator=generator, device=device)
                    - 0.8).to(dtype)
     y = torch.nn.functional.max_pool3d(x, 3, 2, 1)
     o_lo = (first + 1) // 2
+    o_hi = (end + 1) // 2 if end < depth else y.shape[2]
     xw = x[:, :, first:end].contiguous()
-    yw = y[:, :, o_lo:].contiguous()
+    yw = y[:, :, o_lo:o_hi].contiguous()
     g = torch.randn(yw.shape, generator=generator, device=device).to(dtype)
     return xw, yw, g, first, depth
 
 
+def window_bound(xw, yw, first: int) -> tuple:
+    """K8's bound on a window: x, y, g read once, dx written once; the
+    compares this run's winners make and one add per credited window."""
+    from multimodal_alzheimer_tpu_torch.ops.maxpool import (
+        NO_WINNER,
+        winner_offsets,
+    )
+
+    winners = winner_offsets(xw, yw, lead=1 if first else 0)
+    ops = float((winners.clamp(max=NO_WINNER - 1).to(torch.float64) + 1)
+                .sum() + (winners < NO_WINNER).sum())
+    pool_bytes = (2 * xw.numel() + 2 * yw.numel()) * xw.element_size()
+    return bound(pool_bytes, ops)
+
+
+def time_window(generator, device, dtype=torch.float32,
+                window=TP_POOL_WINDOW) -> dict:
+    """K8 on a [tp] slab's window (``maxpool_bwd_window`` for the interior
+    one, ``maxpool_bwd`` for the edge one): device and per-call ms, the
+    plain version's ms, the bound and the kernel's slab (``slab_plan``)."""
+    from multimodal_alzheimer_tpu_torch.ops import hopper_maxpool
+    from multimodal_alzheimer_tpu_torch.ops.maxpool import (
+        max_pool3d_backward_plain,
+    )
+
+    xw, yw, g, first, depth = tp_window_operands(generator, device, dtype,
+                                                 window)
+    pool_bytes = (2 * xw.numel() + 2 * yw.numel()) * xw.element_size()
+    pools = [(xw, yw, g)] + [(xw.clone(), yw.clone(), g.clone()) for _ in
+                             range(n_copies(pool_bytes) - 1)]
+    kernel = [lambda c=c: hopper_maxpool.max_pool3d_backward(
+        c[0], c[1], c[2], first, depth) for c in pools]
+    bound_ms, bound_by = window_bound(xw, yw, first)
+    plan = (hopper_maxpool.slab_plan(xw, first, depth)
+            if hasattr(hopper_maxpool, "slab_plan") else None)
+    return {"ms": device_ms(kernel), "call_ms": call_ms(kernel),
+            "plain_ms": device_ms([lambda: max_pool3d_backward_plain(
+                xw, yw, g, first, depth)], launches=5, reps=3, spin=False),
+            "library_ms": None, "library_call_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan,
+            "dims": tuple(xw.shape), "window": window, "dtype": str(dtype)}
+
+
+# An empty kernel, for the time of a launch alone on a given grid; built
+# here at first use, beside the port's kernels, and never part of them.
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int64_t blocks, int64_t threads, int64_t device,
+                            void* stream) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  empty_kernel<<<static_cast<unsigned>(blocks),
+                 static_cast<unsigned>(threads), 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+"""
+# Threads of a zscore_partials block (kPartialThreads, csrc/zscore_norm.cu).
+PARTIAL_THREADS = 512
+
+
+def empty_launcher():
+    """``empty_launch(blocks, threads, device, stream)`` of EMPTY_SOURCE,
+    compiled with the port's nvcc into its build directory."""
+    import ctypes
+    import hashlib
+
+    from multimodal_alzheimer_tpu_torch.ops import _native
+
+    digest = hashlib.sha256(EMPTY_SOURCE.encode()).hexdigest()[:16]
+    lib = _native.BUILD_DIR / f"libempty_launch-{digest}.so"
+    if not lib.exists():
+        _native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = lib.with_suffix(".cu")
+        src.write_text(EMPTY_SOURCE)
+        subprocess.run([_native._nvcc(), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", str(lib), str(src)],
+                       check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).empty_launch
+    fn.argtypes = [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def time_partials(batch: int, generator, device) -> dict:
+    """``zscore_partials`` on ``batch`` slabs of 46x109x91: device and
+    per-call ms, the plain version's ms, the bound, and, where the checkout
+    sizes its grid by the card (``zscore_partials_blocks``), the grid's
+    blocks and the device ms of an empty kernel on the same grid (the
+    launch alone)."""
+    from multimodal_alzheimer_tpu_torch.ops import _native, hopper_norm
+
+    shape = (batch,) + TP_ZSCORE[1:]
+    vol = torch.randn(shape, generator=generator, device=device) * 400 + 900
+    mask = (torch.rand(shape, generator=generator, device=device)
+            > 0.35).to(torch.float32)
+    voxels = float(vol.numel())
+    copies = [(vol, mask)] + [(vol.clone(), mask.clone()) for _ in range(
+        n_copies(8 * voxels) - 1)]
+    kernel = [lambda v=v, m=m: hopper_norm.zscore_partials(v, m)
+              for v, m in copies]
+    rows = vol.reshape(batch, -1), mask.reshape(batch, -1)
+    bound_ms, bound_by = bound(8 * voxels + 24 * batch, 3 * voxels)
+    out = {"ms": device_ms(kernel), "call_ms": call_ms(kernel),
+           "plain_ms": device_ms([lambda: hopper_norm.zscore_partials_plain(
+               *rows)], launches=5, reps=3, spin=False),
+           "library_ms": None, "library_call_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "empty_ms": None,
+           "dims": shape}
+    lib = _native.library()
+    if hasattr(lib, "zscore_partials_blocks"):
+        index, stream = device.index or 0, _native.stream(device)
+        blocks = batch * lib.zscore_partials_blocks(batch, rows[0].shape[1],
+                                                    index)
+        empty = empty_launcher()
+        out["empty_ms"] = device_ms([lambda: empty(
+            blocks, PARTIAL_THREADS, index, stream)])
+        out["blocks"] = blocks
+    return out
+
+
 def time_tp(generator, device) -> dict:
     """The [tp] entry points at ``TP_ZSCORE`` and ``TP_POOL``: K3's
-    ``zscore_partials`` and ``zscore_apply`` on one rank's slabs, K8's
-    ``maxpool_bwd_window`` on the interior window; device and per-call ms,
+    ``zscore_partials`` (at batch 4 and 1) and ``zscore_apply`` on one
+    rank's slabs, K8's ``maxpool_bwd_window`` on the interior window in
+    float32 and bfloat16 and K8 on the edge window; device and per-call ms,
     the plain versions' ms and the bounds (bytes: each input read once,
     each output written once, at 3.35 TB/s). No library call computes
     these functions."""
-    from multimodal_alzheimer_tpu_torch.ops import hopper_maxpool, hopper_norm
-    from multimodal_alzheimer_tpu_torch.ops.maxpool import (
-        max_pool3d_backward_plain,
-        winner_offsets,
-    )
+    from multimodal_alzheimer_tpu_torch.ops import hopper_norm
 
     b = TP_ZSCORE[0]
     vol = torch.randn(TP_ZSCORE, generator=generator, device=device) * 400 \
@@ -363,40 +493,64 @@ def time_tp(generator, device) -> dict:
     mean = torch.full((b,), 900.0, device=device)
     std = torch.full((b,), 400.0, device=device)
     rows = vol.reshape(b, -1), mask.reshape(b, -1)
-    xw, yw, g, first, depth = tp_window_operands(generator, device)
-    pool_bytes = (2 * xw.numel() + 2 * yw.numel()) * xw.element_size()
-    pools = [(xw, yw, g)] + [(xw.clone(), yw.clone(), g.clone()) for _ in
-                             range(n_copies(pool_bytes) - 1)]
-    winners = winner_offsets(xw, yw, lead=1)
-    from multimodal_alzheimer_tpu_torch.ops.maxpool import NO_WINNER
-
-    ops = float((winners.clamp(max=NO_WINNER - 1).to(torch.float64) + 1)
-                .sum() + (winners < NO_WINNER).sum())
-    calls = {
-        "zscore_partials": (
-            [lambda v=v, m=m: hopper_norm.zscore_partials(v, m)
-             for v, m in copies],
-            lambda: hopper_norm.zscore_partials_plain(*rows),
-            bound(8 * voxels + 24 * b, 3 * voxels)),
-        "zscore_apply": (
-            [lambda v=v, m=m: hopper_norm.zscore_apply(v, m, mean, std)
-             for v, m in copies],
-            lambda: hopper_norm.zscore_apply_plain(*rows, mean, std),
-            bound(12 * voxels + 8 * b, 4 * voxels)),
-        "maxpool_bwd_window": (
-            [lambda c=c: hopper_maxpool.max_pool3d_backward(
-                c[0], c[1], c[2], first, depth) for c in pools],
-            lambda: max_pool3d_backward_plain(xw, yw, g, first, depth),
-            bound(pool_bytes, ops)),
-    }
-    out = {}
-    for name, (kernel, plain, (bound_ms, bound_by)) in calls.items():
-        out[name] = {"ms": device_ms(kernel), "call_ms": call_ms(kernel),
-                     "plain_ms": device_ms([plain], launches=5, reps=3,
-                                           spin=False),
-                     "library_ms": None, "library_call_ms": None,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+    kernel = [lambda v=v, m=m: hopper_norm.zscore_apply(v, m, mean, std)
+              for v, m in copies]
+    bound_ms, bound_by = bound(12 * voxels + 8 * b, 4 * voxels)
+    out = {"zscore_partials": time_partials(b, generator, device),
+           "zscore_partials B=1": time_partials(1, generator, device),
+           "zscore_apply": {
+               "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+               "plain_ms": device_ms([lambda: hopper_norm.zscore_apply_plain(
+                   *rows, mean, std)], launches=5, reps=3, spin=False),
+               "library_ms": None, "library_call_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by, "dims": TP_ZSCORE},
+           "maxpool_bwd_window": time_window(generator, device),
+           "maxpool_bwd_window bf16": time_window(generator, device,
+                                                  torch.bfloat16)}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        out[f"maxpool_bwd edge {tag}"] = time_window(
+            generator, device, dtype, TP_POOL_EDGE)
     return out
+
+
+def time_k8_slabs(generator, device, slabs=K8_SLABS) -> list:
+    """K8's device ms at each slab depth of ``slabs`` that fits a block and
+    at the one it chooses, at the [tp] interior and edge windows and the
+    ResNet-18 stem (batch 8) in float32 and bfloat16; each result checked
+    equal to the chosen slab's. Rows: case, dtype, slab, ms, equal, and the
+    chosen slab's plan."""
+    from multimodal_alzheimer_tpu_torch.ops import hopper_maxpool
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, window in (("interior", TP_POOL_WINDOW),
+                             ("edge", TP_POOL_EDGE)):
+            xw, yw, g, first, depth = tp_window_operands(generator, device,
+                                                         dtype, window)
+            cases.append((name, dtype, xw, yw, g, first, depth))
+        x, y, _, g = pool_operands(STEM, dtype, generator, device)
+        cases.append(("stem", dtype, x, y, g, 0, None))
+    rows = []
+    for name, dtype, x, y, g, first, depth in cases:
+        nbytes = (2 * x.numel() + 2 * y.numel()) * x.element_size()
+        copies = [(x, y, g)] + [(x.clone(), y.clone(), g.clone()) for _ in
+                                range(n_copies(nbytes) - 1)]
+        want = hopper_maxpool.max_pool3d_backward(x, y, g, first, depth)
+        chosen = hopper_maxpool.slab_plan(x, first, depth)
+        for td in (0,) + tuple(slabs):
+            def call(c, td=td):
+                return hopper_maxpool.max_pool3d_backward(
+                    c[0], c[1], c[2], first, depth, slab=td)
+            try:
+                equal = torch.equal(call(copies[0]), want)
+            except RuntimeError:  # the slab does not fit a block
+                continue
+            ms = device_ms([lambda c=c: call(c) for c in copies], reps=3)
+            rows.append({"case": name, "dtype": str(dtype),
+                         "slab": "chosen" if td == 0 else td,
+                         "plan": chosen, "ms": ms, "equal": equal})
+        del copies
+    return rows
 
 
 def bn_operands(shape, generator, device, dtype=torch.float32):
@@ -763,6 +917,9 @@ def main() -> int:
         help="comma-separated kernels to time")
     parser.add_argument("--bn-dtypes", default="float32,bfloat16",
                         help="activation dtypes of the BatchNorm kernels")
+    parser.add_argument("--k8-slabs", action="store_true",
+                        help="time K8 at every slab depth of K8_SLABS at "
+                        "the [tp] windows and the stem")
     args = parser.parse_args()
     chosen = args.kernels.split(",")
     bn_dtypes = [getattr(torch, d) for d in args.bn_dtypes.split(",")]
@@ -801,15 +958,25 @@ def main() -> int:
                      "dtype": str(dtype), **r})
         print(row_line(args.label, f"maxpool_bwd stem {STEM} {dtype}", r),
               flush=True)
-    tp_chosen = [k for k in TP_KERNELS if k in chosen]
-    if tp_chosen:
-        times = time_tp(gen, device)
-        for kernel in tp_chosen:
-            dims = TP_POOL if kernel == "maxpool_bwd_window" else TP_ZSCORE
-            rows.append({"kernel": kernel, "shape": "tp", "dims": dims,
-                         **times[kernel]})
-            print(row_line(args.label, f"{kernel} tp {dims}",
-                           times[kernel]), flush=True)
+    if any(k in chosen for k in TP_KERNELS):
+        for name, r in time_tp(gen, device).items():
+            kernel = name.split()[0]
+            if kernel not in chosen and not (
+                    kernel == "maxpool_bwd" and "maxpool_bwd_window"
+                    in chosen):
+                continue
+            rows.append({"kernel": name, "shape": "tp", **r})
+            extra = "".join(f", {key} {r[key]}" for key in
+                            ("empty_ms", "blocks", "plan") if r.get(key))
+            print(row_line(args.label, f"{name} tp {r['dims']}", r) + extra,
+                  flush=True)
+    if args.k8_slabs:
+        for r in time_k8_slabs(gen, device):
+            rows.append({"kernel": "maxpool_bwd slabs", **r})
+            print(f"[{args.label}] K8 slab {r['case']} {r['dtype']} "
+                  f"{r['slab']}: {r['ms']:.4f} ms, equal {r['equal']}"
+                  + (f" (plan {r['plan']})" if r["slab"] == "chosen"
+                     else ""), flush=True)
     from multimodal_alzheimer_tpu_torch.ops import int8_conv
 
     fused = hasattr(int8_conv, "int8_conv3d_fused")

@@ -276,10 +276,8 @@ def test_memoised_bounds_launch_the_apply_kernel_alone(device):
     got = make_device_preprocess(normalize_mri={"per_scan_norm": "min_max"})(
         {"mri": vol, "mri_mask": mask, "mri_qminmax": qminmax})["mri"]
     torch.cuda.synchronize()
-    assert hopper_norm.LAUNCHES == {
-        "minmax_select": before["minmax_select"],
-        "minmax_apply": before["minmax_apply"] + 1,
-        "zscore": before["zscore"]}
+    assert hopper_norm.LAUNCHES == dict(
+        before, minmax_apply=before["minmax_apply"] + 1)
     want = hopper_norm.minmax_apply_plain(vol, mask, qminmax[:, 0],
                                           qminmax[:, 1])
     assert (got - want).abs().max().item() <= 1e-6
@@ -381,6 +379,48 @@ def test_zscore_split_matches_plain(device, shape, n):
     torch.testing.assert_close(mean.double(), ref_mean, rtol=2e-6, atol=0)
     torch.testing.assert_close(std.double(), ref_std, rtol=2e-6, atol=0)
     _check_zscore(out, hopper_norm.per_scan_zscore(vol, mask))
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("shape", [(46, 109, 91), (7, 13, 11), (1, 1, 5)],
+                         ids=["slab", "odd", "five"])
+@pytest.mark.parametrize("offset", [0, 1, 3], ids=["aligned", "off1",
+                                                   "off3"])
+def test_zscore_partials_on_a_card_sized_grid(device, batch, shape, offset):
+    """K3s: a grid sized by the card, each block's partial in its slot, the
+    last block of a slab adding the slots in index order. Within 1e-12 of
+    the plain float64 sums at batches 1-5, an odd number of voxels and
+    operands 1 or 3 floats past a 16-byte boundary (the volume and mask
+    equally, or not: offset 3 shifts the mask alone); two calls give the
+    same bits with one launch each, and after the first call (which may
+    grow the workspace) a call allocates its (B, 3) output alone."""
+    rng = np.random.default_rng(31)
+    n = int(np.prod(shape))
+
+    def shifted(a, by):
+        flat = torch.empty(a.size + by, dtype=torch.float32, device=device)
+        flat[by:] = torch.from_numpy(a.reshape(-1))
+        return flat[by:].view((batch,) + shape)
+
+    vol = rng.normal(900, 40, (batch,) + shape).astype(np.float32)
+    mask = (rng.random((batch,) + shape) > 0.35).astype(np.float32)
+    vol_t = shifted(vol, offset % 2)
+    mask_t = shifted(mask, offset)
+    want = hopper_norm.zscore_partials_plain(
+        vol_t.reshape(batch, n), mask_t.reshape(batch, n))
+    first = hopper_norm.zscore_partials(vol_t, mask_t)
+    before = hopper_norm.LAUNCHES["zscore_partials"]
+    second, allocated = _allocations(
+        lambda: hopper_norm.zscore_partials(vol_t, mask_t))
+    torch.cuda.synchronize()
+    assert hopper_norm.LAUNCHES["zscore_partials"] == before + 1
+    assert allocated == 1
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, want, rtol=1e-12, atol=0)
+    blocks = _native.library().zscore_partials_blocks(batch, n, device.index
+                                                      or 0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert blocks == min(-(-sms // batch), -(-n // 2048))
 
 
 def test_zscore_is_one_launch_without_a_workspace(device):
@@ -854,6 +894,65 @@ def test_maxpool_backward_off_a_16_byte_boundary(device, dtype):
     assert torch.equal(got, max_pool3d_backward_plain(x, y, g))
 
 
+# (shape, output slabs): ragged depth windows of 1-3 output slices, odd
+# and even H and W, and the [tp] stem slab.
+WINDOW_CASES = [((2, 3, 7, 11, 9), 3), ((1, 4, 9, 13, 10), 4),
+                ((2, 2, 11, 9, 13), 2), ((1, 32, 46, 55, 46), 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", WINDOW_CASES, ids=lambda c: str(c[0]))
+def test_maxpool_window_slabs_equal_plain(device, case, dtype):
+    """K8w: every depth window of the outputs split into 2-4 slabs, with
+    lead 0 (through maxpool_bwd) and 1 (maxpool_bwd_window), at the slab
+    depth the kernel chooses and at forced ones (1, 2, 3, 5 and 8 output
+    slices a block, deeper than the window or ragged), bit for bit the
+    plain version, one launch a call."""
+    shape, n = case
+    x, y, g = _pool_operands(shape, "relu_ties", dtype, device, seed=17)
+    depth, do = shape[2], y.shape[2]
+    for o_lo, o_hi in _slabs(do, n):
+        if o_hi == o_lo:
+            continue
+        first, end = max(2 * o_lo - 1, 0), min(2 * o_hi, depth)
+        xw = x[:, :, first:end].contiguous()
+        yw = y[:, :, o_lo:o_hi].contiguous()
+        gw = g[:, :, o_lo:o_hi].contiguous()
+        want = max_pool3d_backward_plain(xw, yw, gw, first, depth)
+        name = "maxpool_bwd_window" if first else "maxpool_bwd"
+        for slab in (0, 1, 2, 3, 5, 8):
+            before = hopper_maxpool.LAUNCHES[name]
+            got = hopper_maxpool.max_pool3d_backward(xw, yw, gw, first,
+                                                     depth, slab=slab)
+            torch.cuda.synchronize()
+            assert hopper_maxpool.LAUNCHES[name] == before + 1
+            assert torch.equal(got, want), (first, end, slab)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_maxpool_slab_plans(device, dtype):
+    """The slab the kernel plans: at the [tp] interior window at most the
+    deepest that three blocks an SM allow, every block resident in two
+    rounds at most, bit for bit the plain version; at the ResNet-18 stem
+    the deepest (a long grid, where a deeper slab reads less halo)."""
+    from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
+        tp_window_operands,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    xw, yw, g, first, depth = tp_window_operands(gen, device, dtype)
+    plan = hopper_maxpool.slab_plan(xw, first, depth)
+    deepest = _native.library().maxpool_bwd_slab(
+        xw.shape[2] - 1, *xw.shape[3:], 0 if dtype == torch.float32 else 1)
+    assert 1 <= plan["td"] <= deepest, plan
+    assert 0 < plan["blocks"] <= 2 * plan["resident"], plan
+    got = hopper_maxpool.max_pool3d_backward(xw, yw, g, first, depth)
+    assert torch.equal(got, max_pool3d_backward_plain(xw, yw, g, first,
+                                                      depth))
+    stem = torch.empty((8, 64, 46, 55, 46), dtype=dtype, device=device)
+    assert hopper_maxpool.slab_plan(stem)["td"] == _slab(stem.shape, dtype)
+
+
 def test_maxpool_backward_launches_once_without_a_workspace(device):
     x, y, g = _pool_operands((8, 64, 46, 55, 46), "relu_ties",
                              torch.float32, device, seed=6)
@@ -862,6 +961,22 @@ def test_maxpool_backward_launches_once_without_a_workspace(device):
         lambda: hopper_maxpool.max_pool3d_backward(x, y, g))
     assert allocated == 1 and dx.shape == x.shape  # dx alone
     assert hopper_maxpool.LAUNCHES["maxpool_bwd"] == before + 1
+
+
+def test_maxpool_window_launches_once_without_a_workspace(device):
+    """K8w on the [tp] interior window allocates dx alone, one launch."""
+    from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
+        tp_window_operands,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    xw, yw, g, first, depth = tp_window_operands(gen, device)
+    hopper_maxpool.max_pool3d_backward(xw, yw, g, first, depth)  # chooses
+    before = hopper_maxpool.LAUNCHES["maxpool_bwd_window"]
+    dx, allocated = _allocations(
+        lambda: hopper_maxpool.max_pool3d_backward(xw, yw, g, first, depth))
+    assert allocated == 1 and dx.shape == xw.shape
+    assert hopper_maxpool.LAUNCHES["maxpool_bwd_window"] == before + 1
 
 
 def test_maxpool_autograd_function_launches_once(device):

@@ -261,7 +261,9 @@ def test_unknown_maxpool_impl_raises():
 # of the input slices [2 a0, 2 a0 + 2 td) in 16-byte chunks counted from an
 # address `head` bytes past a 16-byte boundary, each element adding its
 # windows' credits in ascending output order with one rounding per add. It
-# must equal the plain version bitwise, and write every element once.
+# must equal the plain version bitwise, and write every element once. (The
+# chunked write-out is the slab design's before dx went straight to device
+# memory; the window walk below follows the kernel as it is.)
 
 # The JAX grids above and one whose D = 13 gives Do = 7: a ragged last slab
 # for td = 2 and 4.
@@ -402,3 +404,163 @@ def test_k8_slab_walk_equals_plain(shape, dtype, td, head, kind):
                      for t in (xt, y, g)), td, head - head % item, item)
     np.testing.assert_array_equal(got.reshape(want.shape), want)
 
+
+
+# ------------------------------------ K8 on depth windows, on the CPU --
+#
+# K8's blocks on a depth window (csrc/maxpool_bwd.cu, its current design:
+# slabs of td output slices, dx stored straight to device memory), walked
+# in numpy with the kernel's own index and byte arithmetic over a model of
+# a block's shared memory (the x region after 16 guard bytes, then y and g;
+# unwritten bytes NaN, so a tap that read the wrong place would lose its
+# match): the staged input slices [2 a0 - 1, 2 a0 + 2 td - 1] (the lead
+# plane as slice -1 on an interior window) and y and g of the windows
+# [a0, a0 + td], each one range at its global address modulo 16, copied in
+# 16-byte chunks; the winner codes (27 compares, 9 for the halo window
+# a0 + td), slices and rows clamped and the taps in the padding masked; dx
+# of the input slices [2 a0, 2 a0 + 2 td) (and the lead plane's in the
+# first block), each element adding its windows' credits in ascending
+# output order. Whole volumes and interior windows, slab depths that do
+# and do not divide the outputs. It must equal the plain version bitwise,
+# write every element once, and keep every staged copy inside its region
+# and every read inside the block's shared memory.
+
+WINDOW_WALK_SHAPES = [(1, 13, 11, 9, 2), (1, 9, 7, 6, 2), (1, 12, 10, 14, 1)]
+
+
+def _r16(nbytes):
+    return (nbytes + 15) // 16 * 16
+
+
+def _stage(mem, region, src, start, n, addr, item, limit):
+    """``stage()``: src[start, start + n) into mem from byte ``region`` at
+    its address modulo 16; returns that head."""
+    head = (addr + start * item) % 16
+    lo = (region + head) // item
+    assert lo + n <= limit // item
+    mem[lo:lo + n] = src[start:start + n]
+    return head
+
+
+def _window_walk(x, y, g, td, lead, addrs, item):
+    """dx (planes, lead + D', H, W) by K8's blocks of td output slices;
+    ``addrs``: the byte addresses of x, y and g's first elements."""
+    planes, dw, h, w = x.shape
+    d = dw - lead
+    od, oh, ow = y.shape[1:]
+    hw, ohw = h * w, oh * ow
+    rnd = _bf16_round if item == 2 else (lambda v: v)
+    td = min(td, od)
+    x_bytes = 16 + _r16((2 * td + 1) * hw * item) + 16
+    y_bytes = _r16((td + 1) * ohw * item) + 16
+    y_reg, g_reg, total = x_bytes, x_bytes + y_bytes, x_bytes + 2 * y_bytes
+    a_x, a_y, a_g = addrs
+    xf, yf, gf = (t.reshape(-1) for t in (x, y, g))
+    dx = np.full(x.size, np.nan, np.float32)
+    writes = np.zeros(x.size, np.int64)
+    for a0 in range(0, od, td):
+        full_end, ae = min(a0 + td, od), min(a0 + td + 1, od)
+        n_win = ae - a0
+        xi0, xi1 = max(2 * a0 - 1, -lead), min(2 * a0 + 2 * td, d)
+        n_dx = xi1 - 2 * a0
+        i_first = -1 if a0 == 0 and lead else 0
+        for p in range(planes):
+            mem = np.full(total // item, np.nan, np.float32)
+            hx = _stage(mem, 16, xf, p * dw * hw + (lead + xi0) * hw,
+                        (xi1 - xi0) * hw, a_x, item, x_bytes)
+            hy = _stage(mem, y_reg, yf, (p * od + a0) * ohw, n_win * ohw,
+                        a_y, item, g_reg)
+            hg = _stage(mem, g_reg, gf, (p * od + a0) * ohw, n_win * ohw,
+                        a_g, item, total)
+            sx, sy, sg = ((16 + hx) // item, (y_reg + hy) // item,
+                          (g_reg + hg) // item)
+            codes = np.empty(n_win * ohw, np.int64)
+            for e in range(codes.size):
+                la, rem = divmod(e, ohw)
+                b, c = divmod(rem, ow)
+                a = a0 + la
+                m = mem[sy + e]
+                taps = K_ALL if a < full_end else K_OD0
+                valid = taps
+                for bad, mask in ((2 * a - 1 < -lead, K_OD0),
+                                  (2 * a + 1 >= d, K_OD2),
+                                  (2 * b - 1 < 0, K_OH0),
+                                  (2 * b + 1 >= h, K_OH2),
+                                  (2 * c - 1 < 0, K_OW0),
+                                  (2 * c + 1 >= w, K_OW2)):
+                    if bad:
+                        valid &= ~mask
+                hits = 0
+                for od_ in range(3 if taps == K_ALL else 1):
+                    i = min(max(2 * a - 1 + od_, xi0), xi1 - 1) - xi0
+                    for oh_ in range(3):
+                        j = min(max(2 * b - 1 + oh_, 0), h - 1)
+                        at = sx + i * hw + j * w + 2 * c - 1
+                        for ow_ in range(3):
+                            assert 0 <= at + ow_ < total // item
+                            if mem[at + ow_] == m:
+                                hits |= 1 << ((od_ * 3 + oh_) * 3 + ow_)
+                hits &= valid
+                if m == -np.inf:
+                    hits |= taps & ~valid
+                codes[e] = (hits & -hits).bit_length() - 1 if hits else 27
+            for i in range(i_first, n_dx):
+                tt, di = divmod(i, 2)
+                for j in range(h):
+                    u, dj = divmod(j, 2)
+                    for k in range(w):
+                        v, dk = divmod(k, 2)
+                        acc = np.float32(0.0)
+                        for da in range(di + 1):
+                            for db in range(dj + 1):
+                                for dc in range(dk + 1):
+                                    la, b, c = tt + da, u + db, v + dc
+                                    if not (0 <= la < n_win and b < oh
+                                            and c < ow):
+                                        continue
+                                    code = 3 * (3 * (2 - 2 * da if di else 1)
+                                                + (2 - 2 * db if dj else 1)
+                                                ) + (2 - 2 * dc if dk else 1)
+                                    o = (la * oh + b) * ow + c
+                                    if codes[o] == code:
+                                        acc = rnd(np.float32(acc
+                                                             + mem[sg + o]))
+                        e = (p * dw + lead + 2 * a0 + i) * hw + j * w + k
+                        dx[e] = acc
+                        writes[e] += 1
+    assert (writes == 1).all()
+    return dx.reshape(x.shape)
+
+
+@pytest.mark.parametrize("kind", ["relu_ties", "constant_blocks",
+                                  "neg_inf_border"])
+@pytest.mark.parametrize("heads", [(0, 0, 0), (4, 8, 12)],
+                         ids=["aligned", "heads"])
+@pytest.mark.parametrize("window", ["whole", "lead"])
+@pytest.mark.parametrize("td", [1, 2, 3, 8])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", WINDOW_WALK_SHAPES, ids=str)
+def test_k8_window_walk_equals_plain(shape, dtype, td, window, heads,
+                                     kind):
+    torch_dtype = DTYPES[dtype][1]
+    item = torch.tensor([], dtype=torch_dtype).element_size()
+    xt = _ncdhw(_input(kind, shape, seed=13), torch_dtype)
+    y = pool_forward(xt)
+    g = torch.from_numpy(np.random.default_rng(14).normal(
+        size=y.shape).astype(np.float32)).to(torch_dtype)
+    depth, do = xt.shape[2], y.shape[2]
+    if window == "whole":
+        want = max_pool3d_backward_plain(xt, y, g)
+    else:  # an interior slab of outputs [1, do - 1): its lead plane 1
+        o0, o1 = 1, do - 1
+        first, end = 2 * o0 - 1, min(2 * o1, depth)
+        xt, y, g = (t[:, :, a:b].contiguous() for t, a, b in
+                    ((xt, first, end), (y, o0, o1), (g, o0, o1)))
+        want = max_pool3d_backward_plain(xt, y, g, first, depth)
+    planes = shape[0] * shape[-1]
+    arrays = [t.float().numpy().reshape((planes,) + t.shape[2:])
+              for t in (xt, y, g)]
+    addrs = [4096 + hd - hd % item for hd in heads]
+    got = _window_walk(*arrays, td, int(window == "lead"), addrs, item)
+    np.testing.assert_array_equal(got.reshape(want.shape),
+                                  want.float().numpy())

@@ -117,7 +117,20 @@ def _cases(weights: str) -> dict:
     cases[_name(False)]["steps"] = 2  # the second step keeps the shards
     cases["wf"] = dict(base, mesh=(1, 1, 2),
                        overrides={"fused_bn": "full", "maxpool_impl": "wf"})
+    cases["bf16"] = dict(base, mesh=(1, 2, 2), overrides={
+        "fused_bn": "full", "maxpool_impl": "wf", "dtype": torch.bfloat16})
+    # the same step with a planted fault, which the bf16 rule must fail
+    cases["bf16 dropped halo"] = dict(cases["bf16"], fault=True)
     return cases
+
+
+def _bumped(case: dict) -> dict:
+    """The case with its scans moved one bfloat16 ulp up (the control of
+    the bf16 tolerance)."""
+    mri = torch.from_numpy(case["batch"]["mri"]).to(torch.bfloat16)
+    up = torch.nextafter(mri, torch.full_like(mri, float("inf")))
+    return dict(case, batch=dict(case["batch"],
+                                 mri=up.to(torch.float32).numpy()))
 
 
 def _jax_preprocess(batch):
@@ -151,7 +164,9 @@ def _jax_step(variables, batch, fused, mesh3=None):
 
 def _reference(cases: dict, variables) -> dict:
     """The one-process port and JAX's steps, run while the ranks run."""
-    one = {name: step_case(case) for name, case in cases.items()}
+    one = {name: step_case(case) for name, case in cases.items()
+           if not case.get("fault")}
+    one["bf16 +1 ulp"] = step_case(_bumped(cases["bf16"]))
     batch = cases[_name("full")]["batch"]
     jax_one = {f: _jax_step(variables, batch, f) for f in FUSED}
     sharded = None
@@ -390,6 +405,60 @@ def test_wf_on_a_spatial_pair(run):
     _against_one_process(run, "wf")
 
 
+# chip_smoke.py's bf16 rule (BF16_FLOOR_FACTOR, BF16_FLOOR_SLACK): twice
+# the gap that moving the scans one bf16 ulp opens between two steps of
+# one process, plus 1e-3 relative for a control that happens to move
+# little.
+BF16_FACTOR, BF16_SLACK = 2.0, 1e-3
+
+
+def _bf16_gaps(got: dict, want: dict) -> tuple:
+    """(relative loss gap, largest relative gap of a parameter's gradient
+    norm) of a step against another."""
+    loss = abs(got["losses"][0] - want["losses"][0]) / abs(want["losses"][0])
+    worst = max(abs(float(got["grads"][k].norm()) - float(g.norm()))
+                / max(float(g.norm()), 1e-30)
+                for k, g in want["grads"].items())
+    return loss, worst
+
+
+def test_bf16_step_on_a_1_2_2_mesh(run):
+    """A bf16 AnatCNN step (``fused_bn="full"``, ``maxpool_impl="wf"``) on
+    a (1, 2, 2) mesh against the same step in one process: the loss and
+    every parameter's gradient norm within twice the gap that the scans
+    moved one bf16 ulp open in one process, plus 1e-3; every rank's
+    gradient of the classifier bias the same."""
+    _, ref, ranks = run
+    want, control = ref["one"]["bf16"], ref["one"]["bf16 +1 ulp"]
+    on = _on_mesh(ranks, "bf16")
+    assert len(on) == 4
+    first = on[0][1]
+    ctl_loss, ctl_worst = _bf16_gaps(control, want)
+    loss, worst = _bf16_gaps(first, want)
+    assert ctl_loss > 0 or ctl_worst > 0  # the control moved the step
+    assert loss <= BF16_FACTOR * ctl_loss + BF16_SLACK, (loss, ctl_loss)
+    assert worst <= BF16_FACTOR * ctl_worst + BF16_SLACK, (worst, ctl_worst)
+    for _, got in on:
+        assert np.isfinite(got["losses"]).all()
+        torch.testing.assert_close(got["cls_bias_grad"],
+                                   first["cls_bias_grad"], rtol=0, atol=0)
+
+
+def test_bf16_rule_fails_a_dropped_halo(run):
+    """The bf16 case's step with a planted fault (spatial rank 1 zeroes
+    the planes its depth windows receive from rank 0) fails the rule of
+    ``test_bf16_step_on_a_1_2_2_mesh`` on the loss and on the gradient
+    norms: the rule separates a wrong sharded step from bf16 rounding."""
+    _, ref, ranks = run
+    want, control = ref["one"]["bf16"], ref["one"]["bf16 +1 ulp"]
+    on = _on_mesh(ranks, "bf16 dropped halo")
+    assert len(on) == 4
+    ctl_loss, ctl_worst = _bf16_gaps(control, want)
+    loss, worst = _bf16_gaps(on[0][1], want)
+    assert loss > BF16_FACTOR * ctl_loss + BF16_SLACK, (loss, ctl_loss)
+    assert worst > BF16_FACTOR * ctl_worst + BF16_SLACK, (worst, ctl_worst)
+
+
 # ---------------------------------------------------------------- halos --
 
 
@@ -560,3 +629,158 @@ def test_minmax_on_a_spatial_axis(run):
     got = torch.cat([r["mri"] for _, r in on], dim=1)
     assert [r["slab"] for _, r in on] == [(0, 6), (6, 12)]
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ------------------------------------------------- nccl's collectives --
+#
+# On an nccl group the gathers are all_gather_into_tensor and the channel
+# gather's backward reduce_scatter_tensor (gloo, above, all-reduces
+# zero-filled buffers). One card holds one nccl rank, so here those two
+# collectives are stood in for: the ranks of a mesh run one after another
+# in this process, a first pass records each rank's input to each call, a
+# second hands each rank what nccl would (the inputs stacked in rank order;
+# the sum of the inputs' rank slices). The layouts around them (the
+# movedim and reshape of a channel gather, the padded slabs of a depth
+# gather, the rows of gather_rows) must give what the gloo path gives.
+
+
+class _FakeNccl:
+    def __init__(self, n: int):
+        self.n, self.seen, self.rank, self.call, self.done = n, {}, 0, 0, False
+
+    def _record(self, t):
+        key = self.call
+        self.call += 1
+        self.seen.setdefault(key, {})[self.rank] = t.detach().clone()
+        return [self.seen[key].get(q) for q in range(self.n)]
+
+    def all_gather_into_tensor(self, out, t, group=None):
+        parts = self._record(t)
+        if self.done:
+            out.copy_(torch.stack(parts))
+
+    def reduce_scatter_tensor(self, out, parts, group=None):
+        inputs = self._record(parts)
+        if self.done:
+            out.copy_(sum(p[self.rank] for p in inputs))
+
+    def run(self, fn):
+        """fn(rank) for each rank, twice; the second pass's results."""
+        for done in (False, True):
+            self.done, out = done, []
+            for r in range(self.n):
+                self.rank, self.call = r, 0
+                out.append(fn(r))
+        return out
+
+
+def _nccl_mesh(shape, index):
+    """A Mesh3D of ``shape`` at rank ``index`` on the CPU whose groups say
+    nccl (no process group: the collectives are the fakes')."""
+    coords = tuple(int(c) for c in np.unravel_index(index, shape))
+    counts = dict.fromkeys(tp.COUNTS, 0)
+    cpu = torch.device("cpu")
+
+    def sub(axes):
+        size = int(np.prod([shape[a] for a in axes]))
+        rank = int(np.ravel_multi_index([coords[a] for a in axes],
+                                        [shape[a] for a in axes]))
+        return tp.Mesh(None, rank, size, cpu, "nccl", counts)
+
+    return tp.Mesh3D(shape, coords, cpu, "nccl", sub((0,)), sub((1,)),
+                     sub((2,)), sub((0, 2)), sub((0, 1, 2)), counts)
+
+
+@pytest.fixture
+def fake_nccl(monkeypatch):
+    def make(n):
+        fake = _FakeNccl(n)
+        monkeypatch.setattr(torch.distributed, "all_gather_into_tensor",
+                            fake.all_gather_into_tensor)
+        monkeypatch.setattr(torch.distributed, "reduce_scatter_tensor",
+                            fake.reduce_scatter_tensor)
+        monkeypatch.setattr(torch.distributed, "all_reduce", None)
+        return fake
+    return make
+
+
+@pytest.mark.parametrize("dim", [0, 1, 2])
+def test_nccl_channel_gather_and_its_reduce_scatter(fake_nccl, dim):
+    """Three model ranks: the gather puts the slices side by side along
+    ``dim``; its backward gives each rank the sum of every rank's
+    cotangent over its slice; one all-gather and one reduce-scatter a
+    rank."""
+    rng = np.random.default_rng(dim)
+    parts = [torch.from_numpy(rng.normal(size=(2, 3, 4)).astype(np.float32))
+             for _ in range(3)]
+    whole_shape = tuple(3 * s if a == dim else s
+                        for a, s in enumerate((2, 3, 4)))
+    cots = [torch.from_numpy(rng.normal(size=whole_shape).astype(np.float32))
+            for _ in range(3)]
+
+    def rank(r):
+        mesh = _nccl_mesh((1, 3, 1), r)
+        x = parts[r].clone().requires_grad_(True)
+        y = tp._Gather.apply(x, mesh, dim, True)
+        y.backward(cots[r])
+        return y.detach(), x.grad, dict(mesh.counts)
+
+    out = fake_nccl(3).run(rank)
+    whole = torch.cat(parts, dim=dim)
+    total = sum(cots)
+    per = parts[0].shape[dim]
+    for r, (y, grad, counts) in enumerate(out):
+        torch.testing.assert_close(y, whole, rtol=0, atol=0)
+        torch.testing.assert_close(grad, total.narrow(dim, r * per, per),
+                                   rtol=1e-6, atol=1e-6)
+        assert counts["all_gather"] == 1 and counts["reduce_scatter"] == 1
+
+
+@pytest.mark.parametrize("depth,n", [(91, 2), (91, 4), (4, 3), (11, 4)])
+def test_nccl_depth_and_spatial_gathers(fake_nccl, depth, n):
+    """Spatial ranks holding JAX's uneven slabs (an empty one for 4 over
+    3): the depth gather is the whole volume on every rank, the spatial
+    gather every rank's tensor in rank order."""
+    rng = np.random.default_rng(depth + n)
+    volume = torch.from_numpy(rng.normal(size=(2, depth, 3, 5))
+                              .astype(np.float32))
+
+    def rank(r):
+        mesh = _nccl_mesh((1, 1, n), r)
+        lo, hi = tp.depth_slab(depth, r, n)
+        ctx = tp.TensorParallel(mesh.data, 2, 0, mesh, {(3, 5): depth})
+        full = ctx.gather_depth(volume[:, lo:hi].contiguous())
+        spread = ctx.gather_spatial(torch.full((2, 3), float(r)))
+        return full, spread, dict(mesh.counts)
+
+    for full, spread, counts in fake_nccl(n).run(rank):
+        torch.testing.assert_close(full, volume, rtol=0, atol=0)
+        assert [float(t[0, 0]) for t in spread] == [float(q)
+                                                    for q in range(n)]
+        assert counts["all_gather"] == 2
+
+
+def test_nccl_gather_rows(fake_nccl):
+    """gather_rows on an nccl mesh of 4: each rank's block of rows in rank
+    order, counted as one all-gather; a block not at its rank's offset is
+    refused."""
+    from multimodal_alzheimer_tpu_torch.parallel.mesh import (
+        DataParallel,
+        Mesh,
+        gather_rows,
+    )
+
+    rows = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+
+    def rank(r):
+        mesh = Mesh(None, r, 4, torch.device("cpu"), "nccl")
+        out = gather_rows({"a": rows[2 * r:2 * r + 2]},
+                          DataParallel(mesh, 8, 2 * r))
+        return out["a"], dict(mesh.counts)
+
+    for got, counts in fake_nccl(4).run(rank):
+        torch.testing.assert_close(got, rows, rtol=0, atol=0)
+        assert counts == {"all_reduce": 0, "broadcast": 0, "all_gather": 1}
+    mesh = Mesh(None, 1, 4, torch.device("cpu"), "nccl")
+    with pytest.raises(ValueError, match="block"):
+        gather_rows(rows[:2], DataParallel(mesh, 8, 0))

@@ -10,6 +10,8 @@ in making the groups; the ranks outside the mesh return None for it).
 with.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -36,6 +38,31 @@ def _batch(case: dict) -> dict:
     return {k: torch.from_numpy(v) for k, v in case["batch"].items()}
 
 
+@contextlib.contextmanager
+def dropped_halo(rank: int = 1):
+    """A planted fault of the sharded step: spatial rank ``rank`` zeroes
+    the planes that its depth windows receive from the rank below (a halo
+    exchange that lost them), in the forward pass."""
+    real = tp._halo
+
+    def halo(x, mesh, depth, need, fill=0.0):
+        out = real(x, mesh, depth, need, fill)
+        sp = mesh.spatial
+        lost = tp.depth_slab(depth, sp.rank, sp.size)[0] - need[sp.rank][0]
+        if sp.rank != rank or lost <= 0:
+            return out
+        axis = out.ndim - 3
+        keep = torch.ones(out.shape[axis], dtype=out.dtype)
+        keep[:lost] = 0
+        return out * keep.view([-1] + [1] * (out.ndim - axis - 1))
+
+    tp._halo = halo
+    try:
+        yield
+    finally:
+        tp._halo = real
+
+
 def step_case(case: dict, mesh=None) -> dict:
     """``case['steps']`` SGD steps of the case's AnatCNN (weights from the
     file ``case['weights']``) with the z-score in the step, one process
@@ -47,7 +74,8 @@ def step_case(case: dict, mesh=None) -> dict:
     step's loss, logits and ``backbone_gap`` after it. Under a mesh only
     rank 0 returns the whole state and gradients (a ResNet-10 is 58 MB);
     every rank returns the classifier bias' gradient it summed and the sum
-    of its whole state, which must agree everywhere."""
+    of its whole state, which must agree everywhere. A case with
+    ``fault`` runs its mesh steps under ``dropped_halo()``."""
     model = AnatCNN.from_hparams(case["hp"], **case.get("overrides", {}))
     model.load_state_dict(torch.load(case["weights"]))
     optimizer = torch.optim.SGD(model.parameters(), lr=case["lr"])
@@ -61,8 +89,11 @@ def step_case(case: dict, mesh=None) -> dict:
         tp.shard_state(state, mesh)
         batch = tp.shard_batch_3d(batch, mesh)
     losses, out = [], {}
+    planted = dropped_halo() if case.get("fault") and mesh is not None \
+        else contextlib.nullcontext()
     for i in range(case["steps"]):
-        state, aux = step(state, batch)
+        with planted:
+            state, aux = step(state, batch)
         losses.append(float(aux["loss"]))
         if i == 0:
             grads = {n: p.grad.detach().clone()
