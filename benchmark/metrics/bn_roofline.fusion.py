@@ -1,0 +1,6 @@
+"""``bn_roofline.train`` read in the stage-3 fusion's train cells, where it moves
+``fusion_train_samples_per_s``."""
+
+from benchmark.lib import readers
+
+read = readers.same_as("bn_roofline.train")
