@@ -22,6 +22,7 @@ for a real row), as the JAX loader does.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -34,6 +35,7 @@ import torch
 
 from multimodal_alzheimer_tpu_torch.parallel.mesh import BatchShard
 from multimodal_alzheimer_tpu_torch.utils.device import resolve_device
+from multimodal_alzheimer_tpu_torch.utils.profiling import span
 
 
 def collate_into(samples: Sequence[dict], out: dict | None,
@@ -165,15 +167,17 @@ class DataLoader:
             mine, pad, shard = self._plan(indices)
             # a block of padding alone takes its shapes from the batch's
             # first sample
-            samples = list(pool.map(self.dataset.__getitem__,
-                                    mine if len(mine) else indices[:1]))
-            if pad:
-                zeros = {k: np.zeros_like(np.asarray(v))
-                         for k, v in samples[0].items()}
-                samples = samples[:len(mine)] + [zeros] * pad
-            batch = collate_into(samples, bufs, alloc)
-            if self.pad_last:
-                batch["sample_mask"] = self._mask(len(mine), pad)
+            with span("mmalz.loader.decode"):
+                samples = list(pool.map(self.dataset.__getitem__,
+                                        mine if len(mine) else indices[:1]))
+            with span("mmalz.loader.collate"):
+                if pad:
+                    zeros = {k: np.zeros_like(np.asarray(v))
+                             for k, v in samples[0].items()}
+                    samples = samples[:len(mine)] + [zeros] * pad
+                batch = collate_into(samples, bufs, alloc)
+                if self.pad_last:
+                    batch["sample_mask"] = self._mask(len(mine), pad)
             return batch, shard
 
         def place(batch: dict, shard) -> dict:
@@ -191,13 +195,15 @@ class DataLoader:
                         out_q.put((place({k: torch.from_numpy(v) for k, v
                                           in batch.items()}, shard), None))
                         continue
-                    while pending and len(pending) >= self.prefetch:
-                        old_bufs, old_event = pending.popleft()
-                        old_event.synchronize()  # copy done: reuse buffers
-                        free_q.put(old_bufs)
-                    bufs = free_q.get()
+                    with span("mmalz.loader.recycle"):
+                        while pending and len(pending) >= self.prefetch:
+                            old_bufs, old_event = pending.popleft()
+                            old_event.synchronize()  # copy done: reuse
+                            free_q.put(old_bufs)
+                        bufs = free_q.get()
                     batch, shard = load(indices, bufs, _pinned)
-                    with torch.cuda.stream(copy_stream):
+                    with span("mmalz.loader.copy"), \
+                            torch.cuda.stream(copy_stream):
                         dev = place({k: torch.from_numpy(v).to(
                             self.device, non_blocking=True)
                             for k, v in batch.items()}, shard)
@@ -218,18 +224,25 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                item = out_q.get()
+                waiting = contextlib.nullcontext()
+                try:
+                    item = out_q.get_nowait()
+                except queue.Empty:  # no batch ready: the step waits
+                    item, waiting = None, span("mmalz.loader.wait")
+                with waiting:
+                    if item is None:
+                        item = out_q.get()
+                    if item is not sentinel and item[1] is not None:
+                        batch, event = item
+                        compute = torch.cuda.current_stream(self.device)
+                        compute.wait_event(event)
+                        for t in batch.values():
+                            t.record_stream(compute)
                 if item is sentinel:
                     if error:
                         raise error[0]
                     break
-                batch, event = item
-                if event is not None:
-                    compute = torch.cuda.current_stream(self.device)
-                    compute.wait_event(event)
-                    for t in batch.values():
-                        t.record_stream(compute)
-                yield batch
+                yield item[0]
         finally:
             stop.set()
             # drain so a blocked producer put() can observe the stop flag

@@ -47,6 +47,7 @@ from multimodal_alzheimer_tpu_torch.parallel.tp import (
     Mesh3D,
     tensor_parallel,
 )
+from multimodal_alzheimer_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -114,7 +115,10 @@ def make_train_step(model: torch.nn.Module, criterion: Callable,
                     mesh: Optional[Mesh | Mesh3D] = None):
     """Build ``step(state, batch) -> (state, aux)``: preprocess, forward in
     train mode (BatchNorm statistics update), loss, backward, Adam update.
-    ``aux`` holds the detached 'loss', 'logits' and 'labels'.
+    ``aux`` holds the detached 'loss', 'logits' and 'labels'. Each phase is
+    a ``utils.profiling.span`` inside ``mmalz.step`` (``.preprocess``,
+    ``.forward``, ``.loss``, ``.backward``, ``.optimizer``, the mesh's
+    all-reduces in the last), recorded where a profiler runs.
 
     The model's dropout layers draw their masks from ``dropout_generator``
     (on the model's device), whose state advances with every step: JAX
@@ -124,29 +128,36 @@ def make_train_step(model: torch.nn.Module, criterion: Callable,
         set_dropout_generator(model, dropout_generator)
 
     def train_step(state: TrainState, batch: dict):
-        model.train()
-        with _sharded(batch, mesh) as dp:
-            if preprocess is not None:
-                batch = preprocess(batch)
-            _set_learning_rates(optimizer, state.lr_scale)
-            optimizer.zero_grad(set_to_none=True)
-            out = model(batch)
-            loss = criterion(out["logits"], batch["label"])
-            if dp is None:
-                loss.backward()
-            else:
-                grad_mesh, loss_mesh, share = _reduction_meshes(mesh)
-                (loss if share == 1 else loss / share).backward()
-        _zero_unreached_grads(optimizer)
-        if dp is not None:
-            coalesced_([p.grad for group in optimizer.param_groups
-                        for p in group["params"]], grad_mesh, "all_reduce")
-            loss = loss_mesh.all_reduce_(loss.detach().clone())
-        optimizer.step()
-        state.step += 1
-        return state, {"loss": loss.detach(),
-                       **_gathered(dp, {"logits": out["logits"].detach(),
-                                        "labels": batch["label"]})}
+        with span("mmalz.step"):
+            model.train()
+            with _sharded(batch, mesh) as dp:
+                if preprocess is not None:
+                    with span("mmalz.step.preprocess"):
+                        batch = preprocess(batch)
+                _set_learning_rates(optimizer, state.lr_scale)
+                optimizer.zero_grad(set_to_none=True)
+                with span("mmalz.step.forward"):
+                    out = model(batch)
+                with span("mmalz.step.loss"):
+                    loss = criterion(out["logits"], batch["label"])
+                with span("mmalz.step.backward"):
+                    if dp is None:
+                        loss.backward()
+                    else:
+                        grad_mesh, loss_mesh, share = _reduction_meshes(mesh)
+                        (loss if share == 1 else loss / share).backward()
+            with span("mmalz.step.optimizer"):
+                _zero_unreached_grads(optimizer)
+                if dp is not None:
+                    coalesced_([p.grad for group in optimizer.param_groups
+                                for p in group["params"]], grad_mesh,
+                               "all_reduce")
+                    loss = loss_mesh.all_reduce_(loss.detach().clone())
+                optimizer.step()
+            state.step += 1
+            return state, {"loss": loss.detach(),
+                           **_gathered(dp, {"logits": out["logits"].detach(),
+                                            "labels": batch["label"]})}
 
     return train_step
 

@@ -6,8 +6,8 @@ label-distribution cases, the six cases of ``tests/test_plot_performance.py``
 card's machine) and ``tests/test_property_fuzz.py``'s trace case (the
 port's trace file exists on the CPU). Also: ``soft_vote`` against JAX's on
 random logits and weights, ``pairing_time_deltas`` and
-``check_manifest_shapes`` on the port's rows, ``StepTimer`` and the host
-benchmark's line.
+``check_manifest_shapes`` on the port's rows and the host benchmark's
+line.
 """
 
 import glob
@@ -52,7 +52,7 @@ from multimodal_alzheimer_tpu_torch.utils.plots_dataset import (
     label_distribution_frame,
     pairing_time_deltas,
 )
-from multimodal_alzheimer_tpu_torch.utils.profiling import StepTimer, trace
+from multimodal_alzheimer_tpu_torch.utils.profiling import trace
 from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
@@ -253,16 +253,6 @@ def test_profiler_trace_smoke(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
     assert any(e.key == "aten::mm" for e in prof.key_averages())
-
-
-def test_step_timer():
-    timer = StepTimer(window=2)
-    assert timer.tick(8) == {}
-    for _ in range(3):
-        out = timer.tick(8)
-        assert set(out) == {"step_time_s", "volumes_per_s"}
-        assert out["step_time_s"] >= 0 and out["volumes_per_s"] > 0
-    assert len(timer.times) == 2
 
 
 def test_bench_host_line(capsys):
