@@ -12,8 +12,8 @@ provisioning from a raw ADNI layout through the native NIfTI decoder.
 Phases, each printing its lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: compiles csrc/minmax_norm.cu, csrc/batch_norm.cu,
-     csrc/zscore_norm.cu, csrc/maxpool_bwd.cu and csrc/int8_conv3d.cu with
-     nvcc for sm_90a, one
+     csrc/zscore_norm.cu, csrc/maxpool_bwd.cu, csrc/int8_conv3d.cu and
+     csrc/narrow_conv3d.cu with nvcc for sm_90a, one
      process per source, all started together, into one library; prints
      ptxas register counts; then the native NIfTI decoder
      (csrc/host/nifti_io.cc, g++ with the JAX package's flags), which must
@@ -166,7 +166,14 @@ Phases, each printing its lines:
      logits within 1e-6 of max(1, |logit|) of the unshared model's on the
      same synced weights; tower parameters kept, the canonical MRI tower's
      statistics moved, the duplicate's not), and towers trained, unshared
-     (K4-K7 40 each); step ms;
+     (K4-K7 40 each); K10 none in f32, in bf16 fprop 2 frozen and fprop 4,
+     dgrad 2, wgrad 4 trained; step ms;
+ 21b. K10 (ops/narrow_conv.py), the PET towers' 1 -> 8 and 8 -> 16 blocks
+     at a stage-3 tower's batch of 32 on the stage-3 shapes: each direction
+     (fprop, dgrad of 8 -> 16, wgrad with db) against its plain version
+     (cuDNN's bfloat16 conv and backward) on the operands it is timed on,
+     the relative L2 distance within twice a bfloat16 rounding; the wgrad's
+     bits repeat; device times beside cuDNN's and the bound;
  22. one step each of PETMRIEarlyFusion at BEST_HPARAMS (batch 64) under the
      per-scan min-max (K1 and K2 once) and the all-scan z-score (no kernel)
      and PETMRIFeatureMapFusion at BEST_MAXOUT_HPARAMS (batch 32) in maxout
@@ -318,7 +325,12 @@ with per-call and plain ms, library_ms the torch._int_mm GEMMs of the
 same shapes (not the same function), each shape's and mode's times, and
 cuDNN's bf16 time as context. The BatchNorm kernels' entries carry
 per-step totals (launches x time, launches x bound and launches x
-aten's time over the five shapes, f32 and bf16).
+aten's time over the five shapes, f32 and bf16). K10's entry: launches
+of the bf16 stage-3 step with every tower trained, and of each stage-3
+step by dtype and regime ("launches_stage3"), the largest |kernel - plain|
+and relative L2 distance over its directions at batch 32, device, plain
+(cuDNN's, the library call) and bound ms summed over a stage-3 step's K10
+work (two towers), and each layer's and direction's ("per_shape").
 Any failed check raises,
 so the script exits non-zero without printing its last line,
 {"ok": true, "device": {...}}. It needs one card and imports the
@@ -444,6 +456,7 @@ from multimodal_alzheimer_tpu_torch.ops import (
     hopper_maxpool,
     hopper_norm,
     int8_conv,
+    narrow_conv,
 )
 from multimodal_alzheimer_tpu_torch.ops.maxpool import (
     NO_WINNER,
@@ -465,6 +478,9 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     INT8_GEOMETRIES,
     INT8_MODES,
     INT8_OPS_PER_MS,
+    NARROW_BATCH,
+    NARROW_CALLS_PER_STEP,
+    NARROW_LAYERS,
     STEM,
     TP_POOL,
     TP_ZSCORE,
@@ -481,6 +497,7 @@ from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     norm_bounds,
     time_bn,
     time_int8_conv,
+    time_narrow,
     time_norm,
     time_pool,
     time_tp,
@@ -562,7 +579,8 @@ SOURCE = {"minmax_select": CSRC + "minmax_norm.cu",
           "bn_stats": CSRC + "batch_norm.cu", "bn_apply": CSRC + "batch_norm.cu",
           "bn_grad_sum": CSRC + "batch_norm.cu", "bn_dx": CSRC + "batch_norm.cu",
           "maxpool_bwd": CSRC + "maxpool_bwd.cu",
-          "int8_conv3d": CSRC + "int8_conv3d.cu"}
+          "int8_conv3d": CSRC + "int8_conv3d.cu",
+          "narrow_conv3d": CSRC + "narrow_conv3d.cu"}
 REPLACES = {"minmax_select": "multimodal_alzheimer_tpu/ops/pallas_norm.py:263",
             "minmax_apply": "multimodal_alzheimer_tpu/ops/pallas_norm.py:354",
             "zscore": "multimodal_alzheimer_tpu/ops/pallas_norm.py:63",
@@ -572,7 +590,10 @@ REPLACES = {"minmax_select": "multimodal_alzheimer_tpu/ops/pallas_norm.py:263",
             "bn_dx": "multimodal_alzheimer_tpu/ops/pallas_bn.py:96",
             "maxpool_bwd": "multimodal_alzheimer_tpu/ops/pallas_maxpool.py:98",
             "int8_conv3d":
-                "multimodal_alzheimer_tpu/inference/quantize.py:125"}
+                "multimodal_alzheimer_tpu/inference/quantize.py:125",
+            # no Pallas kernel: XLA's bf16 conv of flax nn.Conv
+            "narrow_conv3d": "none: multimodal_alzheimer_tpu/models/"
+                             "layers.py:403"}
 NORM_KERNELS = ("minmax_select", "minmax_apply", "zscore")
 APPLY_TOL = 1e-6
 # The z-score kernel against its plain version: |kernel - plain| <= ZSCORE_TOL
@@ -2769,14 +2790,23 @@ def phase_fusion_entry_points(device, root, mri_checkpoint: str,
 # kernels on the same inputs, so equal unless cuDNN picks another
 # algorithm; held within 1e-6 of max(1, largest |logit|).
 SHARE_TOL = 1e-6
+# K10's launches in a stage-3 step by the rule: none in float32; in
+# bfloat16 the forward of the PET towers' blocks 0 and 1 (frozen, the
+# towers shared: one tower), trained also their weight gradients and block
+# 1's input gradients, in both towers
+STAGE3_K10 = {"float32 frozen": {"fprop": 0, "dgrad": 0, "wgrad": 0},
+              "float32 trained": {"fprop": 0, "dgrad": 0, "wgrad": 0},
+              "bfloat16 frozen": {"fprop": 2, "dgrad": 0, "wgrad": 0},
+              "bfloat16 trained": {"fprop": 4, "dgrad": 2, "wgrad": 4}}
 
 
-def phase_stage3_step(device, grid=GRID, timed_steps: int = 3) -> dict:
+def phase_stage3_step(device, grid=GRID, timed_steps: int = 3) -> tuple:
     """The full-width stage-3 train step in f32 and bf16, frozen (shared
     towers; first its eval logits against the unshared model's on the same
     weights) and towers trained, with launch counts and the tower
-    parameters and statistics that moved; returns the f32 steps' launch
-    counts."""
+    parameters and statistics that moved; K10 launched by the rule alone
+    (``STAGE3_K10``); returns the f32 steps' launch counts and every step's
+    K10 launches ({"<dtype> <regime>": counts})."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     batch, (mean, std) = stage3_batch(device, grid)
@@ -2786,11 +2816,12 @@ def phase_stage3_step(device, grid=GRID, timed_steps: int = 3) -> dict:
     zero = dict.fromkeys(launch_counts(), 0)
     towers = tuple(p + "." for pair in TOWER_DUPLICATES for p in pair)
     duplicates = tuple(d + "." for _, d in TOWER_DUPLICATES)
-    out = {}
+    out, k10 = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for regime, lr_pretrained in STAGE3_REGIMES.items():
             frozen = lr_pretrained is None
-            what = f"AllModalitiesFusion {str(dtype)[6:]} {regime}"
+            run = f"{str(dtype)[6:]} {regime}"
+            what = f"AllModalitiesFusion {run}"
             hp = dict(FUSION_HPARAMS, lr_pretrained=lr_pretrained)
             model = stage3_model(dtype, lr_pretrained, tab_hp,
                                  device=device)
@@ -2818,9 +2849,13 @@ def phase_stage3_step(device, grid=GRID, timed_steps: int = 3) -> dict:
             before = {k: v.clone() for k, v in model.state_dict().items()}
             torch.cuda.synchronize()
             reset_launch_counts()
+            narrow_conv.reset_launches()
             state, aux = step(state, batch)
             torch.cuda.synchronize()
             launches = launch_counts()
+            k10[run] = dict(narrow_conv.LAUNCHES)
+            check(k10[run] == STAGE3_K10[run], f"{what} K10 launches "
+                  f"{k10[run]} == {STAGE3_K10[run]}")
             loss = aux["loss"].item()
             n_fwd = BN_LAYERS * (1 if frozen else 2)
             n_bwd = 0 if frozen else 2 * BN_LAYERS
@@ -2860,12 +2895,53 @@ def phase_stage3_step(device, grid=GRID, timed_steps: int = 3) -> dict:
             log(f"[stage3 step] {what} (share_towers "
                 f"{model.share_towers}), batch 8 at {grid}: loss {loss}, "
                 f"median {ms:.2f} ms over {timed_steps} steps, launches "
-                f"{launches}; tower parameters kept {kept}/{len(params)}, "
+                f"{launches}, K10 {k10[run]}; tower parameters kept {kept}/{len(params)}, "
                 f"running statistics moved {len(moved)}/{len(stats)} "
                 f"({moved_dup} in duplicate towers)")
             del model, optimizer, step, state, aux, before, after
     return {regime: out[(torch.float32, regime)]
-            for regime in STAGE3_REGIMES}
+            for regime in STAGE3_REGIMES}, k10
+
+
+def phase_narrow_conv(device) -> dict:
+    """K10 at a stage-3 tower's batch of 32 on the stage-3 shapes: each
+    direction (fprop, dgrad of 8 -> 16, wgrad with db) against its plain
+    version (cuDNN's bfloat16 conv and backward) on the operands it is
+    timed on, the wgrad's bits on two calls, the device times beside
+    cuDNN's and the bound; returns {layer: {direction: time_narrow's
+    record}}."""
+    gen = make_generator(SEED + 60, device)
+    out, step_ms = {}, {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for layer in NARROW_LAYERS:
+        out[layer] = time_narrow(layer, gen, device)
+        for direction, r in out[layer].items():
+            gaps = {direction: r["rel_l2"]}
+            if direction == "wgrad":
+                gaps["db"] = r["db"]["rel_l2"]
+                check(r["repeats"], f"K10 {layer} wgrad repeats its bits "
+                      f"at B={NARROW_BATCH}")
+            for what, gap in gaps.items():
+                # each is one bfloat16 rounding (2^-9 relative at most) of
+                # a float32 sum of the same products
+                check(gap <= 2.0 ** -8, f"K10 {layer} {what} at "
+                      f"B={NARROW_BATCH}: relative distance {gap} to "
+                      f"cuDNN within 2^-8")
+            for key in step_ms:
+                step_ms[key] += NARROW_CALLS_PER_STEP * r[key]
+            log(f"[narrow conv] K10 {layer} {r['shape']} {direction} "
+                f"B={NARROW_BATCH}: kernel {r['ms']:.4f} ms (per call "
+                f"{r['call_ms']:.4f}), plain and library (cuDNN) "
+                f"{r['library_ms']:.4f} ms (per call "
+                f"{r['library_call_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), share {r['bound_ms'] / r['ms']:.3f}; "
+                + ", ".join(f"{what} relative L2 distance to cuDNN "
+                            f"{gap:.3g}" for what, gap in gaps.items())
+                + f", max abs err {r['max_abs_err']:.3g}")
+    log(f"[narrow conv] a stage-3 step's K10 work (two towers at "
+        f"B={NARROW_BATCH}): kernel {step_ms['ms']:.3f} ms, cuDNN "
+        f"{step_ms['library_ms']:.3f} ms, bound {step_ms['bound_ms']:.3f} "
+        f"ms")
+    return out
 
 
 def phase_baseline_steps(device, grid=GRID, timed_steps: int = 2) -> dict:
@@ -5176,7 +5252,8 @@ def main() -> int:
     tabpfn = phase_tabpfn(device)
     fusion_launches = phase_fusion_step(device, tabpfn["embed"])
     phase_fusion_pair_steps(device)
-    stage3_launches = phase_stage3_step(device)
+    stage3_launches, k10_launches = phase_stage3_step(device)
+    k10_times = phase_narrow_conv(device)
     early_launches = phase_baseline_steps(device)
     with entry_split() as root:
         entry_launches, mri_checkpoint = phase_entry_points(device, root)
@@ -5369,6 +5446,32 @@ def main() -> int:
             for b, r in int8_times.items()},
         "host_us_custom_op": op_overhead["int8_conv3d"]["op"],
         "host_us_direct": op_overhead["int8_conv3d"]["direct"]})
+    k10 = [(layer, direction, r) for layer, per in k10_times.items()
+           for direction, r in per.items()]
+    k10_step = {key: sum(NARROW_CALLS_PER_STEP * r[key] for *_, r in k10)
+                for key in ("ms", "bound_ms", "library_ms")}
+    kernels.append({
+        "name": "narrow_conv3d", "route": "cuda",
+        "source": SOURCE["narrow_conv3d"],
+        "replaces": REPLACES["narrow_conv3d"],
+        "launches": k10_launches["bfloat16 trained"],
+        "launches_stage3": k10_launches,
+        "max_abs_err": max(max(r["max_abs_err"], r.get("db", r)[
+            "max_abs_err"]) for *_, r in k10),
+        "max_rel_l2": max(max(r["rel_l2"], r.get("db", r)["rel_l2"])
+                          for *_, r in k10),
+        "batch": NARROW_BATCH,
+        "shape": "each direction the rule takes of the PET towers' block_0 "
+                 "and block_1 in a bf16 stage-3 step (two towers at batch "
+                 "32)",
+        **k10_step, "plain_ms": k10_step["library_ms"],
+        "bound_by": "bytes (block_0) and operations (block_1)",
+        "library": "cuDNN's bf16 F.conv3d and convolution_backward, the "
+                   "plain version",
+        "per_shape": {f"{layer} {direction}": {k: r[k] for k in (
+            "dims", "shape", "ms", "call_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "rel_l2", "max_abs_err")}
+            for layer, direction, r in k10}})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

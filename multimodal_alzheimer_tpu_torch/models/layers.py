@@ -86,7 +86,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_alzheimer_tpu_torch.ops import hopper_bn
+from multimodal_alzheimer_tpu_torch.ops import hopper_bn, narrow_conv
 from multimodal_alzheimer_tpu_torch.parallel import tp as sharding
 from multimodal_alzheimer_tpu_torch.parallel.mesh import (
     all_reduce_sum,
@@ -136,7 +136,12 @@ class Conv3d(nn.Conv3d):
         ResNet's 1-voxel layer-3/4 maps at 12x14x12). Every other conv stays
         oneDNN's. Under a spatial axis every rank decides alike, from the
         map's global depth and every rank's slab of it (``_thin``): the
-        ranks exchange halo planes in the dtype they compute in."""
+        ranks exchange halo planes in the dtype they compute in.
+
+        On the card a narrow bfloat16 conv that ``ops/narrow_conv.takes``
+        (the PET towers' 1 -> 8 and 8 -> 16 blocks, 5^3, "same") runs on
+        K10 with its gradients, outside a spatial or channel axis; every
+        other conv runs ``F.conv3d``."""
         dt = self.compute_dtype
         bias = self.bias.to(dt) if self.bias is not None else None
         x, weight = x.to(dt), self.weight.to(dt)
@@ -150,6 +155,10 @@ class Conv3d(nn.Conv3d):
             bias = bias.float() if bias is not None else None
         if tp is not None and tp.tp.shape[1:] != (1, 1):
             y = sharding.conv3d(self, x, weight, bias, depth_pad)
+        elif depth_pad is None and narrow_conv.takes(self, x):
+            return narrow_conv.conv3d(x, weight, bias, self.stride,
+                                      self.padding, self.dilation,
+                                      self.groups)
         else:
             if depth_pad is not None:
                 x = F.pad(x, (0, 0, 0, 0) + tuple(depth_pad))

@@ -23,7 +23,8 @@ SOURCES = (_PACKAGE / "csrc" / "minmax_norm.cu",
            _PACKAGE / "csrc" / "batch_norm.cu",
            _PACKAGE / "csrc" / "zscore_norm.cu",
            _PACKAGE / "csrc" / "maxpool_bwd.cu",
-           _PACKAGE / "csrc" / "int8_conv3d.cu")
+           _PACKAGE / "csrc" / "int8_conv3d.cu",
+           _PACKAGE / "csrc" / "narrow_conv3d.cu")
 HEADERS = (_PACKAGE / "csrc" / "scan_cluster.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -164,6 +165,12 @@ def library() -> ctypes.CDLL:
     lib.int8_conv3d.argtypes = ([ptr] * 5 + [i64, f32, i64, i64, f32, ptr]
                                 + [i64] * 19 + [ptr])
     lib.int8_conv3d.restype = ctypes.c_int
+    lib.narrow_conv3d_fprop.argtypes = [ptr] * 4 + [i64] * 9 + [ptr]
+    lib.narrow_conv3d_fprop.restype = ctypes.c_int
+    lib.narrow_conv3d_partial_floats.argtypes = [i64] * 3
+    lib.narrow_conv3d_partial_floats.restype = i64
+    lib.narrow_conv3d_wgrad.argtypes = [ptr] * 5 + [i64] * 8 + [ptr]
+    lib.narrow_conv3d_wgrad.restype = ctypes.c_int
     return lib
 
 

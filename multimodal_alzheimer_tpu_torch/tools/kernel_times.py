@@ -1,10 +1,12 @@
 """Device times of the per-scan normalisation kernels (K1 select, K3
 z-score), the BatchNorm kernels (K4-K7, float32 and bfloat16), the stem
-max-pool backward (K8) and the int8 convolution (K9, at every shape of the
+max-pool backward (K8), the int8 convolution (K9, at every shape of the
 int8 ResNet-18, batch 8 and 32, with cuDNN's bfloat16 convolution of the
-same shape beside it as context), with their plain versions and torch's
-call for the same function where there is one, at the shapes of the
-flagship ResNet-18 serving and train paths; and the entry points of the
+same shape beside it as context) and the PET towers' narrow convolutions
+(K10, each direction of each block the rule takes, at a stage-3 tower's
+batch of 32, with cuDNN's call beside it), with their plain versions and
+torch's call for the same function where there is one, at the shapes of
+the flagship ResNet-18 serving and train paths; and the entry points of the
 depth-sharded path (K3 split into ``zscore_partials`` and ``zscore_apply``,
 K8's ``maxpool_bwd_window``, in float32 and bfloat16, and K8 on the edge
 window) at one rank's shapes of a (1, 2, 2) mesh; with ``--k8-slabs``, K8
@@ -708,6 +710,102 @@ def time_pool(x, y, indices, g) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# K10: the SmallPETCNN blocks the rule takes, at a stage-3 step's shapes:
+# one call a tower at batch 32 (two towers a step), block_0 on the full
+# grid, block_1 on its first pool; bounds by bytes (each operand read once,
+# each output written once) or bf16 operations at 989 TFLOP/s.
+NARROW_LAYERS = {"block_0": ((1, 8, 5), GRID),
+                 "block_1": ((8, 16, 5), (45, 54, 45))}
+NARROW_BATCH = 32
+NARROW_CALLS_PER_STEP = 2
+BF16_FLOP_PER_MS = 989e9
+
+
+def narrow_bound(shape, grid, batch: int) -> tuple:
+    """(ms, what bounds it) of one direction of a narrow conv: each reads
+    one of its two activation tensors and writes or reads the other (x and
+    y, dy and dx, x and dy), 2 * MACs operations."""
+    cin, cout, k = shape
+    voxels = batch * math.prod(grid)
+    nbytes = (cin + cout) * voxels * 2
+    flops = 2 * voxels * cin * cout * k ** 3
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, flops / BF16_FLOP_PER_MS
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def narrow_operands(shape, grid, batch: int, generator, device):
+    """bfloat16 x, w, bias and dy of a narrow conv."""
+    cin, cout, k = shape
+    x = torch.randn((batch, cin) + tuple(grid), generator=generator,
+                    device=device)
+    w = torch.randn((cout, cin, k, k, k), generator=generator,
+                    device=device) / math.sqrt(cin * k ** 3)
+    b = torch.rand(cout, generator=generator, device=device)
+    dy = torch.randn((batch, cout) + tuple(grid), generator=generator,
+                     device=device)
+    return tuple(t.to(torch.bfloat16) for t in (x, w, b, dy))
+
+
+def narrow_gap(got, want) -> dict:
+    """The relative L2 distance and the largest absolute difference of a
+    K10 result from its plain version's."""
+    diff = got.float() - want.float()
+    return {"rel_l2": (diff.norm() / want.float().norm()).item(),
+            "max_abs_err": diff.abs().max().item()}
+
+
+def time_narrow(layer: str, generator, device,
+                batch: int = NARROW_BATCH) -> dict:
+    """K10 at ``NARROW_LAYERS[layer]``: per direction (fprop, dgrad where
+    the rule takes an input gradient, wgrad with db) the kernel's device
+    and per-call ms, cuDNN's (the plain version, ``F.conv3d`` and
+    ``aten.convolution_backward``, the library call the rule replaces), the
+    bound, and the distance of the kernel's result from the plain
+    version's on the same operands (``narrow_gap``; the wgrad's record
+    also db's, as ``db``, and whether a second call repeats its bits)."""
+    from multimodal_alzheimer_tpu_torch.ops import narrow_conv
+
+    shape, grid = NARROW_LAYERS[layer]
+    x, w, b, dy = narrow_operands(shape, grid, batch, generator, device)
+    nbytes = (x.numel() + dy.numel()) * 2
+    copies = [(x, dy)] + [(x.clone(), dy.clone())
+                          for _ in range(n_copies(nbytes) - 1)]
+    calls = {"fprop": (lambda c: narrow_conv.fprop(c[0], w, b),
+                       lambda c: narrow_conv.fprop_plain(c[0], w, b)),
+             "wgrad": (lambda c: narrow_conv.wgrad(c[0], c[1], w.shape, True),
+                       lambda c: narrow_conv.wgrad_plain(c[0], c[1], w.shape,
+                                                         True))}
+    if shape in narrow_conv.DGRAD:
+        calls["dgrad"] = (lambda c: narrow_conv.dgrad(c[1], w),
+                          lambda c: narrow_conv.dgrad_plain(c[1], w))
+    bound_ms, bound_by = narrow_bound(shape, grid, batch)
+    out = {}
+    with torch.no_grad():
+        for direction, (kernel_call, plain_call) in calls.items():
+            got, want = kernel_call(copies[0]), plain_call(copies[0])
+            if direction == "wgrad":
+                again = kernel_call(copies[0])
+                gaps = {**narrow_gap(got[0], want[0]),
+                        "db": narrow_gap(got[1], want[1]),
+                        "repeats": all(map(torch.equal, got, again))}
+                del again
+            else:
+                gaps = narrow_gap(got, want)
+            del got, want
+            kernel = [lambda c=c: kernel_call(c) for c in copies]
+            library = [lambda c=c: plain_call(c) for c in copies]
+            library_ms = device_ms(library, launches=10)
+            out[direction] = {
+                "dims": (batch,) + tuple(grid), "shape": shape,
+                "ms": device_ms(kernel, launches=10),
+                "call_ms": call_ms(kernel), "plain_ms": library_ms,
+                "library_ms": library_ms,
+                "library_call_ms": call_ms(library),
+                "bound_ms": bound_ms, "bound_by": bound_by, **gaps}
+    return out
+
+
 def int8_conv_operands(name: str, batch: int, generator, device):
     """K9's operands at ``INT8_CONV_SHAPES[name]``: int8 channels-last input
     and packed weights in [-127, 127], float32 scale and bias; and the
@@ -912,8 +1010,8 @@ def main() -> int:
     parser.add_argument("--label", default="kernels")
     parser.add_argument("--out", default=None, help="JSON file to write")
     parser.add_argument("--kernels", default=",".join(
-        NORM_KERNELS + BN_KERNELS + ("maxpool_bwd", "int8_conv3d")
-        + TP_KERNELS),
+        NORM_KERNELS + BN_KERNELS + ("maxpool_bwd", "int8_conv3d",
+                                     "narrow_conv3d") + TP_KERNELS),
         help="comma-separated kernels to time")
     parser.add_argument("--bn-dtypes", default="float32,bfloat16",
                         help="activation dtypes of the BatchNorm kernels")
@@ -977,6 +1075,22 @@ def main() -> int:
                   f"{r['slab']}: {r['ms']:.4f} ms, equal {r['equal']}"
                   + (f" (plan {r['plan']})" if r["slab"] == "chosen"
                      else ""), flush=True)
+    if "narrow_conv3d" in chosen:
+        step = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for layer in NARROW_LAYERS:
+            for direction, r in time_narrow(layer, gen, device).items():
+                rows.append({"kernel": f"narrow_conv3d {direction}",
+                             "shape": layer, **r})
+                print(row_line(args.label, f"narrow_conv3d {direction} "
+                               f"{layer} {r['shape']} {r['dims']}", r)
+                      + f", share {r['bound_ms'] / r['ms']:.3f}, relative "
+                      f"L2 distance to cuDNN {r['rel_l2']:.3g}", flush=True)
+                for key in step:
+                    step[key] += NARROW_CALLS_PER_STEP * r[key]
+        print(f"[{args.label}] narrow_conv3d a stage-3 step (two PET towers "
+              f"at B={NARROW_BATCH}): kernel {step['ms']:.4f} ms, cuDNN "
+              f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms",
+              flush=True)
     from multimodal_alzheimer_tpu_torch.ops import int8_conv
 
     fused = hasattr(int8_conv, "int8_conv3d_fused")

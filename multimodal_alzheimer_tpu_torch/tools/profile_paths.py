@@ -28,6 +28,18 @@ or bfloat16 compute; random weights from a seed):
   ``BEST_MAXOUT_HPARAMS``, batch 32, MRI all-scan z-score), as
   ``chip_smoke.py``'s baseline phase runs them.
 
+With ``--convs B`` the one case is ``stage3_trained_bf16``, the step's
+batch ``B`` raw samples, profiled with the shapes recorded: the device
+kernels launched under each ``aten::convolution`` (forward) or
+``aten::convolution_backward`` op are charged to the op's layer, read from
+its weight's (C_in, C_out, k) (the ``SmallPETCNN`` blocks by name, every
+other conv "resnet"), and to a direction by kernel name (``fprop``,
+``dgrad``, ``wgrad``, ``transpose``: cuDNN's NCHW/NHWC layout kernels,
+``other``: bias sums, casts); K10's kernels (``ops/narrow_conv.py``),
+launched outside any aten op, by their template's (C_in, C_out, k). The
+case then also carries ``convs_ms``, {layer: {direction: device ms a
+call}}, one line printed per layer.
+
 Per case, as ``tools/profile_serve.py`` reads a trace: ``host_ms`` (the
 span of a call), ``busy_ms`` (the union of device intervals inside it),
 ``idle_share`` (1 - busy / span), device time by kind (``gemm``: cuBLAS and
@@ -44,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 from pathlib import Path
 
@@ -61,6 +74,9 @@ from multimodal_alzheimer_tpu_torch.models.fusion_models.tabular_mri_fusion impo
     TabularMRIFusion,
 )
 from multimodal_alzheimer_tpu_torch.models.mri_models.anat_cnn import AnatCNN
+from multimodal_alzheimer_tpu_torch.models.pet_models.pet_cnn import (
+    SmallPETCNN,
+)
 from multimodal_alzheimer_tpu_torch.models.tabular_models.tabpfn import (
     TabPFNClassifier,
     TabPFNTransformer,
@@ -68,6 +84,7 @@ from multimodal_alzheimer_tpu_torch.models.tabular_models.tabpfn import (
 from multimodal_alzheimer_tpu_torch.models.tabular_models.tabular_mlp import (
     TabularMLP,
 )
+from multimodal_alzheimer_tpu_torch.ops import narrow_conv
 from multimodal_alzheimer_tpu_torch.tools.cases import (
     FUSION_HPARAMS,
     GRID,
@@ -78,7 +95,6 @@ from multimodal_alzheimer_tpu_torch.tools.cases import (
     baseline_batch,
     baseline_case,
     raw_batch,
-    stage3_batch,
     stage3_model,
     stage3_preprocess,
 )
@@ -105,7 +121,15 @@ GEMM_WORDS = ("gemm", "xmma", "cutlass", "conv", "fprop", "dgrad", "wgrad",
 # own kernels of the same names live in at::native.
 PORT_KERNELS = ("select_cluster_kernel", "minmax_apply_kernel",
                 "zscore_kernel", "reduce_kernel", "apply_kernel", "dx_kernel",
-                "maxpool_bwd_kernel")
+                "maxpool_bwd_kernel", "narrow_conv_fprop_kernel",
+                "narrow_conv_wgrad_kernel", "narrow_conv_wgrad_folded_kernel",
+                "narrow_conv_merge_kernel")
+CONV_OPS = ("aten::convolution", "aten::convolution_backward")
+DIRECTIONS = ("fprop", "dgrad", "wgrad", "transpose", "other")
+# K10's kernels carry (C_in, C_out, k) as their first template arguments;
+# its input gradient runs the fprop kernel on (C_out, C_in)
+NARROW = re.compile(
+    r"narrow_conv_(fprop|wgrad|merge)\w*<(\d+), (\d+), (\d+)")
 
 
 def kind(event: dict) -> str:
@@ -119,6 +143,60 @@ def kind(event: dict) -> str:
     if any(w in name.lower() for w in GEMM_WORDS):
         return "gemm"
     return "other"
+
+
+def direction(kernel: str) -> str:
+    """The direction of one cuDNN kernel launched for a convolution."""
+    low = kernel.lower()
+    for word in ("dgrad", "wgrad", "fprop"):
+        if word in low:
+            return word
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "transpose"
+    return "other"
+
+
+def _kernels(event) -> list:
+    """(name, µs) of every device kernel launched under ``event``."""
+    out = [(k.name, k.duration) for k in event.kernels]
+    for child in event.cpu_children:
+        out += _kernels(child)
+    return out
+
+
+def conv_layers(events, calls: int) -> dict:
+    """{layer: {direction: device ms a call}} of the convolutions in a
+    profile recorded with shapes (the module docstring)."""
+    pet = {(m.in_channels, m.out_channels, m.kernel_size[0]): f"pet.{name}"
+           for name, m in SmallPETCNN(2).named_modules()
+           if isinstance(m, torch.nn.Conv3d)}
+    table: dict = {}
+
+    def add(layer, kind, us):
+        row = table.setdefault(layer, dict.fromkeys(DIRECTIONS, 0.0))
+        row[kind] += us / 1e3 / calls
+
+    for e in events:
+        if e.name not in CONV_OPS or (e.cpu_parent is not None
+                                      and e.cpu_parent.name in CONV_OPS):
+            continue
+        # the forward's inputs are (x, weight, ...), the backward's
+        # (dy, x, weight, ...)
+        w = e.input_shapes[1 if e.name == CONV_OPS[0] else 2]
+        layer = (pet.get((w[1], w[0], w[2]), "resnet") if len(w) == 5
+                 else "other")
+        for name, us in _kernels(e):
+            add(layer, direction(name), us)
+    for e in events:
+        m = NARROW.search(e.name)
+        if e.device_type != torch.autograd.DeviceType.CUDA or m is None:
+            continue
+        kind, cin, cout, k = m.group(1), *map(int, m.groups()[1:])
+        if kind == "fprop" and (cin, cout, k) not in narrow_conv.SHAPES:
+            kind, cin, cout = "dgrad", cout, cin
+        add(pet.get((cin, cout, k), f"narrow {cin}->{cout} k{k}"),
+            "wgrad" if kind == "merge" else kind, e.time_range.elapsed_us())
+    return dict(sorted(table.items()))
 
 
 def tabpfn_call(dtype, device):
@@ -164,9 +242,11 @@ def _step_call(model, hp: dict, optimizer, preprocess, batch,
     return call
 
 
-def stage3_call(dtype, frozen: bool, device):
-    """One AllModalitiesFusion train step on a fixed batch of raw scans."""
-    batch, (mean, std) = stage3_batch(device)
+def stage3_call(dtype, frozen: bool, device, n: int = 8):
+    """One AllModalitiesFusion train step on a fixed batch of ``n`` raw
+    samples (``tools/cases.stage3_batch``'s at 8)."""
+    batch, (mean, std) = raw_batch(("mri", "pet1451", "tabular"), GRID,
+                                   SEED + 17, device, n=n)
     lr_pretrained = STAGE3_REGIMES["frozen" if frozen else "trained"]
     model = stage3_model(dtype, lr_pretrained,
                          dict(TAB_HPARAMS, feature_mean=mean,
@@ -189,6 +269,10 @@ def baseline_call(name: str, dtype, device):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="profile_out")
+    parser.add_argument("--convs", type=int, default=0, metavar="B",
+                        help="profile only the bf16 stage-3 step with every "
+                             "tower trained at batch B, its convolutions by "
+                             "layer and direction")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths needs an NVIDIA GPU")
@@ -212,13 +296,18 @@ def main() -> int:
     cases += [(f"{b}_{d}", lambda d=d, b=b: baseline_call(BASELINE_CASES[b],
                                                           dtypes[d], device))
               for b in BASELINE_CASES for d in dtypes]
+    if args.convs:
+        cases = [("stage3_trained_bf16", lambda: stage3_call(
+            torch.bfloat16, False, device, args.convs))]
+        report["batch"] = args.convs
     for name, build in cases:
         call = build()
         for _ in range(3):
             call()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=bool(args.convs)) as prof:
             for _ in range(CALLS):
                 with record_function(SPAN):
                     call()
@@ -228,6 +317,12 @@ def main() -> int:
                          kind)
         case["kernels_ms"] = dict(list(case["kernels_ms"].items())[:10])
         case["trace"] = str(trace_path)
+        if args.convs:
+            case["convs_ms"] = conv_layers(prof.events(), CALLS)
+            for layer, row in case["convs_ms"].items():
+                print(f"[convs] {layer}: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in row.items())
+                    + f"; all {sum(row.values()):.3f} ms a step", flush=True)
         report["cases"][name] = case
         kinds = ", ".join(f"{k} {v:.3f} ms" for k, v in
                           case["kind_ms"].items())

@@ -22,7 +22,10 @@ versions (float32 arithmetic, one rounding) the same way. The one-launch
 reductions (K4, K6) and K8 allocate their output and nothing else; K4 and
 K6 give the same bits on every call. The stage-3 and early-fusion train
 steps launch the kernels their paths reach, as many times as chip_smoke.py
-expects at full width.
+expects at full width. K10, the PET towers' narrow convolutions: each
+direction against the float64 result of its bfloat16 operands and against
+cuDNN, its weight gradient's bits on two calls, its allocations, and the
+launches of a bfloat16 stage-3 step (none in the flagship's).
 """
 
 import copy
@@ -76,8 +79,10 @@ from multimodal_alzheimer_tpu_torch.ops.quantile import interpolate
 from multimodal_alzheimer_tpu_torch.tools.kernel_times import (
     INT8_CONV_SHAPES,
     INT8_GEOMETRIES,
+    NARROW_LAYERS,
     int8_conv_operands,
     int8_geometry_operands,
+    narrow_operands,
 )
 from multimodal_alzheimer_tpu_torch.train.checkpoint import (
     sync_tower_duplicates,
@@ -1340,3 +1345,171 @@ def test_custom_ops_under_export_on_the_card(device):
     assert torch.equal(got["logits"], eager["logits"])
     assert torch.equal(got["embeddings"]["backbone_gap"],
                        eager["embeddings"]["backbone_gap"])
+
+
+# K10 (ops/narrow_conv.py): the PET towers' narrow convolutions at the
+# stage-3 shapes (kernel_times.NARROW_LAYERS: block_0 on the full grid,
+# block_1 on its first pool), a few volumes and a tower's batch of 32, and
+# on an odd grid whose tiles are ragged on every axis.
+def _narrow_operands(shape, grid, batch, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return narrow_operands(shape, tuple(grid), batch, gen, device)
+
+
+def _check_narrow(got, plain, ref, mags, tol):
+    """``got`` (bfloat16) against the float64 result ``ref`` of the same
+    bfloat16 operands: each value within 2^-8 |ref| (its one rounding to
+    bfloat16 is at most 2^-9) plus ``tol`` times the sum of the magnitudes
+    of its terms ``mags`` (float32 sums in another order); and the whole
+    tensor's distance at most 1.5 times the plain version's (cuDNN's
+    bfloat16 result, whose error is its own rounding), so a missing or
+    doubled part of a sum shows even where each value is small."""
+    got64 = got.double()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    bound = 2.0 ** -8 * ref.abs() + tol * mags
+    assert bool(((got64 - ref).abs() <= bound).all()), \
+        float(((got64 - ref).abs() - bound).max())
+    assert float((got64 - ref).norm()) <= \
+        1.5 * float((plain.double() - ref).norm()) + 2.0 ** -14 * float(
+            ref.norm())
+
+
+def _conv64(x, w, bias=None):
+    return torch.nn.functional.conv3d(x.double(), w.double(),
+                                      None if bias is None else
+                                      bias.double(), padding=w.shape[2] // 2)
+
+
+@pytest.mark.parametrize("grid,batch", [("stage3", 2), ("stage3", 32),
+                                        ((19, 23, 17), 2)], ids=str)
+@pytest.mark.parametrize("layer", sorted(NARROW_LAYERS))
+def test_narrow_conv_matches_plain(device, layer, grid, batch):
+    """fprop, dgrad (block_1; block_0's input takes no gradient) and wgrad
+    with db against the float64 result of the same bfloat16 operands, and
+    against the plain version (cuDNN's bfloat16 conv and its backward).
+    fprop and dgrad sum 1,000 to 2,000 terms (tol 2^-14, the worst-case
+    float32 error of such a sum); wgrad and db sum every voxel of the batch
+    (tol 2^-12: blocked sums of a fixed number of blocks, 264 or 528
+    partials, each block's run 16 times longer at batch 32 than at 2)."""
+    from multimodal_alzheimer_tpu_torch.ops import narrow_conv
+
+    shape, stage3 = NARROW_LAYERS[layer]
+    grid = stage3 if grid == "stage3" else grid
+    x, w, b, dy = _narrow_operands(shape, grid, batch, 11, device)
+    with torch.no_grad():
+        y = narrow_conv.fprop(x, w, b)
+        _check_narrow(y, narrow_conv.fprop_plain(x, w, b), _conv64(x, w, b),
+                      _conv64(x.abs(), w.abs(), b.abs()), 2.0 ** -14)
+        if shape in narrow_conv.DGRAD:
+            dx = narrow_conv.dgrad(dy, w)
+            flipped = w.flip((2, 3, 4)).transpose(0, 1)
+            _check_narrow(dx, narrow_conv.dgrad_plain(dy, w),
+                          _conv64(dy, flipped),
+                          _conv64(dy.abs(), flipped.abs()), 2.0 ** -14)
+        dw, db = narrow_conv.wgrad(x, dy, w.shape, True)
+        plain_dw, plain_db = narrow_conv.wgrad_plain(x, dy, w.shape, True)
+        ref = torch.ops.aten.convolution_backward(
+            dy.double(), x.double(), w.double(), [w.shape[0]], [1] * 3,
+            [w.shape[2] // 2] * 3, [1] * 3, False, [0] * 3, 1,
+            [False, True, True])
+        mags = torch.ops.aten.convolution_backward(
+            dy.double().abs(), x.double().abs(), w.double(), [w.shape[0]],
+            [1] * 3, [w.shape[2] // 2] * 3, [1] * 3, False, [0] * 3, 1,
+            [False, True, True])
+        _check_narrow(dw, plain_dw, ref[1], mags[1], 2.0 ** -12)
+        _check_narrow(db, plain_db, ref[2], mags[2], 2.0 ** -12)
+
+
+@pytest.mark.parametrize("layer", sorted(NARROW_LAYERS))
+def test_narrow_conv_wgrad_repeats_its_bits(device, layer):
+    """The weight gradient's reduction has a fixed order: two calls give
+    the same bits."""
+    from multimodal_alzheimer_tpu_torch.ops import narrow_conv
+
+    shape, grid = NARROW_LAYERS[layer]
+    x, w, _, dy = _narrow_operands(shape, grid, 2, 12, device)
+    first = narrow_conv.wgrad(x, dy, w.shape, True)
+    second = narrow_conv.wgrad(x, dy, w.shape, True)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("layer", sorted(NARROW_LAYERS))
+def test_narrow_conv_allocates_its_outputs_and_scratch(device, layer):
+    """fprop and dgrad allocate their output alone (dgrad reads the weights
+    flipped in place); wgrad its partials' scratch, dw and db; each call one
+    launch of its direction."""
+    from multimodal_alzheimer_tpu_torch.ops import narrow_conv
+
+    shape, grid = NARROW_LAYERS[layer]
+    x, w, b, dy = _narrow_operands(shape, grid, 1, 13, device)
+    calls = {"fprop": (lambda: narrow_conv.fprop(x, w, b), 1),
+             "wgrad": (lambda: narrow_conv.wgrad(x, dy, w.shape, True), 3)}
+    if shape in narrow_conv.DGRAD:
+        calls["dgrad"] = (lambda: narrow_conv.dgrad(dy, w), 1)
+    for name, (call, blocks) in calls.items():
+        before = narrow_conv.LAUNCHES[name]
+        _, allocated = _allocations(call)
+        assert allocated == blocks, name
+        assert narrow_conv.LAUNCHES[name] == before + 1, name
+
+
+def test_narrow_conv_refuses_what_it_has_no_kernel_for(device):
+    """On the card a shape with no instance raises; no call falls back."""
+    from multimodal_alzheimer_tpu_torch.ops import narrow_conv
+
+    x, w, b, dy = _narrow_operands((16, 32, 3), (8, 8, 8), 1, 14, device)
+    with pytest.raises(ValueError, match="no forward"):
+        narrow_conv.fprop(x, w, b)
+    with pytest.raises(ValueError, match="no weight gradient"):
+        narrow_conv.wgrad(x, dy, w.shape, True)
+    x, w, b, dy = _narrow_operands((1, 8, 5), (8, 8, 8), 1, 14, device)
+    with pytest.raises(ValueError, match="no input gradient"):
+        narrow_conv.dgrad(dy, w)
+    with pytest.raises(TypeError):
+        narrow_conv.fprop(x.float(), w, b)
+
+
+def test_stage3_and_flagship_steps_launch_k10_by_the_rule(device):
+    """A bfloat16 stage-3 step with every tower trained launches K10 as the
+    rule predicts: the two PET towers' block_0 and block_1 forward (4),
+    their weight gradients (4) and block_1's input gradients (2); a
+    bfloat16 AnatCNN step launches none."""
+    from multimodal_alzheimer_tpu_torch.ops import narrow_conv
+    from multimodal_alzheimer_tpu_torch.tools.cases import (
+        FUSION_HPARAMS,
+        TAB_HPARAMS,
+        raw_batch,
+        stage3_model,
+        stage3_preprocess,
+    )
+
+    batch, (mean, std) = raw_batch(("mri", "pet1451", "tabular"),
+                                   (32, 36, 32), 15, device, n=2)
+    model = stage3_model(torch.bfloat16, 1e-5,
+                         dict(TAB_HPARAMS, feature_mean=mean,
+                              feature_std=std), device=device)
+    hp = dict(FUSION_HPARAMS, lr_pretrained=1e-5)
+    optimizer = fusion_optimizer(hp, ("stage3out", "cls3"), model)
+    step = make_train_step(model, make_criterion(hp), optimizer,
+                           stage3_preprocess())
+    narrow_conv.reset_launches()
+    _, aux = step(TrainState(model, optimizer), batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(aux["loss"].item())
+    assert narrow_conv.LAUNCHES == {"fprop": 4, "dgrad": 2, "wgrad": 4}
+    flagship = AnatCNN(3, resnet_depth=18, dtype=torch.bfloat16,
+                       fused_bn="full").to(device)
+    optimizer = torch.optim.Adam(flagship.parameters(), lr=1e-3)
+    step = make_train_step(flagship, make_criterion(
+        {"n_classes": 3, "loss_class_weights": [0.4, 0.3, 0.3]}), optimizer,
+        make_device_preprocess(normalize_mri={"per_scan_norm": "normalize"}))
+    narrow_conv.reset_launches()
+    mri = make_labeled_volumes(2, (32, 36, 32), n_classes=3, seed=16,
+                               modalities=("mri",))
+    step(TrainState(flagship, optimizer),
+         {"mri": torch.from_numpy(mri["mri"]).to(device),
+          "mri_mask": torch.from_numpy(mri["mri_mask"]).to(device),
+          "label": torch.tensor([0, 2], device=device)})
+    torch.cuda.synchronize()
+    assert narrow_conv.LAUNCHES == {"fprop": 0, "dgrad": 0, "wgrad": 0}
