@@ -47,12 +47,18 @@ def item_bytes(ctx) -> int:
     return 2 if str(ctx["dtype"]).endswith("bfloat16") else 4
 
 
+def backbone_convs(ctx) -> list:
+    """The convolution records of the cell's backbone at the run's grid."""
+    return yardstick.backbone_convs(ctx["config"], ctx["bench_dir"],
+                                    ctx["grid"])
+
+
 def bn_step_bound_s(ctx, kernels) -> float:
     """Σ of K4-K7's bounds over one step's BatchNorms: one per convolution
-    of each ResNet-18 tower that runs, at the step's batch."""
+    of each MRI tower's backbone that runs, at the step's batch."""
     towers = ctx["config"]["towers"]["mri"] if trained_towers(ctx) else 1
     total = 0.0
-    for conv in yardstick.resnet18_convs(ctx["grid"]):
+    for conv in backbone_convs(ctx):
         shape = (ctx["batch"], conv[2]) + tuple(conv[7])
         b = yardstick.bn_bound_s(shape, item_bytes(ctx))
         total += sum(b[k] for k in kernels)

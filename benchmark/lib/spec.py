@@ -1,13 +1,16 @@
 """Finding a cell's pieces by name: the cell's file, its configuration, its
-traffic mix and the traffic kind that runs it, and the metrics that
-``BENCHMARK.json`` asks of it. A configuration whose architecture the
-reference does not implement is refused when its cell is loaded.
+traffic mix and the traffic kind that runs it, the backbone file its
+configuration names, and the metrics that ``BENCHMARK.json`` asks of it. A
+configuration whose architecture the reference does not implement, or that
+its traffic kind does not admit, is refused when its cell is loaded.
 
 A cell ``<cell>`` is ``workloads/<cell>.json`` ({"config", "traffic",
 "why"}); its configuration is ``configs/<config>.json``, its traffic mix
 ``traffic/<traffic>.json`` (parameters only, with a ``kind``), the kind's
-generator ``traffic/<kind>.py``, and a per-layer metric ``<metric>`` the
-reader ``metrics/<metric>.py``. Adding any of them is adding a file.
+generator ``traffic/<kind>.py`` (with an optional ``admit(cell)`` that
+refuses a cell it cannot run), its backbone ``reference/backbones/
+<backbone>.py``, and a per-layer metric ``<metric>`` the reader
+``metrics/<metric>.py``. Adding any of them is adding a file.
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ def _module(path: Path, name: str):
 
 
 class Cell:
-    """One workload: its name, configuration, traffic mix, and the
-    end-to-end and per-layer metrics it reports."""
+    """One workload: its name, configuration, backbone module, traffic mix,
+    and the end-to-end and per-layer metrics it reports."""
 
     def __init__(self, name: str, bench_dir: Path = BENCH_DIR,
                  manifest: dict | None = None):
@@ -46,19 +49,25 @@ class Cell:
         self.spec = _load_json(bench_dir / "workloads" / f"{name}.json")
         self.config = _load_json(
             bench_dir / "configs" / f"{self.spec['config']}.json")
-        nets.check_architecture(self.config)
+        self.backbone = nets.check_architecture(self.config, bench_dir)
         self.traffic = _load_json(
             bench_dir / "traffic" / f"{self.spec['traffic']}.json")
+        self._kind = None
+        admit = getattr(self.kind(), "admit", None)
+        if admit is not None:
+            admit(self)
         if manifest is None:
             manifest = _load_json(bench_dir.parent / "BENCHMARK.json")
         self.end_to_end = _reported(manifest["end_to_end"], name)
         self.per_layer = _reported(manifest["per_layer"], name)
 
     def kind(self):
-        """The traffic kind's module (``run(cell, args, env) -> Result``)."""
-        kind = self.traffic["kind"]
-        return _module(self.dir / "traffic" / f"{kind}.py",
-                       f"_portbench_traffic_{kind}")
+        """The traffic kind's module (``run(cell, env) -> dict``)."""
+        if self._kind is None:
+            kind = self.traffic["kind"]
+            self._kind = _module(self.dir / "traffic" / f"{kind}.py",
+                                 f"_portbench_traffic_{kind}")
+        return self._kind
 
     def reader(self, metric: str):
         """The per-layer metric's reader module (``read(ctx)``)."""

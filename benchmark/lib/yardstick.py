@@ -6,6 +6,8 @@ These are frozen copies, written here in plain Python, of the arithmetic of
 the port's ``tools/kernel_times.py`` (bytes and operations of K1-K9) and of
 the root ``bench.py`` (convolution FLOPs per volume of a train step); the
 benchmark imports neither. Later changes to the program cannot move them.
+A backbone's convolutions come from its file under ``reference/backbones/``
+(``convs(grid)``), which the configuration names.
 
 Peaks (NVIDIA's data sheet, H100 SXM, dense, at the 700 W limit): 989
 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s float32 outside the tensor cores,
@@ -15,6 +17,8 @@ TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s float32 outside the tensor cores,
 from __future__ import annotations
 
 import math
+
+from benchmark.reference import nets
 
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
@@ -59,7 +63,7 @@ def norm_bound_s(batch: int, voxels: int, levels: int = 2) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Convolution geometry of the Med3D ResNet-18 (dilated) and SmallPETCNN
+# Convolution geometry of the configurations' backbones and SmallPETCNN
 # --------------------------------------------------------------------------
 
 
@@ -72,29 +76,14 @@ def conv_out(size, k: int, stride: int = 1, dilation: int = 1,
                  for n in size)
 
 
-def resnet18_convs(grid) -> list:
-    """Every convolution of one dilated ResNet-18 forward on a ``grid``
-    volume: (name, C_in, F, k, stride, dilation, input (D, H, W), output
-    (D, H, W)). 20 convolutions, 3 of them 1^3 downsamples."""
-    convs = []
-    stem_out = conv_out(grid, 7, 2)
-    convs.append(("stem", 1, 64, 7, 2, 1, tuple(grid), stem_out))
-    size = conv_out(stem_out, 3, 2)  # the stem's max pool, 3 / 2 / 1
-    inplanes = 64
-    specs = [(64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4)]
-    for li, (planes, stride, dilation) in enumerate(specs, start=1):
-        for bi in range(2):
-            st = stride if bi == 0 else 1
-            out = conv_out(size, 3, st, dilation)
-            convs.append((f"layer{li}_block{bi}.conv1", inplanes, planes, 3,
-                          st, dilation, size, out))
-            convs.append((f"layer{li}_block{bi}.conv2", planes, planes, 3, 1,
-                          dilation, out, out))
-            if st != 1 or inplanes != planes:
-                convs.append((f"layer{li}_block{bi}.downsample", inplanes,
-                              planes, 1, st, 1, size, conv_out(size, 1, st)))
-            size, inplanes = out, planes
-    return convs
+def backbone_convs(config: dict, bench_dir, grid=None) -> list:
+    """The convolution records (name, C_in, F, k, stride, dilation, input
+    (D, H, W), output (D, H, W)), the stem first, of one forward of the
+    configuration's backbone (the file ``reference/backbones/<backbone>.py``
+    under ``bench_dir``) on a ``grid`` volume, the configuration's by
+    default."""
+    net = nets.backbone(config, bench_dir)
+    return net.convs(tuple(config["grid"] if grid is None else grid))
 
 
 def pet_convs(grid, conv_out_widths=(8, 16, 32, 64),
@@ -113,16 +102,18 @@ def _flops(cin: int, f: int, k: int, out) -> float:
     return 2.0 * k ** 3 * cin * f * math.prod(out)
 
 
-def resnet18_forward_flops(grid) -> float:
-    return sum(_flops(c[1], c[2], c[3], c[7]) for c in resnet18_convs(grid))
+def forward_flops(convs) -> float:
+    """Σ 2 * taps * C_in * F * output voxels over a backbone's ``convs``."""
+    return sum(_flops(c[1], c[2], c[3], c[7]) for c in convs)
 
 
-def resnet18_train_flops(grid) -> float:
-    """Forward, input gradient and weight gradient of every convolution,
-    except the stem's input gradient (the scan is no differentiated
-    variable): 444.9e9 at 91x109x91 (``bench.py``'s count)."""
+def train_flops(convs) -> float:
+    """Forward, input gradient and weight gradient of every convolution of
+    a backbone's ``convs``, except the stem's input gradient (the scan is
+    no differentiated variable): 444.9e9 for the dilated ResNet-18 at
+    91x109x91 (``bench.py``'s count)."""
     total = 0.0
-    for name, cin, f, k, _, _, _, out in resnet18_convs(grid):
+    for name, cin, f, k, _, _, _, out in convs:
         total += (2 if name == "stem" else 3) * _flops(cin, f, k, out)
     return total
 
@@ -135,17 +126,19 @@ def pet_forward_flops(grid, *widths) -> float:
 
 
 def pet_train_flops(grid, *widths) -> float:
-    """As ``resnet18_train_flops``: no input gradient of the first conv."""
+    """As ``train_flops``: no input gradient of the first conv."""
     return sum((2 if i == 0 else 3) * _flops(c[1], c[2], c[3], c[5])
                for i, c in enumerate(pet_convs(grid, *widths)))
 
 
-def conv_flops_per_sample(config: dict, trained_towers: bool = True) -> float:
+def conv_flops_per_sample(config: dict, bench_dir,
+                          trained_towers: bool = True) -> float:
     """Analytic convolution FLOPs of one sample of a train step of
-    ``config``: each ResNet-18 and SmallPETCNN tower that runs, trained
-    (forward and both gradients) or frozen (its forward once)."""
-    if config["resnet_depth"] != 18 or config["dilated"] is not True:
-        raise ValueError("the yardstick counts the dilated ResNet-18 only")
+    ``config``: each MRI tower (its backbone file under ``bench_dir``;
+    ValueError where there is none for the configuration) and SmallPETCNN
+    tower that runs, trained (forward and both gradients) or frozen (its
+    forward once)."""
+    convs = backbone_convs(config, bench_dir)
     grid = tuple(config["grid"])
     towers = config["towers"]
     pet = config.get("pet", {})
@@ -155,14 +148,14 @@ def conv_flops_per_sample(config: dict, trained_towers: bool = True) -> float:
         shared = config.get("frozen_towers_shared", True)
         n_mri = 1 if shared else towers["mri"]
         n_pet = 1 if shared else towers.get("pet", 0)
-        return (n_mri * resnet18_forward_flops(grid)
+        return (n_mri * forward_flops(convs)
                 + (n_pet * pet_forward_flops(grid, *widths) if n_pet else 0))
-    return (towers["mri"] * resnet18_train_flops(grid)
+    return (towers["mri"] * train_flops(convs)
             + towers.get("pet", 0) * pet_train_flops(grid, *widths))
 
 
 # --------------------------------------------------------------------------
-# K9: the int8 convolutions of one ResNet-18 forward
+# K9: the int8 convolutions of one forward of a backbone of basic blocks
 # --------------------------------------------------------------------------
 
 # Epilogue mode of each convolution of the int8 graph: (residual bytes a
@@ -178,12 +171,12 @@ def _int8_mode(name: str, has_downsample: bool, last: bool) -> tuple:
     return (4 if has_downsample else 1), (4 if last else 1)
 
 
-def k9_forward_bound_s(grid, batch: int) -> float:
-    """Least time of K9's 20 launches in one int8 ResNet-18 forward of
-    ``batch`` scans: per launch the larger of 2 M F K operations at 1,979
-    TOP/s and the int8 input and weights read once, scale and bias, the
-    residual read once and the output written once, at 3.35 TB/s."""
-    convs = resnet18_convs(grid)
+def k9_forward_bound_s(convs, batch: int) -> float:
+    """Least time of K9's launches, one a convolution of ``convs`` (a
+    backbone of basic blocks), in one int8 forward of ``batch`` scans: per
+    launch the larger of 2 M F K operations at 1,979 TOP/s and the int8
+    input and weights read once, scale and bias, the residual read once and
+    the output written once, at 3.35 TB/s."""
     blocks_with_down = {c[0].rsplit(".", 1)[0] for c in convs
                         if c[0].endswith("downsample")}
     last = [c[0] for c in convs if c[0].endswith("conv2")][-1]

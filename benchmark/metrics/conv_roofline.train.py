@@ -17,7 +17,7 @@ def read(ctx):
     seconds = sum(t - s for name, s, t in dev
                   if trace.matches(name.lower(), WORDS)
                   and not trace.matches(name, EXCLUDE)) / 1e6
-    flops = (yardstick.conv_flops_per_sample(ctx["config"],
+    flops = (yardstick.conv_flops_per_sample(ctx["config"], ctx["bench_dir"],
                                              readers.trained_towers(ctx))
              * ctx["batch"] * ctx["traced_steps"])
     return readers.share(flops / yardstick.BF16_FLOP_PER_S, seconds)

@@ -9,6 +9,6 @@ def read(ctx):
     rate = ctx.get("samples_per_s")
     if not rate:
         return None
-    flops = yardstick.conv_flops_per_sample(ctx["config"],
+    flops = yardstick.conv_flops_per_sample(ctx["config"], ctx["bench_dir"],
                                             readers.trained_towers(ctx))
     return 100.0 * flops * rate / yardstick.BF16_FLOP_PER_S

@@ -1,4 +1,6 @@
-"""Plain reference of the int8 serving rule of a Med3D ResNet-18.
+"""Plain reference of the int8 serving rule of a Med3D ResNet of basic
+blocks, walked by its backbone file's ``LAYERS`` (planes, blocks, stride,
+dilation); a backbone of other blocks is refused (``check``).
 
 The rule, as the configuration states it: every conv + BatchNorm pair of the
 backbone folded into one conv with a bias (scale / sqrt(var + eps), the
@@ -20,11 +22,11 @@ a step below the configuration's int8.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from benchmark.reference.nets import LAYERS
 
 EPS = 1e-5
 
@@ -33,8 +35,18 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def fold(P, pre: str = "backbone.") -> dict:
-    """conv -> BN(eval) as conv(folded kernel) + bias, by conv name."""
+def check(net) -> None:
+    """ValueError unless the backbone module ``net`` is built of basic
+    blocks, the only blocks this rule folds and requantizes."""
+    if getattr(net, "BLOCK", None) != "basic":
+        raise ValueError(f"the int8 rule takes basic blocks only; the "
+                         f"backbone {Path(net.__file__).stem!r} has "
+                         f"{getattr(net, 'BLOCK', None)!r} blocks")
+
+
+def fold(P, layers, pre: str = "backbone.") -> dict:
+    """conv -> BN(eval) as conv(folded kernel) + bias, by conv name, over
+    the backbone's ``layers``."""
     def pair(conv, bn):
         root = torch.sqrt((P[f"{pre}{bn}.running_var"] + EPS).double()).float()
         g = P[f"{pre}{bn}.weight"] / root
@@ -42,45 +54,44 @@ def fold(P, pre: str = "backbone.") -> dict:
                 "bias": P[f"{pre}{bn}.bias"] - P[f"{pre}{bn}.running_mean"] * g}
 
     out = {"stem": pair("conv1", "bn1")}
-    for li in range(1, 5):
-        for bi in range(2):
-            blk = f"layer{li}_block{bi}"
-            out[blk + ".conv1"] = pair(blk + ".conv1", blk + ".bn1")
-            out[blk + ".conv2"] = pair(blk + ".conv2", blk + ".bn2")
-            if f"{pre}{blk}.downsample_conv.weight" in P:
-                out[blk + ".down"] = pair(blk + ".downsample_conv",
-                                          blk + ".downsample_bn")
+    for blk, _, _ in _blocks(layers):
+        out[blk + ".conv1"] = pair(blk + ".conv1", blk + ".bn1")
+        out[blk + ".conv2"] = pair(blk + ".conv2", blk + ".bn2")
+        if f"{pre}{blk}.downsample_conv.weight" in P:
+            out[blk + ".down"] = pair(blk + ".downsample_conv",
+                                      blk + ".downsample_bn")
     return out
 
 
-def _blocks():
-    for li, (_, stride, dil) in enumerate(LAYERS, start=1):
-        for bi in range(2):
-            yield li, bi, f"layer{li}_block{bi}", (stride if bi == 0 else 1), dil
+def _blocks(layers) -> list:
+    """(block name, stride, dilation) of each basic block, in order."""
+    return [(f"layer{li}_block{bi}", stride if bi == 0 else 1, dil)
+            for li, (_, blocks, stride, dil) in enumerate(layers, start=1)
+            for bi in range(blocks)]
 
 
-def _graph(folded, x, conv, relu_site, pool):
+def _graph(folded, layers, x, conv, relu_site, pool):
     """The backbone's dataflow, shared by calibration and the integer pass.
     ``conv(name, x, stride, dilation)``; ``relu_site(v, site, residual)``
     adds the residual (a (site, carrier) pair), applies ReLU and requantizes
     at ``site`` (None: stays float32)."""
     carrier = pool(relu_site(conv("stem", x, 2, 1), "pool_in", None))
     carrier_site = "pool_in"
-    for li, bi, blk, st, dil in _blocks():
+    last = _blocks(layers)[-1][0]
+    for blk, st, dil in _blocks(layers):
         h = relu_site(conv(blk + ".conv1", carrier, st, dil), f"{blk}/mid",
                       None)
         if blk + ".down" in folded:
             res = (None, conv(blk + ".down", carrier, st, 1))
         else:
             res = (carrier_site, carrier)
-        last = li == 4 and bi == 1
-        site = None if last else f"{blk}/out"
+        site = None if blk == last else f"{blk}/out"
         carrier = relu_site(conv(blk + ".conv2", h, 1, dil), site, res)
         carrier_site = site
     return carrier
 
 
-def calibrate(folded, volumes) -> dict:
+def calibrate(folded, layers, volumes) -> dict:
     """max |x| per requant site over the preprocessed (B, 1, D, H, W)
     float32 ``volumes``, through the folded float32 graph."""
     absmax: dict = {}
@@ -104,7 +115,7 @@ def calibrate(folded, volumes) -> dict:
     with torch.no_grad():
         for x in volumes:
             note("stem_in", x)
-            _graph(folded, x, conv, relu_site,
+            _graph(folded, layers, x, conv, relu_site,
                    lambda t: F.max_pool3d(t, 3, 2, 1))
     return absmax
 
@@ -113,13 +124,14 @@ def _requant(x, s: float, qmax: int):
     return torch.clamp(torch.round(x * _f32(1.0 / s)), -qmax, qmax)
 
 
-def quantize(folded, absmax, bits: int = 8) -> dict:
-    """Integer weights, per-channel multipliers and site scales."""
+def quantize(folded, layers, absmax, bits: int = 8) -> dict:
+    """Integer weights, per-channel multipliers and site scales, and the
+    backbone's ``layers``."""
     qmax = 2 ** (bits - 1) - 1
     scales = {k: max(v, 1e-12) / qmax for k, v in absmax.items()}
     inputs = {"stem": "stem_in"}
     carrier = "pool_in"
-    for li, bi, blk, st, dil in _blocks():
+    for blk, _, _ in _blocks(layers):
         inputs[blk + ".conv1"] = carrier
         inputs[blk + ".conv2"] = f"{blk}/mid"
         inputs[blk + ".down"] = carrier
@@ -132,7 +144,7 @@ def quantize(folded, absmax, bits: int = 8) -> dict:
                          qmax)
         q[name] = {"wq": wq, "mul": (sw * _f32(scales[inputs[name]])).float(),
                    "bias": e["bias"].float()}
-    return {"tree": q, "scales": scales, "qmax": qmax}
+    return {"tree": q, "scales": scales, "qmax": qmax, "layers": layers}
 
 
 def backbone(qmodel, x) -> torch.Tensor:
@@ -158,7 +170,7 @@ def backbone(qmodel, x) -> torch.Tensor:
 
     with torch.no_grad():
         x = _requant(x, scales["stem_in"], qmax)
-        return _graph(q, x, conv, relu_site,
+        return _graph(q, qmodel["layers"], x, conv, relu_site,
                       lambda t: F.max_pool3d(t, 3, 2, 1))
 
 

@@ -1,9 +1,9 @@
 """Plain PyTorch reference of the configurations' models, in float32.
 
 Written from the published descriptions and the reference repository's
-modules, independent of the program: Med3D's ResNet-18 3D (arXiv:1904.00625,
-Tencent/MedicalNet ``resnet18``; layers 3-4 at stride 1 with dilation 2 and
-4) with its GAP + Linear + ReLU head; the small PET CNN (conv 'same' ->
+modules, independent of the program: the configuration's backbone (a file
+``reference/backbones/<backbone>.py``, found by the configuration's
+``backbone`` key) with its GAP + Linear + ReLU head; the small PET CNN (conv 'same' ->
 ReLU -> max pool 2, four times, GAP, Linear 64 + ReLU, Linear); the tabular
 MLP (standardised features, Linear 256 + ReLU, Linear 1024 + ReLU,
 Linear); the three stage-2 late fusions and stage 3; the masked per-scan
@@ -21,7 +21,9 @@ statistics.
 
 from __future__ import annotations
 
+import importlib.util
 import math
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -89,30 +91,50 @@ def batch_norm(P, name, x, train: bool):
         b.reshape(shape)
 
 
-LAYERS = [(64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4)]
-
-# What the reference implements of a configuration's architecture: each
-# key's one value (the Med3D ResNet-18 with layers 3-4 dilated, a GAP +
-# Linear + ReLU head; stage 3 with two private towers of each kind, shared
-# once when frozen).
+# What the reference implements of a configuration's architecture besides
+# its backbone: each key's one value (a GAP + Linear + ReLU head; stage 3
+# with two private towers of each kind, shared once when frozen).
 IMPLEMENTED = {
-    "anat_cnn": {"resnet_depth": 18, "dilated": True, "linear_out": [],
-                 "batchnorm_begin": False, "trailing_relu": True},
+    "anat_cnn": {"linear_out": [], "batchnorm_begin": False,
+                 "trailing_relu": True},
     "all_modalities_fusion": {
-        "resnet_depth": 18, "dilated": True, "linear_out": [],
-        "batchnorm_begin": False, "trailing_relu": True,
+        "linear_out": [], "batchnorm_begin": False, "trailing_relu": True,
         "pet_tower_simple_dim_red": True, "frozen_towers_shared": True,
         "towers": {"mri": 2, "pet": 2, "tab": 2}},
 }
 
 
-def check_architecture(config: dict) -> None:
-    """Refuse a configuration whose architecture keys ask for what the
-    reference does not implement (ValueError), rather than compare and
-    count a model other than the one the program builds."""
+def backbone(config: dict, bench_dir):
+    """The module of ``reference/backbones/<backbone>.py`` under
+    ``bench_dir``, named by the configuration's ``backbone``; ValueError
+    where there is no such file, or where the configuration's architecture
+    keys differ from the file's ``KEYS``."""
+    name = config.get("backbone")
+    path = Path(bench_dir) / "reference" / "backbones" / f"{name}.py"
+    if not (isinstance(name, str) and name.isidentifier()
+            and path.is_file()):
+        raise ValueError(f"no backbone file for backbone={name!r}")
+    spec = importlib.util.spec_from_file_location(
+        f"_portbench_backbone_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    bad = [f"{k}={config.get(k)!r} (the backbone {name!r} implements {v!r})"
+           for k, v in module.KEYS.items() if config.get(k) != v]
+    if bad:
+        raise ValueError(f"configuration {config.get('name')!r}: "
+                         + "; ".join(bad))
+    return module
+
+
+def check_architecture(config: dict, bench_dir):
+    """The configuration's backbone module (``backbone``), after refusing a
+    configuration whose architecture keys ask for what the reference does
+    not implement (ValueError), rather than compare and count a model other
+    than the one the program builds."""
     model = config.get("model")
     if model not in IMPLEMENTED:
         raise ValueError(f"the reference implements no model {model!r}")
+    module = backbone(config, bench_dir)
     bad = [f"{k}={config.get(k)!r} (implemented: {v!r})"
            for k, v in IMPLEMENTED[model].items() if config.get(k) != v]
     if model == "all_modalities_fusion":
@@ -127,39 +149,13 @@ def check_architecture(config: dict) -> None:
     if bad:
         raise ValueError(f"configuration {config.get('name')!r}: "
                          + "; ".join(bad))
+    return module
 
 
-def resnet18(P, pre, x, train: bool, nm: Numerics = F32):
-    """The dilated Med3D ResNet-18 backbone: (B, 1, D, H, W) -> feature
-    map."""
-    x = nm.conv(x, P[f"{pre}conv1.weight"], stride=2, padding=3)
-    x = F.relu(batch_norm(P, f"{pre}bn1", x, train))
-    x = F.max_pool3d(x, 3, 2, 1)
-    inplanes = 64
-    for li, (planes, stride, dil) in enumerate(LAYERS, start=1):
-        for bi in range(2):
-            blk = f"{pre}layer{li}_block{bi}."
-            st = stride if bi == 0 else 1
-            out = nm.conv(x, P[blk + "conv1.weight"], stride=st,
-                          padding=dil, dilation=dil)
-            out = F.relu(batch_norm(P, blk + "bn1", out, train))
-            out = nm.conv(out, P[blk + "conv2.weight"], padding=dil,
-                          dilation=dil)
-            out = batch_norm(P, blk + "bn2", out, train)
-            if st != 1 or inplanes != planes:
-                res = nm.conv(x, P[blk + "downsample_conv.weight"],
-                              stride=st)
-                res = batch_norm(P, blk + "downsample_bn", res, train)
-            else:
-                res = x
-            x = F.relu(out + res)
-            inplanes = planes
-    return x
-
-
-def anat_cnn(P, pre, x, train: bool, nm: Numerics = F32) -> dict:
-    """ResNet-18 -> GAP (the ``backbone_gap`` tap) -> Linear -> ReLU."""
-    gap = resnet18(P, pre + "backbone.", x, train, nm).mean((2, 3, 4))
+def anat_cnn(P, pre, x, train: bool, net, nm: Numerics = F32) -> dict:
+    """The backbone ``net`` (a backbone module) -> GAP (the
+    ``backbone_gap`` tap) -> Linear -> ReLU."""
+    gap = net.forward(P, pre + "backbone.", x, train, nm).mean((2, 3, 4))
     logits = F.relu(nm.linear(gap, P[pre + "head.cls.weight"],
                               P[pre + "head.cls.bias"]))
     return {"logits": logits, "gap": gap}
@@ -198,13 +194,14 @@ def _lin(P, name, x, nm):
     return nm.linear(x, P[f"{name}.weight"], P[f"{name}.bias"])
 
 
-def stage3(P, batch, train: bool, frozen: bool, tab_stats,
+def stage3(P, batch, train: bool, frozen: bool, tab_stats, net,
            nm: Numerics = F32) -> torch.Tensor:
     """Stage-3 logits (the reference's All_Modalities_Fusion): the three
     stage-2 fusions' pre-ReLU 64-d taps, concatenated, Linear 64 -> ReLU ->
     Linear. Frozen towers and stage-2 heads run without gradient, each
     tower once (PET and MRI of the PET-MRI fusion, tabular of the
-    MRI-tabular fusion); trained, each fusion runs its own towers."""
+    MRI-tabular fusion); trained, each fusion runs its own towers. ``net``:
+    the MRI towers' backbone module."""
     mri = batch["mri"][:, None]
     pet = batch["pet1451"][:, None]
     tab = batch["tabular"]
@@ -212,15 +209,17 @@ def stage3(P, batch, train: bool, frozen: bool, tab_stats,
     with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
         if frozen:
             towers = {"pet": pet_cnn(P, ap + "pet_model.", pet, nm),
-                      "mri": anat_cnn(P, ap + "mri_model.", mri, train, nm),
+                      "mri": anat_cnn(P, ap + "mri_model.", mri, train,
+                                      net, nm),
                       "tab": tabular_mlp(P, at + "tab_model.", tab,
                                          *tab_stats, nm)}
             own = {ap: towers, at: towers, pt: towers}
         else:
             own = {ap: {"pet": pet_cnn(P, ap + "pet_model.", pet, nm),
                         "mri": anat_cnn(P, ap + "mri_model.", mri, train,
-                                        nm)},
-                   at: {"mri": anat_cnn(P, at + "mri_model.", mri, train, nm),
+                                        net, nm)},
+                   at: {"mri": anat_cnn(P, at + "mri_model.", mri, train, net,
+                                        nm),
                         "tab": tabular_mlp(P, at + "tab_model.", tab,
                                            *tab_stats, nm)},
                    pt: {"pet": pet_cnn(P, pt + "pet_model.", pet, nm),

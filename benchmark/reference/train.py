@@ -25,18 +25,20 @@ BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 
 
-def loss_fn(config: dict, regime: dict, tab_stats):
-    """``loss(P, batch, numerics) -> (loss, logits)`` of the configuration
-    on a preprocessed batch, in train mode."""
+def loss_fn(config: dict, net, regime: dict, tab_stats):
+    """``loss(P, batch, numerics) -> (loss, logits)`` of the configuration,
+    its MRI backbone the module ``net``, on a preprocessed batch, in train
+    mode."""
     weights = config["loss_class_weights"]
     frozen = regime.get("lr_pretrained") is None
 
     def loss(P, batch, nm, rows=None):
         if config["model"] == "anat_cnn":
             logits = nets.anat_cnn(P, "", batch["mri"][:, None], True,
-                                   nm)["logits"]
+                                   net, nm)["logits"]
         else:
-            logits = nets.stage3(P, batch, True, frozen, tab_stats, nm)
+            logits = nets.stage3(P, batch, True, frozen, tab_stats, net,
+                                 nm)
         return (nets.weighted_cross_entropy(logits[:rows],
                                             batch["label"][:rows], weights),
                 logits)
@@ -61,7 +63,7 @@ def groups(config: dict, regime: dict, names) -> dict:
     return out
 
 
-def readings(config: dict, regime: dict, weights: dict, batches: list,
+def readings(config: dict, net, regime: dict, weights: dict, batches: list,
              tab_stats=None, numerics: str = "float32",
              loss_rows: int | None = None) -> dict:
     """{'loss': [3 floats], 'logits1': the first step's logits, 'grad':
@@ -70,7 +72,8 @@ def readings(config: dict, regime: dict, weights: dict, batches: list,
     configuration's fusion heads, 'labels1' and 'class_weights': what the
     first loss is taken over} of three reference steps from
     ``weights`` (a state dict; the trained leaves are its parameters named
-    by ``config_param_names``) on the raw ``batches``."""
+    by ``config_param_names``) on the raw ``batches``, the configuration's
+    backbone the module ``net``."""
     nm = nets.Numerics(numerics)
     l2 = config["optimizer"].get("l2_reg", 0.0)
     params = {k: v.detach().clone().float() for k, v in weights.items()}
@@ -79,7 +82,7 @@ def readings(config: dict, regime: dict, weights: dict, batches: list,
     start = {k: v.detach().clone() for k, v in leaves.items()}
     m = {k: torch.zeros_like(v) for k, v in leaves.items()}
     v2 = {k: torch.zeros_like(v) for k, v in leaves.items()}
-    loss = loss_fn(config, regime, tab_stats)
+    loss = loss_fn(config, net, regime, tab_stats)
     out = {"loss": [], "grad": {}, "grad1": {}}
     for t, raw in enumerate(batches, start=1):
         batch = nets.preprocess(config["preprocess"]["train"], raw)

@@ -89,7 +89,8 @@ def execute(cell_name: str, env: Env, bench_dir: Path = BENCH_DIR) -> dict:
     result = {"correct": correct, "attempted": out["attempted"],
               "failed": out["failed"], "metrics": {}}
     if env.trace:
-        ctx = dict(out["ctx"], trace=out["trace"], cell=cell.name)
+        ctx = dict(out["ctx"], trace=out["trace"], cell=cell.name,
+                   bench_dir=cell.dir)
         for m in cell.per_layer:
             value = cell.reader(m["name"]).read(ctx)
             if value is not None:

@@ -1,7 +1,7 @@
 """A configuration's architecture keys reach the program, the reference and
 the yardstick; a value that the reference or the yardstick does not
-implement is refused before anything is built, never run as another
-model."""
+implement (no backbone file for it, or a file whose keys differ) is refused
+before anything is built, never run as another model."""
 
 import json
 import shutil
@@ -14,13 +14,24 @@ from benchmark.tests.cpu import SIZES
 from benchmark.traffic import train
 
 MANIFEST = json.loads((spec.BENCH_DIR.parent / "BENCHMARK.json").read_text())
+FIXTURES = spec.BENCH_DIR / "tests" / "fixtures" / "backbones"
+
+# A backbone whose blocks the int8 rule does not take.
+BOTTLENECK = """KEYS = {"resnet_depth": 18, "dilated": True}
+BLOCK = "bottleneck"
+LAYERS = [(64, 3, 1, 1), (128, 4, 2, 1), (256, 6, 1, 2), (512, 3, 1, 4)]
+"""
 
 
 def _copy_with(tmp_path, config: str, **changes):
+    """A copy of the harness, with the fixtures' backbone files among its
+    own, and ``changes`` made to the configuration ``config``."""
     root = tmp_path / "benchmark"
     shutil.copytree(spec.BENCH_DIR, root,
                     ignore=shutil.ignore_patterns("_cache", "__pycache__",
                                                   "tests"))
+    for f in FIXTURES.glob("*.py"):
+        shutil.copy(f, root / "reference" / "backbones" / f.name)
     path = root / "configs" / f"{config}.json"
     cfg = json.loads(path.read_text())
     cfg.update(changes)
@@ -28,13 +39,34 @@ def _copy_with(tmp_path, config: str, **changes):
     return root, cfg
 
 
-@pytest.mark.parametrize("key,value", [
-    ("resnet_depth", 50), ("dilated", False), ("linear_out", [64]),
-    ("batchnorm_begin", True), ("trailing_relu", False), ("model", "r50")])
-def test_an_unimplemented_anat_architecture_is_refused(tmp_path, key, value):
+@pytest.mark.parametrize("key,value,match", [
+    ("resnet_depth", 50, "resnet_depth"), ("dilated", False, "dilated"),
+    ("linear_out", [64], "linear_out"),
+    ("batchnorm_begin", True, "batchnorm_begin"),
+    ("trailing_relu", False, "trailing_relu"), ("model", "r50", "r50"),
+    # a backbone that has no file
+    ("backbone", "medicalnet_r50", "medicalnet_r50"),
+    # a backbone file whose KEYS (resnet_depth 10) differ from the
+    # configuration's
+    ("backbone", "medicalnet_r10_dilated", "resnet_depth=18")])
+def test_an_unimplemented_anat_architecture_is_refused(tmp_path, key, value,
+                                                        match):
     root, cfg = _copy_with(tmp_path, "anat_r18", **{key: value})
-    with pytest.raises(ValueError, match=key if key != "model" else "r50"):
+    with pytest.raises(ValueError, match=match):
         spec.Cell("anat_r18.train.b32", root, MANIFEST)
+
+
+def test_a_serve_cell_of_other_blocks_is_refused(tmp_path):
+    """The int8 rule is the basic blocks' rule: a serve cell whose backbone
+    has other blocks is refused on load, naming the backbone; its train
+    cell loads."""
+    root, _ = _copy_with(tmp_path, "anat_r18", backbone="bottleneck_r18")
+    (root / "reference" / "backbones" / "bottleneck_r18.py").write_text(
+        BOTTLENECK)
+    with pytest.raises(ValueError, match="bottleneck_r18"):
+        spec.Cell("anat_r18.serve_int8.c64", root, MANIFEST)
+    assert spec.Cell("anat_r18.train.b32", root, MANIFEST).backbone.BLOCK \
+        == "bottleneck"
 
 
 @pytest.mark.parametrize("change", [
@@ -57,7 +89,11 @@ def test_the_yardstick_counts_no_other_backbone():
     cfg = json.loads((spec.BENCH_DIR / "configs" / "anat_r18.json")
                      .read_text())
     with pytest.raises(ValueError):
-        yardstick.conv_flops_per_sample(dict(cfg, resnet_depth=50))
+        yardstick.conv_flops_per_sample(dict(cfg, resnet_depth=50),
+                                        spec.BENCH_DIR)
+    with pytest.raises(ValueError):
+        yardstick.conv_flops_per_sample(dict(cfg, backbone="medicalnet_r50"),
+                                        spec.BENCH_DIR)
 
 
 def test_tower_widths_reach_program_reference_and_yardstick(tmp_path):
@@ -82,5 +118,5 @@ def test_tower_widths_reach_program_reference_and_yardstick(tmp_path):
     assert numbers["grad_gap"] < 0.01
     default = json.loads((spec.BENCH_DIR / "configs" / "allmod_r18.json")
                          .read_text())
-    assert yardstick.conv_flops_per_sample(cfg) < \
-        yardstick.conv_flops_per_sample(default)
+    assert yardstick.conv_flops_per_sample(cfg, root) < \
+        yardstick.conv_flops_per_sample(default, spec.BENCH_DIR)

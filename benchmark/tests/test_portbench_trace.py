@@ -53,6 +53,7 @@ def _train_ctx(cell):
     c = _cell(cell)
     return {"config": c.config, "regime": c.traffic["regime"], "batch": 32,
             "grid": tuple(c.config["grid"]), "dtype": "torch.bfloat16",
+            "bench_dir": spec.BENCH_DIR,
             "traced_steps": 1, "trace": EVENTS, "loader_wait_ms": 0.5,
             "samples_per_s": 100.0}
 
@@ -80,12 +81,14 @@ def test_preprocess_and_conv_readers():
     assert cell.reader("preprocess_roofline.train").read(ctx) == \
         pytest.approx(100 * k3 / 50e-6)
     # conv time: the clipped fprop (50), the wgrad (250), the transpose (50)
-    flops = yardstick.conv_flops_per_sample(ctx["config"]) * 32
+    flops = yardstick.conv_flops_per_sample(ctx["config"],
+                                            spec.BENCH_DIR) * 32
     assert cell.reader("conv_roofline.train").read(ctx) == pytest.approx(
         100 * flops / yardstick.BF16_FLOP_PER_S / 350e-6)
     assert cell.reader("device_idle.train").read(ctx) == pytest.approx(15.0)
     assert cell.reader("mfu.train").read(ctx) == pytest.approx(
-        100 * yardstick.conv_flops_per_sample(ctx["config"]) * 100.0
+        100 * yardstick.conv_flops_per_sample(ctx["config"], spec.BENCH_DIR)
+        * 100.0
         / yardstick.BF16_FLOP_PER_S)
 
 
@@ -93,12 +96,14 @@ def test_serve_readers_weight_rungs_by_the_histogram():
     c = _cell("anat_r18.serve_int8.c64")
     counters = ((0, 0, {32: 10, 3: 1}), (4, 100, {32: 13, 3: 2}))
     ctx = {"config": c.config, "grid": (91, 109, 91), "batch": 32,
+           "bench_dir": spec.BENCH_DIR,
            "ladder": [8], "trace": EVENTS, "traced_counters": counters,
            "window": ((0, 0, {}), (10, 300, {})), "scans_per_s": 1000.0,
            "stage_ms": 2.0}
     assert readers.rung_weights(ctx, counters) == {32: 0.75, 8: 0.25}
-    per_launch = (0.75 * yardstick.k9_forward_bound_s((91, 109, 91), 32)
-                  + 0.25 * yardstick.k9_forward_bound_s((91, 109, 91), 8)) / 20
+    convs = yardstick.backbone_convs(c.config, spec.BENCH_DIR)
+    per_launch = (0.75 * yardstick.k9_forward_bound_s(convs, 32)
+                  + 0.25 * yardstick.k9_forward_bound_s(convs, 8)) / 20
     assert c.reader("k9_roofline.serve").read(ctx) == pytest.approx(
         100 * 2 * per_launch / 100e-6)
     # K1 and K2 ran outside the traced window: nothing to read

@@ -1,5 +1,5 @@
 """The frozen yardstick, pinned to the numbers the port's kernel table and
-bench.py state."""
+bench.py state; the ResNet-18's convolutions come from its backbone file."""
 
 import json
 from pathlib import Path
@@ -10,11 +10,19 @@ from benchmark.lib import yardstick as y
 
 GRID = (91, 109, 91)
 VOXELS = 91 * 109 * 91
-CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+BENCH = Path(__file__).resolve().parents[1]
+CONFIGS = BENCH / "configs"
+
+
+def _r18_convs():
+    cfg = json.loads((CONFIGS / "anat_r18.json").read_text())
+    return y.backbone_convs(cfg, BENCH, GRID)
 
 
 def test_anat_train_flops_per_volume():
-    assert y.resnet18_train_flops(GRID) == pytest.approx(444.9e9, rel=1e-4)
+    assert y.train_flops(_r18_convs()) == pytest.approx(444.9e9, rel=1e-4)
+    assert y.train_flops(_r18_convs()) == 444904047616.0
+    assert y.forward_flops(_r18_convs()) == 150004531712.0
 
 
 def test_norm_bounds_at_batch_8():
@@ -25,12 +33,15 @@ def test_norm_bounds_at_batch_8():
 
 
 def test_k9_forward_bound_at_batch_8_and_32():
-    assert y.k9_forward_bound_s(GRID, 8) * 1e3 == pytest.approx(0.625, abs=5e-4)
-    assert y.k9_forward_bound_s(GRID, 32) * 1e3 == pytest.approx(2.500, abs=5e-4)
+    convs = _r18_convs()
+    assert y.k9_forward_bound_s(convs, 8) * 1e3 == pytest.approx(0.625,
+                                                                 abs=5e-4)
+    assert y.k9_forward_bound_s(convs, 32) * 1e3 == pytest.approx(2.500,
+                                                                  abs=5e-4)
 
 
 def test_resnet18_has_20_convs_3_downsamples():
-    convs = y.resnet18_convs(GRID)
+    convs = _r18_convs()
     assert len(convs) == 20
     assert sum(c[0].endswith("downsample") for c in convs) == 3
     assert convs[0][7] == (46, 55, 46)
@@ -52,8 +63,8 @@ def test_bn_bounds_at_the_stem():
 def test_configs_state_the_yardstick_flops(name):
     cfg = json.loads((CONFIGS / f"{name}.json").read_text())
     d = cfg["derived"]
-    assert d["conv_flops_per_sample_train"] == pytest.approx(
-        y.conv_flops_per_sample(cfg, True))
+    assert d["conv_flops_per_sample_train"] == y.conv_flops_per_sample(
+        cfg, BENCH, True)
     if "conv_flops_per_sample_frozen" in d:
-        assert d["conv_flops_per_sample_frozen"] == pytest.approx(
-            y.conv_flops_per_sample(cfg, False))
+        assert d["conv_flops_per_sample_frozen"] == y.conv_flops_per_sample(
+            cfg, BENCH, False)

@@ -92,6 +92,12 @@ class Clients:
             self.errors.append(exc)
 
 
+def admit(cell) -> None:
+    """Refuse, when the cell is loaded, a backbone whose blocks the int8
+    rule does not take (ValueError)."""
+    ref_int8.check(cell.backbone)
+
+
 def calibration(seed: int, mix: dict, grid, device) -> list:
     """The calibration batches: raw scans drawn from their own stream."""
     g = inputs.generator(seed, "calibration", device)
@@ -107,6 +113,7 @@ class Session:
     def __init__(self, cell, seed: int, device, overrides: dict):
         cfg, mix = cell.config, cell.traffic
         self.cfg, self.mix, self.seed, self.device = cfg, mix, seed, device
+        self.layers = cell.backbone.LAYERS
         self.grid = tuple(overrides.get("grid", cfg["grid"]))
         self.pool = inputs.host_pool(seed, overrides.get("pool", mix["pool"]),
                                      self.grid, ["mri"], cfg["n_classes"],
@@ -168,9 +175,10 @@ def reference(session: Session, indices, bits: int = 8) -> dict:
         calib = [nets.preprocess(spec, b)["mri"][:, None]
                  for b in calibration(session.seed, session.mix,
                                       session.grid, device)]
-        folded = ref_int8.fold(P)
-        qmodel = ref_int8.quantize(folded, ref_int8.calibrate(folded, calib),
-                                   bits)
+        folded = ref_int8.fold(P, session.layers)
+        qmodel = ref_int8.quantize(
+            folded, session.layers,
+            ref_int8.calibrate(folded, session.layers, calib), bits)
         out = {"logits": [], "probs": []}
         idx = list(indices)
         for i in range(0, len(idx), session.batch):

@@ -50,6 +50,7 @@ class Session:
     def __init__(self, cell, seed: int, device, overrides: dict):
         cfg, mix = cell.config, cell.traffic
         self.cfg, self.mix, self.seed, self.device = cfg, mix, seed, device
+        self.backbone = cell.backbone
         self.grid = tuple(overrides.get("grid", cfg["grid"]))
         self.batch = overrides.get("batch", mix["batch"])
         self.pool_n = overrides.get("pool", mix["pool"])
@@ -160,9 +161,9 @@ def reference(session: Session, numerics: str = "float32",
         stats = tuple(torch.tensor(v, dtype=torch.float32,
                                    device=session.device)
                       for v in (mean, std))
-    return ref_train.readings(session.cfg, session.regime, weights,
-                              session.checked_batches(), stats, numerics,
-                              loss_rows)
+    return ref_train.readings(session.cfg, session.backbone, session.regime,
+                              weights, session.checked_batches(), stats,
+                              numerics, loss_rows)
 
 
 def run(cell, env) -> dict:
@@ -177,7 +178,10 @@ def run(cell, env) -> dict:
     t0 = time.perf_counter()
     setup_s = time.time() - env.started
     steps = 0
-    while time.perf_counter() - t0 < env.seconds:
+    # with a trace asked for, the window closes only after the traced
+    # stretch, however short the window or slow the steps
+    while time.perf_counter() - t0 < env.seconds or (
+            prof is not None and traced is None):
         if prof is not None and traced is None and \
                 time.perf_counter() - t0 >= TRACE_AT * env.seconds:
             _sync(device)
